@@ -1,0 +1,34 @@
+"""Device selection and the float32 policy.
+
+Entry points default to the CUDA device and raise without one: a run
+meant for the card never carries on silently on the CPU. The CPU is an
+explicit opt-in (``device="cpu"``), which the tests use.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def set_fp32_policy() -> None:
+    """Full float32 in every matrix product: TF32 keeps ~3 decimal
+    digits, and the reference contracts the block Hessian at
+    ``Precision.HIGHEST`` because rank correlation is the product."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` means ``cuda``; a CUDA request without a CUDA device
+    raises. Also sets the float32 policy."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device was requested (the default) but "
+            "torch.cuda.is_available() is False; pass device='cpu' to "
+            "run on the CPU explicitly"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    set_fp32_policy()
+    return dev

@@ -1,0 +1,85 @@
+"""Score kernels for the flat influence path (port of
+``fia_tpu/influence/kernels/__init__.py``).
+
+The score stage computes, for every flat related row s owned by query t,
+
+    score_s = wv_s * (2 e_s (g_s · ihvp_t) + reg_dot_t) / n_t
+
+with g_s the row's closed-form block gradient. Two variants:
+
+  - ``cuda``: the hand-written CUDA kernel of the model's block geometry
+    (``kernels/mf.py`` + ``csrc/mf_scores.cu``), which re-forms g_s from
+    the embedding tables in registers, so neither the (S, d) gradient
+    matrix nor the (S, d) iHVP expansion reaches device memory;
+  - ``torch``: the kernel's plain PyTorch version, the same function in
+    tensor ops — the CPU path and the kernel's parity anchor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fia_tpu_torch.influence.kernels import mf as _mf
+
+VARIANTS = ("cuda", "torch")
+
+_CUDA_FAMILIES = ("mf",)
+
+
+def supports_cuda(model) -> bool:
+    """A CUDA score kernel exists for this model's block geometry."""
+    return getattr(model, "kernel_family", None) in _CUDA_FAMILIES
+
+
+def resolve_variant(requested: str, model, device) -> str:
+    """Resolve an engine-level ``kernel`` request to a variant.
+
+    ``auto`` is ``cuda`` on a CUDA device and ``torch`` on the CPU.
+    Requests that cannot be served raise: ``cuda`` on the CPU, and any
+    model without a CUDA kernel on a CUDA device (the card never runs
+    the plain score stage unless asked to by name).
+    """
+    device = torch.device(device)
+    if requested == "auto":
+        requested = "cuda" if device.type == "cuda" else "torch"
+    if requested not in VARIANTS:
+        raise ValueError(f"unknown kernel variant {requested!r}")
+    if requested == "cuda":
+        if device.type != "cuda":
+            raise ValueError(f"kernel='cuda' needs a CUDA device, not {device}")
+        if not supports_cuda(model):
+            raise NotImplementedError(
+                f"{type(model).__name__} has no CUDA score kernel yet "
+                "(ROADMAP Queue B.2 ports the NCF kernel)"
+            )
+    return requested
+
+
+def row_grads(model, params, ut, it, rel_x) -> torch.Tensor:
+    """(S, d) per-row block gradients for the Hessian and grads stages
+    (the model's closed-form ``block_row_grads`` hook)."""
+    return model.block_row_grads(params, ut, it, rel_x)
+
+
+def fused_scores(model, variant: str, params, tx, t, rel_x, e, wv, B):
+    """The score stage: (S,) influence scores for the flat rows.
+
+    ``tx`` (T, 2) are the query pairs, ``t`` the rows' segment ids,
+    ``rel_x`` their own (user, item), ``e``/``wv`` residuals and
+    validity, ``B`` the (T, d + 2) ``[ihvp | reg_dot | n_t]`` pack
+    (:func:`common.query_matrix`).
+    """
+    if not supports_cuda(model):
+        raise NotImplementedError(
+            f"no score stage for {type(model).__name__} yet (ROADMAP Queue B.2)"
+        )
+    args = (rel_x, t, e, wv, tx, params["P"], params["Q"], B)
+    if variant == "cuda":
+        if rel_x.device.type != "cuda":
+            raise ValueError(
+                f"variant 'cuda' asked for with tensors on {rel_x.device}"
+            )
+        return _mf.fused_scores(*args)
+    if variant == "torch":
+        return _mf.fused_scores_reference(*args)
+    raise ValueError(f"unknown kernel variant {variant!r}")

@@ -1,0 +1,2 @@
+from fia_tpu_torch.models.base import LatentFactorModel, params_from_numpy  # noqa: F401
+from fia_tpu_torch.models.mf import MF  # noqa: F401

@@ -1,0 +1,119 @@
+"""Biased matrix factorization (port of ``fia_tpu/models/mf.py``).
+
+r̂(u, i) = p_u · q_i + b_u + b_i + b_g, squared-error loss with L2
+weight decay on the two embedding tables only; embeddings initialised
+truncated-normal with stddev 1/sqrt(k), biases zero. Parameters are
+dense (U, k)/(I, k) tensors, so the FIA block is plain row indexing.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from fia_tpu_torch.models.base import LatentFactorModel, truncated_normal
+
+
+class MF(LatentFactorModel):
+    decayed = ("P", "Q")
+    block_keys = ("pu", "qi", "bu", "bi")
+    # the score kernel (influence/kernels/mf.py) re-forms
+    # g_j = [a Q[i_j]; b P[u_j]; a; b] from the two tables itself
+    kernel_family = "mf"
+
+    def param_shapes(self):
+        k = self.embedding_size
+        return {
+            "P": (self.num_users, k),
+            "Q": (self.num_items, k),
+            "bu": (self.num_users,),
+            "bi": (self.num_items,),
+            "bg": (),
+        }
+
+    def init_params(self, generator, device=None):
+        k = self.embedding_size
+        std = 1.0 / math.sqrt(k)
+        device = device or generator.device
+
+        def zeros(n):
+            return torch.zeros(n, dtype=torch.float32, device=device)
+
+        return {
+            "P": truncated_normal(generator, (self.num_users, k), std, device),
+            "Q": truncated_normal(generator, (self.num_items, k), std, device),
+            "bu": zeros((self.num_users,)),
+            "bi": zeros((self.num_items,)),
+            "bg": zeros(()),
+        }
+
+    def predict(self, params, x):
+        u, i = x[:, 0], x[:, 1]
+        dot = torch.sum(params["P"][u] * params["Q"][i], dim=-1)
+        return dot + params["bu"][u] + params["bi"][i] + params["bg"]
+
+    # -- FIA block: [p_u (k), q_i (k), b_u, b_i] -> 2k + 2 params
+    def extract_block(self, params, u, i):
+        return {
+            "pu": params["P"][u],
+            "qi": params["Q"][i],
+            "bu": params["bu"][u],
+            "bi": params["bi"][i],
+        }
+
+    def block_predict(self, params, block, u, i, x):
+        """Predict rows ``x`` with the (u, i) block substituted where the
+        row's user/item is (u, i) — scatter-free, so the gradient w.r.t.
+        the block never builds a table-sized copy."""
+        xu, xi = x[:, 0], x[:, 1]
+        mu = (xu == u)[:, None]
+        mi = (xi == i)[:, None]
+        pu = torch.where(mu, block["pu"][None, :], params["P"][xu])
+        qi = torch.where(mi, block["qi"][None, :], params["Q"][xi])
+        bu = torch.where(xu == u, block["bu"], params["bu"][xu])
+        bi = torch.where(xi == i, block["bi"], params["bi"][xi])
+        return torch.sum(pu * qi, dim=-1) + bu + bi + params["bg"]
+
+    def block_row_grads(self, params, u, i, x):
+        """Closed-form per-row block Jacobian
+        g_j = [a_j Q[i_j] ; b_j P[u_j] ; a_j ; b_j], with
+        a_j = [user_j == u] and b_j = [item_j == i]; ``u``/``i`` may be
+        scalars or per-row ids aligned with ``x``."""
+        xu, xi = x[:, 0], x[:, 1]
+        a = (xu == u).to(torch.float32)
+        b = (xi == i).to(torch.float32)
+        return torch.cat(
+            [
+                a[:, None] * params["Q"][xi],
+                b[:, None] * params["P"][xu],
+                a[:, None],
+                b[:, None],
+            ],
+            dim=1,
+        )
+
+    def block_cross_const(self, params):
+        """∇²r̂ on rows equal to the query pair: ∇²(pu·qi) = [[0 I];[I 0]]
+        in the (pu, qi) blocks."""
+        k = self.embedding_size
+        d = self.block_size
+        r = torch.arange(k, device=params["P"].device)
+        C = torch.zeros((d, d), dtype=torch.float32, device=params["P"].device)
+        C[r, k + r] = 1.0
+        C[k + r, r] = 1.0
+        return C
+
+    def block_reg_diag(self, params):
+        """L2 diagonal: wd on the embedding dims, none on the biases."""
+        k = self.embedding_size
+        dev = params["P"].device
+        return torch.cat(
+            [torch.full((2 * k,), self.weight_decay, dtype=torch.float32,
+                        device=dev),
+             torch.zeros((2,), dtype=torch.float32, device=dev)]
+        )
+
+    @property
+    def block_size(self) -> int:
+        return 2 * self.embedding_size + 2

@@ -1,0 +1,172 @@
+"""The port's flat influence query (``query_batch(device="cpu")``)
+against the reference's ``InfluenceEngine.query_batch``, on the same
+numpy data and the reference's params carried across.
+
+Counts and related rows are exactly equal; scores meet rtol 2e-5 /
+atol 1e-6 (rtol 1e-4 on ``tiny_splits``, see ``TINY_RTOL``) with
+per-query Spearman > 1 − 1e-9; iHVPs and test vectors are allclose. The reference runs its default XLA analytic score stage
+and its Pallas kernel in interpret mode. Each ``stage`` prefix of the
+flat program matches the reference's ``_flat_fn(s_pad, stage=...)``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fia_tpu.data.dataset import RatingDataset as RefDataset
+from fia_tpu.eval.metrics import spearman
+from fia_tpu.influence.engine import InfluenceEngine as RefEngine
+from fia_tpu.models import MF as RefMF
+from fia_tpu_torch.data.dataset import RatingDataset
+from fia_tpu_torch.influence.engine import STAGES, InfluenceEngine
+from fia_tpu_torch.models import MF, params_from_numpy
+
+torch.set_num_threads(2)
+
+RTOL, ATOL = 2e-5, 1e-6
+RHO_ONE = 1.0 - 1e-9
+# tiny_splits: the block Hessians reach cond(H) ≈ 1.1e3 (measured), so a
+# float32 LU solve carries ~cond·eps ≈ 7e-5 relative error whichever
+# implementation runs it. Measured there: port vs reference iHVP 5.3e-5
+# relative (scores 2.4e-5), port vs a float64 solve of the same H
+# 3.6e-5, reference vs float64 2.0e-5; the Hessians agree to 1.2e-7.
+# The iHVP and score bar of that case is therefore rtol 1e-4.
+TINY_RTOL = 1e-4
+
+
+def _kernels_setup():
+    """tests/test_kernels.py:44-54 (MF): U=24, I=18, k=4, 400 rows; the
+    last user/item id is unseen, so (U-1, I-1) is a count-0 query."""
+    U, I = 24, 18
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, U - 1, 400), rng.integers(0, I - 1, 400)],
+                 axis=1).astype(np.int32)
+    y = rng.integers(1, 6, 400).astype(np.float32)
+    pts = x[np.random.default_rng(7).choice(400, size=11, replace=False)]
+    pts = np.concatenate([pts.astype(np.int64), [[U - 1, I - 1]]])
+    return (U, I, 4), x, y, pts
+
+
+def _tiny_setup(tiny_splits):
+    tr = tiny_splits["train"]
+    return (60, 40, 8), tr.x, tr.y, tiny_splits["test"].x[:37].astype(np.int64)
+
+
+@pytest.fixture(scope="module", params=["kernels", "tiny"])
+def case(request):
+    if request.param == "kernels":
+        shape, x, y, pts = _kernels_setup()
+    else:
+        shape, x, y, pts = _tiny_setup(request.getfixturevalue("tiny_splits"))
+    U, I, k = shape
+    ref_model = RefMF(U, I, k, 1e-3)
+    arrays = jax.tree_util.tree_map(
+        np.asarray, ref_model.init_params(jax.random.PRNGKey(0)))
+    model = MF(U, I, k, 1e-3)
+    port = InfluenceEngine(model, params_from_numpy(model, arrays, "cpu"),
+                           RatingDataset(x, y), damping=1e-3, device="cpu")
+    ref = RefEngine(ref_model, arrays, RefDataset(x, y), damping=1e-3)
+    rtol = RTOL if request.param == "kernels" else TINY_RTOL
+    return port, ref, ref_model, arrays, x, y, pts, rtol
+
+
+def _assert_query_parity(res, ref, pts, rtol):
+    assert np.array_equal(res.counts, ref.counts)
+    for t in range(len(pts)):
+        assert np.array_equal(res.related_of(t), ref.related_of(t))
+        a, b = res.scores_of(t), ref.scores_of(t)
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=ATOL)
+        if len(a) > 1 and (np.std(a) > 0 or np.std(b) > 0):
+            assert spearman(a, b) > RHO_ONE
+    np.testing.assert_allclose(res.ihvp, ref.ihvp, rtol=rtol, atol=ATOL)
+    np.testing.assert_allclose(res.test_grad, ref.test_grad, rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_query_batch_matches_reference(case):
+    port, ref, _, _, _, _, pts, rtol = case
+    assert len(pts) % port.query_bucket != 0  # the query axis is padded
+    res = port.query_batch(pts)
+    _assert_query_parity(res, ref.query_batch(pts), pts, rtol)
+    assert res.ihvp.shape == (len(pts), port.model.block_size)
+
+
+def test_query_batch_matches_reference_pallas(case):
+    port, _, ref_model, arrays, x, y, pts, rtol = case
+    ref = RefEngine(ref_model, arrays, RefDataset(x, y), damping=1e-3,
+                    kernel="pallas")
+    _assert_query_parity(port.query_batch(pts), ref.query_batch(pts), pts,
+                         rtol)
+
+
+def test_count_zero_query():
+    shape, x, y, pts = _kernels_setup()
+    U, I, k = shape
+    model = MF(U, I, k, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    res = InfluenceEngine(model, params, RatingDataset(x, y), damping=1e-3,
+                          device="cpu").query_batch(pts)
+    assert res.counts[-1] == 0 and len(res.scores_of(len(pts) - 1)) == 0
+    assert np.isfinite(res.ihvp).all()
+
+
+def test_padded_views_match_reference(case):
+    port, ref, _, _, _, _, pts, rtol = case
+    res, want = port.query_batch(pts), ref.query_batch(pts)
+    assert np.array_equal(res.related_idx, want.related_idx)
+    assert np.array_equal(res.related_mask, want.related_mask)
+    np.testing.assert_allclose(res.scores, want.scores, rtol=rtol, atol=ATOL)
+
+
+def test_single_pair(case):
+    port, ref, _, _, _, _, pts, rtol = case
+    res, want = port.query_batch(pts[0]), ref.query_batch(pts[0])
+    _assert_query_parity(res, want, pts[:1], rtol)
+
+
+@pytest.mark.parametrize("stage", STAGES)
+def test_stage_prefixes_match_reference(case, stage):
+    port, ref, _, _, _, _, pts, rtol = case
+    counts, tx, s_pad = port._flat_inputs(pts)
+    T = len(pts)
+    got = port._flat_fn(s_pad, stage)(
+        port.params, port.train_x, port.train_y, port._postings, tx)
+    want = ref._flat_fn(s_pad, stage)(
+        ref.params, ref.train_x, ref.train_y, ref._postings,
+        jnp.asarray(tx.numpy()), ref._rowfeat)
+    if stage == "hessian":
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.shape == b.shape
+        if a.shape[0] != s_pad:  # per-query outputs: the real queries
+            a, b = a[:T], b[:T]
+        # grads and hessian meet the bar in both cases; the solve sets
+        # the iHVP and score tolerance (TINY_RTOL)
+        tol = RTOL if stage in ("grads", "hessian") else rtol
+        np.testing.assert_allclose(a, b, rtol=tol, atol=ATOL)
+
+
+@pytest.mark.parametrize("kw", [
+    {"solver": "cg"}, {"solver": "lissa"}, {"mesh": object()},
+    {"shard_tables": True}, {"row_features": "on"}, {"impl": "padded"},
+    {"cache_dir": "unused"},
+])
+def test_unported_options_raise(kw):
+    shape, x, y, _ = _kernels_setup()
+    model = MF(*shape, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"solver": "bogus"}, {"impl": "bogus"},
+                                {"kernel": "bogus"}, {"kernel": "cuda"}])
+def test_bad_options_raise(kw):
+    shape, x, y, _ = _kernels_setup()
+    model = MF(*shape, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError):
+        InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)

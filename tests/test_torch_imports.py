@@ -1,0 +1,121 @@
+"""The port stands alone: importing every module of ``fia_tpu_torch``
+and ``chip_smoke`` loads no JAX and nothing of the ``fia_tpu`` package,
+and the entry points default to CUDA, raising without it."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import fia_tpu_torch
+from fia_tpu_torch.data.dataset import RatingDataset
+from fia_tpu_torch.device import resolve_device
+from fia_tpu_torch.influence.engine import InfluenceEngine
+from fia_tpu_torch.models import MF
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(os.path.abspath(fia_tpu_torch.__file__))
+FORBIDDEN = ("jax", "jaxlib", "fia_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    """Exact package names: ``fia_tpu_torch`` shares the prefix."""
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in sorted(files)
+                if f.endswith(".py")]
+    return sorted(out)
+
+
+def _module_names():
+    names = []
+    for path in _port_sources():
+        rel = os.path.relpath(path, REPO)[: -len(".py")]
+        parts = rel.split(os.sep)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        names.append(".".join(parts))
+    return names
+
+
+def test_forbidden_matches_exact_names():
+    assert _forbidden("jax") and _forbidden("fia_tpu.models")
+    assert not _forbidden("fia_tpu_torch") and not _forbidden("jaxtyping")
+
+
+def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
+    names = _module_names()
+    assert "fia_tpu_torch.influence.engine" in names and "chip_smoke" in names
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded = __import__("json").loads(out.stdout.strip().splitlines()[-1])
+    assert set(names) <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_import_statement_names_jax_or_fia_tpu(path):
+    """Also catches imports inside functions, which an import test never
+    runs."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module]
+        else:
+            continue
+        assert not [m for m in mods if _forbidden(m)], (path, node.lineno)
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    model = MF(4, 3, 2, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    train = RatingDataset(np.asarray([[0, 0], [1, 2], [3, 1]]),
+                          np.asarray([1.0, 2.0, 3.0]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InfluenceEngine(model, params, train)
+    eng = InfluenceEngine(model, params, train, device="cpu")
+    assert eng.device.type == "cpu"
+    assert eng.active_kernel_variant() == "torch"
+
+
+def test_device_sets_the_fp32_policy(monkeypatch):
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_chip_smoke_refuses_without_cuda(monkeypatch):
+    """No result and a non-zero exit when there is no CUDA device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    assert chip_smoke.main() != 0

@@ -1,0 +1,154 @@
+"""The port's MF hooks and test vector against the reference's, on the
+reference's own params carried across as numpy (rtol 1e-6)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fia_tpu.influence import grads as ref_grads
+from fia_tpu.models import MF as RefMF
+from fia_tpu_torch.influence import grads as port_grads
+from fia_tpu_torch.models import MF, params_from_numpy
+
+torch.set_num_threads(2)
+
+U, I, K_EMB, WD = 24, 18, 4, 1e-3
+RTOL, ATOL = 1e-6, 1e-7
+
+
+@pytest.fixture(scope="module")
+def pair():
+    ref = RefMF(U, I, K_EMB, WD)
+    arrays = jax.tree_util.tree_map(
+        np.asarray, ref.init_params(jax.random.PRNGKey(0))
+    )
+    # non-zero biases, so the bias terms are exercised too
+    rng = np.random.default_rng(1)
+    arrays = dict(arrays)
+    arrays["bu"] = rng.standard_normal(U).astype(np.float32)
+    arrays["bi"] = rng.standard_normal(I).astype(np.float32)
+    arrays["bg"] = np.float32(0.3)
+    port = MF(U, I, K_EMB, WD)
+    ref_params = jax.tree_util.tree_map(jnp.asarray, arrays)
+    return ref, ref_params, port, params_from_numpy(port, arrays, "cpu")
+
+
+def _x(n=50, seed=2):
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.integers(0, U, n), rng.integers(0, I, n)],
+                    axis=1).astype(np.int32)
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_predict(pair):
+    ref, rp, port, pp = pair
+    x = _x()
+    _close(port.predict(pp, torch.as_tensor(x)), ref.predict(rp, x))
+
+
+def test_block_and_flatten(pair):
+    ref, rp, port, pp = pair
+    blk = port.extract_block(pp, 3, 5)
+    rblk = ref.extract_block(rp, 3, 5)
+    for k in ref.block_keys:
+        _close(blk[k], rblk[k])
+    flat = port.flatten_block(blk)
+    _close(flat, ref.flatten_block(rblk))
+    back = port.unflatten_block(flat, blk)
+    assert all(torch.equal(back[k], blk[k]) for k in port.block_keys)
+    assert port.block_size == ref.block_size == 2 * K_EMB + 2
+
+
+def test_block_predict(pair):
+    ref, rp, port, pp = pair
+    x = _x()
+    x[:10, 0] = 3
+    x[5:15, 1] = 5
+    rng = np.random.default_rng(3)
+    vec = rng.standard_normal(port.block_size).astype(np.float32)
+    blk = port.unflatten_block(torch.as_tensor(vec),
+                               port.extract_block(pp, 3, 5))
+    rblk = ref.unflatten_block(jnp.asarray(vec), ref.extract_block(rp, 3, 5))
+    _close(port.block_predict(pp, blk, 3, 5, torch.as_tensor(x)),
+           ref.block_predict(rp, rblk, 3, 5, x))
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_block_row_grads(pair, per_row):
+    ref, rp, port, pp = pair
+    x = _x(64)
+    if per_row:  # the flat engine's layout: per-row owning-query ids
+        u, i = _x(64, seed=9).T
+        x[::2, 0] = u[::2]
+        x[1::3, 1] = i[1::3]
+        got = port.block_row_grads(pp, torch.as_tensor(u), torch.as_tensor(i),
+                                   torch.as_tensor(x))
+    else:
+        u, i = 3, 5
+        x[:20, 0] = u
+        x[10:30, 1] = i
+        got = port.block_row_grads(pp, u, i, torch.as_tensor(x))
+    _close(got, ref.block_row_grads(rp, u, i, x))
+
+
+def test_gauss_newton_constants(pair):
+    ref, rp, port, pp = pair
+    _close(port.block_cross_const(pp), ref.block_cross_const(rp))
+    _close(port.block_reg_diag(pp), ref.block_reg_diag(rp))
+    _close(port.reg_loss(pp), ref.reg_loss(rp))
+
+
+@pytest.mark.parametrize("u,i", [(3, 5), (0, 0), (23, 17)])
+def test_block_prediction_grad(pair, u, i):
+    ref, rp, port, pp = pair
+    xq = np.asarray([[u, i]], np.int32)
+    _close(port_grads.block_prediction_grad(port, pp, u, i,
+                                            torch.as_tensor(xq)),
+           ref_grads.block_prediction_grad(ref, rp, u, i, xq))
+
+
+def test_block_prediction_grad_batched(pair):
+    """The engine's form: vmap over (u, i, x) gives the per-query
+    vectors."""
+    ref, rp, port, pp = pair
+    tx = _x(7, seed=4)
+    got = torch.func.vmap(
+        lambda uu, ii, xj: port_grads.block_prediction_grad(
+            port, pp, uu, ii, xj[None, :])
+    )(torch.as_tensor(tx[:, 0]), torch.as_tensor(tx[:, 1]),
+      torch.as_tensor(tx))
+    want = np.stack([
+        np.asarray(ref_grads.block_prediction_grad(ref, rp, int(u), int(i),
+                                                   tx[j:j + 1]))
+        for j, (u, i) in enumerate(tx)
+    ])
+    _close(got, want)
+
+
+def test_init_params_seeded():
+    port = MF(U, I, K_EMB, WD)
+    a = port.init_params(torch.Generator().manual_seed(0))
+    b = port.init_params(torch.Generator().manual_seed(0))
+    c = port.init_params(torch.Generator().manual_seed(1))
+    assert {k: tuple(v.shape) for k, v in a.items()} == port.param_shapes()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.equal(a["P"], c["P"])
+    # truncated at 2 sigma, sigma = 1/sqrt(k)
+    assert float(a["P"].abs().max()) <= 2.0 / np.sqrt(K_EMB) + 1e-6
+    assert float(a["bu"].abs().max()) == 0.0
+
+
+def test_params_from_numpy_validates():
+    port = MF(U, I, K_EMB, WD)
+    good = {k: np.zeros(s, np.float32) for k, s in port.param_shapes().items()}
+    assert set(params_from_numpy(port, good, "cpu")) == set(good)
+    with pytest.raises(ValueError, match="names"):
+        params_from_numpy(port, {**good, "extra": np.zeros(1)}, "cpu")
+    with pytest.raises(ValueError, match="shape"):
+        params_from_numpy(port, {**good, "P": np.zeros((U, K_EMB + 1))}, "cpu")
