@@ -7,10 +7,10 @@ modules is copied here.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device the default raises
-(:func:`fia_tpu_torch.device.resolve_device`). This slice ports the MF
-flat direct-solve influence query (``InfluenceEngine.query_batch``),
-whose score stage is a hand-written CUDA kernel
-(``influence/kernels/csrc/mf_scores.cu``).
+(:func:`fia_tpu_torch.device.resolve_device`). The port so far runs the
+flat direct-solve influence query (``InfluenceEngine.query_batch``) for
+the MF and NCF models; its score stage is a hand-written CUDA kernel for
+each (``influence/kernels/csrc/mf_scores.cu`` and ``ncf_scores.cu``).
 """
 
 __version__ = "0.1.0"

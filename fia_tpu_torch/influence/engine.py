@@ -15,7 +15,7 @@ accumulated by segment. Five stages:
   2. per-row block gradients g (the model's closed-form hook);
   3. the segment-reduced damped block Hessians;
   4. a batched LU solve for the iHVPs;
-  5. the fused score stage (the CUDA kernel on the card).
+  5. the fused score stage (the model family's CUDA kernel on the card).
 
 Options of the reference that this slice does not port raise
 ``NotImplementedError`` naming their ROADMAP item.
@@ -132,7 +132,8 @@ class InfluenceEngine:
     """Block-restricted (FIA) influence over a trained model.
 
     Args:
-      model: a LatentFactorModel with the Gauss-Newton hooks (MF).
+      model: a LatentFactorModel with the Gauss-Newton hooks and a
+        score-kernel family (MF or NCF).
       params: parameter dict (tensors or numpy arrays), moved to the
         engine's device as float32.
       train: the training RatingDataset.

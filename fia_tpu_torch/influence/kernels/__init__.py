@@ -8,9 +8,11 @@ The score stage computes, for every flat related row s owned by query t,
 with g_s the row's closed-form block gradient. Two variants:
 
   - ``cuda``: the hand-written CUDA kernel of the model's block geometry
-    (``kernels/mf.py`` + ``csrc/mf_scores.cu``), which re-forms g_s from
-    the embedding tables in registers, so neither the (S, d) gradient
-    matrix nor the (S, d) iHVP expansion reaches device memory;
+    (``kernel_family``: ``kernels/mf.py`` + ``csrc/mf_scores.cu``,
+    ``kernels/ncf.py`` + ``csrc/ncf_scores.cu``), which re-forms g_s from
+    the embedding tables (and, for NCF, the MLP weights) on chip, so
+    neither the (S, d) gradient matrix nor the (S, d) iHVP expansion
+    reaches device memory;
   - ``torch``: the kernel's plain PyTorch version, the same function in
     tensor ops — the CPU path and the kernel's parity anchor.
 """
@@ -20,10 +22,12 @@ from __future__ import annotations
 import torch
 
 from fia_tpu_torch.influence.kernels import mf as _mf
+from fia_tpu_torch.influence.kernels import ncf as _ncf
 
 VARIANTS = ("cuda", "torch")
 
-_CUDA_FAMILIES = ("mf",)
+#: kernel_family -> the module of its CUDA kernel and plain version
+_CUDA_FAMILIES = {"mf": _mf, "ncf": _ncf}
 
 
 def supports_cuda(model) -> bool:
@@ -48,11 +52,14 @@ def resolve_variant(requested: str, model, device) -> str:
         if device.type != "cuda":
             raise ValueError(f"kernel='cuda' needs a CUDA device, not {device}")
         if not supports_cuda(model):
-            raise NotImplementedError(
-                f"{type(model).__name__} has no CUDA score kernel yet "
-                "(ROADMAP Queue B.2 ports the NCF kernel)"
-            )
+            raise NotImplementedError(_no_kernel(model))
     return requested
+
+
+def _no_kernel(model) -> str:
+    return (f"{type(model).__name__} has no score kernel: its kernel_family "
+            f"{getattr(model, 'kernel_family', None)!r} is none of "
+            f"{tuple(_CUDA_FAMILIES)}")
 
 
 def row_grads(model, params, ut, it, rel_x) -> torch.Tensor:
@@ -67,19 +74,19 @@ def fused_scores(model, variant: str, params, tx, t, rel_x, e, wv, B):
     ``tx`` (T, 2) are the query pairs, ``t`` the rows' segment ids,
     ``rel_x`` their own (user, item), ``e``/``wv`` residuals and
     validity, ``B`` the (T, d + 2) ``[ihvp | reg_dot | n_t]`` pack
-    (:func:`common.query_matrix`).
+    (:func:`common.query_matrix`). The model's ``kernel_operands``
+    hook supplies the tables and weights between ``tx`` and ``B``.
     """
     if not supports_cuda(model):
-        raise NotImplementedError(
-            f"no score stage for {type(model).__name__} yet (ROADMAP Queue B.2)"
-        )
-    args = (rel_x, t, e, wv, tx, params["P"], params["Q"], B)
+        raise NotImplementedError(_no_kernel(model))
+    impl = _CUDA_FAMILIES[model.kernel_family]
+    args = (rel_x, t, e, wv, tx, *model.kernel_operands(params), B)
     if variant == "cuda":
         if rel_x.device.type != "cuda":
             raise ValueError(
                 f"variant 'cuda' asked for with tensors on {rel_x.device}"
             )
-        return _mf.fused_scores(*args)
+        return impl.fused_scores(*args)
     if variant == "torch":
-        return _mf.fused_scores_reference(*args)
+        return impl.fused_scores_reference(*args)
     raise ValueError(f"unknown kernel variant {variant!r}")

@@ -1,2 +1,3 @@
 from fia_tpu_torch.models.base import LatentFactorModel, params_from_numpy  # noqa: F401
 from fia_tpu_torch.models.mf import MF  # noqa: F401
+from fia_tpu_torch.models.ncf import NCF  # noqa: F401

@@ -50,6 +50,10 @@ class LatentFactorModel:
     #: (influence/kernels/); None when the model has none.
     kernel_family: str | None = None
 
+    #: ``kernel_operands(params)``: the score kernel's table and weight
+    #: operands, in the order its wrapper takes them.
+    kernel_operands = None
+
     #: Gauss-Newton hooks of the flat query path (see the reference's
     #: models/base.py): the block Hessian over rows (x, y, w) is
     #:   H = (2/n) Σ_j w_j (g_j g_jᵀ + a_j b_j e_j · C) + diag(r)

@@ -93,6 +93,10 @@ class MF(LatentFactorModel):
             dim=1,
         )
 
+    def kernel_operands(self, params):
+        """The score kernel's table operands, in its order."""
+        return params["P"], params["Q"]
+
     def block_cross_const(self, params):
         """∇²r̂ on rows equal to the query pair: ∇²(pu·qi) = [[0 I];[I 0]]
         in the (pu, qi) blocks."""

@@ -2,11 +2,15 @@
 against the reference's ``InfluenceEngine.query_batch``, on the same
 numpy data and the reference's params carried across.
 
+Both models, MF and NCF, on two inputs each: the reference's kernel-test
+setup (tests/test_kernels.py:44-54, k = 4) and ``tiny_splits`` (k = 8).
 Counts and related rows are exactly equal; scores meet rtol 2e-5 /
-atol 1e-6 (rtol 1e-4 on ``tiny_splits``, see ``TINY_RTOL``) with
-per-query Spearman > 1 − 1e-9; iHVPs and test vectors are allclose. The reference runs its default XLA analytic score stage
-and its Pallas kernel in interpret mode. Each ``stage`` prefix of the
-flat program matches the reference's ``_flat_fn(s_pad, stage=...)``.
+atol 1e-6 (rtol 1e-4 for MF on ``tiny_splits``, see ``TINY_RTOL``) with
+per-query Spearman > 1 − 1e-9; iHVPs (see ``NCF_TINY_IHVP_RTOL``) and
+test vectors are allclose. The reference runs its default XLA analytic
+score stage and its Pallas kernel in interpret mode. Each ``stage``
+prefix of the flat program matches the reference's
+``_flat_fn(s_pad, stage=...)``.
 """
 
 import jax
@@ -19,9 +23,10 @@ from fia_tpu.data.dataset import RatingDataset as RefDataset
 from fia_tpu.eval.metrics import spearman
 from fia_tpu.influence.engine import InfluenceEngine as RefEngine
 from fia_tpu.models import MF as RefMF
+from fia_tpu.models import NCF as RefNCF
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.influence.engine import STAGES, InfluenceEngine
-from fia_tpu_torch.models import MF, params_from_numpy
+from fia_tpu_torch.models import MF, NCF, params_from_numpy
 
 torch.set_num_threads(2)
 
@@ -34,6 +39,20 @@ RHO_ONE = 1.0 - 1e-9
 # 3.6e-5, reference vs float64 2.0e-5; the Hessians agree to 1.2e-7.
 # The iHVP and score bar of that case is therefore rtol 1e-4.
 TINY_RTOL = 1e-4
+# NCF on tiny_splits: the block Hessians are well conditioned
+# (cond(H) <= 28, measured) and agree to 8.7e-8, but the iHVP's entries
+# span about three decades (max |ihvp| ≈ 30). A float32 LU solve's error
+# is normwise, ≈ cond·eps·‖x‖ (measured: port vs reference 6.2e-7 of
+# max |ihvp|), so the smallest entries carry up to 2.8e-4 relative error
+# port vs reference; against a float64 solve of the same H the reference
+# is 2.0e-4 off and the port 7.4e-5. That case's iHVP bar is therefore
+# rtol 5e-4; its scores, dominated by the large entries, meet RTOL.
+NCF_TINY_IHVP_RTOL = 5e-4
+FAMILIES = {"mf": (MF, RefMF), "ncf": (NCF, RefNCF)}
+# (score rtol, iHVP rtol) of each (family, input)
+TOLS = {("mf", "kernels"): (RTOL, RTOL), ("mf", "tiny"): (TINY_RTOL, TINY_RTOL),
+        ("ncf", "kernels"): (RTOL, RTOL),
+        ("ncf", "tiny"): (RTOL, NCF_TINY_IHVP_RTOL)}
 
 
 def _kernels_setup():
@@ -54,25 +73,28 @@ def _tiny_setup(tiny_splits):
     return (60, 40, 8), tr.x, tr.y, tiny_splits["test"].x[:37].astype(np.int64)
 
 
-@pytest.fixture(scope="module", params=["kernels", "tiny"])
+@pytest.fixture(scope="module", params=sorted(TOLS),
+                ids=lambda p: "-".join(p))
 def case(request):
-    if request.param == "kernels":
+    family, setup = request.param
+    if setup == "kernels":
         shape, x, y, pts = _kernels_setup()
     else:
         shape, x, y, pts = _tiny_setup(request.getfixturevalue("tiny_splits"))
     U, I, k = shape
-    ref_model = RefMF(U, I, k, 1e-3)
+    Port, Ref = FAMILIES[family]
+    ref_model = Ref(U, I, k, 1e-3)
     arrays = jax.tree_util.tree_map(
         np.asarray, ref_model.init_params(jax.random.PRNGKey(0)))
-    model = MF(U, I, k, 1e-3)
+    model = Port(U, I, k, 1e-3)
     port = InfluenceEngine(model, params_from_numpy(model, arrays, "cpu"),
                            RatingDataset(x, y), damping=1e-3, device="cpu")
     ref = RefEngine(ref_model, arrays, RefDataset(x, y), damping=1e-3)
-    rtol = RTOL if request.param == "kernels" else TINY_RTOL
-    return port, ref, ref_model, arrays, x, y, pts, rtol
+    return port, ref, ref_model, arrays, x, y, pts, TOLS[request.param]
 
 
-def _assert_query_parity(res, ref, pts, rtol):
+def _assert_query_parity(res, ref, pts, tols):
+    rtol, ihvp_rtol = tols
     assert np.array_equal(res.counts, ref.counts)
     for t in range(len(pts)):
         assert np.array_equal(res.related_of(t), ref.related_of(t))
@@ -80,31 +102,32 @@ def _assert_query_parity(res, ref, pts, rtol):
         np.testing.assert_allclose(a, b, rtol=rtol, atol=ATOL)
         if len(a) > 1 and (np.std(a) > 0 or np.std(b) > 0):
             assert spearman(a, b) > RHO_ONE
-    np.testing.assert_allclose(res.ihvp, ref.ihvp, rtol=rtol, atol=ATOL)
+    np.testing.assert_allclose(res.ihvp, ref.ihvp, rtol=ihvp_rtol, atol=ATOL)
     np.testing.assert_allclose(res.test_grad, ref.test_grad, rtol=RTOL,
                                atol=ATOL)
 
 
 def test_query_batch_matches_reference(case):
-    port, ref, _, _, _, _, pts, rtol = case
+    port, ref, _, _, _, _, pts, tols = case
     assert len(pts) % port.query_bucket != 0  # the query axis is padded
     res = port.query_batch(pts)
-    _assert_query_parity(res, ref.query_batch(pts), pts, rtol)
+    _assert_query_parity(res, ref.query_batch(pts), pts, tols)
     assert res.ihvp.shape == (len(pts), port.model.block_size)
 
 
 def test_query_batch_matches_reference_pallas(case):
-    port, _, ref_model, arrays, x, y, pts, rtol = case
+    port, _, ref_model, arrays, x, y, pts, tols = case
     ref = RefEngine(ref_model, arrays, RefDataset(x, y), damping=1e-3,
                     kernel="pallas")
     _assert_query_parity(port.query_batch(pts), ref.query_batch(pts), pts,
-                         rtol)
+                         tols)
 
 
-def test_count_zero_query():
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_count_zero_query(family):
     shape, x, y, pts = _kernels_setup()
     U, I, k = shape
-    model = MF(U, I, k, 1e-3)
+    model = FAMILIES[family][0](U, I, k, 1e-3)
     params = model.init_params(torch.Generator().manual_seed(0))
     res = InfluenceEngine(model, params, RatingDataset(x, y), damping=1e-3,
                           device="cpu").query_batch(pts)
@@ -113,7 +136,7 @@ def test_count_zero_query():
 
 
 def test_padded_views_match_reference(case):
-    port, ref, _, _, _, _, pts, rtol = case
+    port, ref, _, _, _, _, pts, (rtol, _) = case
     res, want = port.query_batch(pts), ref.query_batch(pts)
     assert np.array_equal(res.related_idx, want.related_idx)
     assert np.array_equal(res.related_mask, want.related_mask)
@@ -121,52 +144,72 @@ def test_padded_views_match_reference(case):
 
 
 def test_single_pair(case):
-    port, ref, _, _, _, _, pts, rtol = case
+    port, ref, _, _, _, _, pts, tols = case
     res, want = port.query_batch(pts[0]), ref.query_batch(pts[0])
-    _assert_query_parity(res, want, pts[:1], rtol)
+    _assert_query_parity(res, want, pts[:1], tols)
 
 
-@pytest.mark.parametrize("stage", STAGES)
+@pytest.mark.parametrize("stage", STAGES + ("operands",))
 def test_stage_prefixes_match_reference(case, stage):
-    port, ref, _, _, _, _, pts, rtol = case
+    port, ref, _, _, _, _, pts, (rtol, ihvp_rtol) = case
     counts, tx, s_pad = port._flat_inputs(pts)
     T = len(pts)
     got = port._flat_fn(s_pad, stage)(
         port.params, port.train_x, port.train_y, port._postings, tx)
+    if stage == "operands":
+        # the reference has no such prefix: its score stage's inputs are
+        # the grads prefix's rows and the solve prefix's iHVP
+        tx_, t, rel_x, e, wv, B = got
+        assert torch.equal(tx_, tx) and t.shape == wv.shape == (s_pad,)
+        assert B.shape == (tx.shape[0], port.model.block_size + 2)
+        want_ihvp = np.asarray(ref._flat_fn(s_pad, "solve")(
+            ref.params, ref.train_x, ref.train_y, ref._postings,
+            jnp.asarray(tx.numpy()), ref._rowfeat)[0])
+        np.testing.assert_allclose(B[:T, :-2].numpy(), want_ihvp[:T],
+                                   rtol=ihvp_rtol, atol=ATOL)
+        np.testing.assert_array_equal(
+            B[:T, -1].numpy(), np.maximum(port.index.counts_batch(pts), 1))
+        total = int(counts.sum())  # the real rows come first, all valid
+        assert float(wv[:total].sum()) == total
+        return
     want = ref._flat_fn(s_pad, stage)(
         ref.params, ref.train_x, ref.train_y, ref._postings,
         jnp.asarray(tx.numpy()), ref._rowfeat)
+    # tolerance by output: grads and Hessians meet the bar in every case;
+    # the solve sets the iHVP's and the scores' (see TOLS)
+    tol = {"grads": (RTOL, RTOL), "hessian": (RTOL,),
+           "solve": (ihvp_rtol, RTOL),
+           "scores": (rtol, ihvp_rtol, RTOL)}[stage]
     if stage == "hessian":
         got, want = (got,), (want,)
-    for a, b in zip(got, want):
+    for a, b, rt in zip(got, want, tol):
         a, b = a.numpy(), np.asarray(b)
         assert a.shape == b.shape
         if a.shape[0] != s_pad:  # per-query outputs: the real queries
             a, b = a[:T], b[:T]
-        # grads and hessian meet the bar in both cases; the solve sets
-        # the iHVP and score tolerance (TINY_RTOL)
-        tol = RTOL if stage in ("grads", "hessian") else rtol
-        np.testing.assert_allclose(a, b, rtol=tol, atol=ATOL)
+        np.testing.assert_allclose(a, b, rtol=rt, atol=ATOL)
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [
     {"solver": "cg"}, {"solver": "lissa"}, {"mesh": object()},
     {"shard_tables": True}, {"row_features": "on"}, {"impl": "padded"},
     {"cache_dir": "unused"},
 ])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, family):
     shape, x, y, _ = _kernels_setup()
-    model = MF(*shape, 1e-3)
+    model = FAMILIES[family][0](*shape, 1e-3)
     params = model.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)
 
 
+@pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [{"solver": "bogus"}, {"impl": "bogus"},
                                 {"kernel": "bogus"}, {"kernel": "cuda"}])
-def test_bad_options_raise(kw):
+def test_bad_options_raise(kw, family):
     shape, x, y, _ = _kernels_setup()
-    model = MF(*shape, 1e-3)
+    model = FAMILIES[family][0](*shape, 1e-3)
     params = model.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError):
         InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)

@@ -15,13 +15,14 @@ import fia_tpu_torch
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence.engine import InfluenceEngine
-from fia_tpu_torch.models import MF
+from fia_tpu_torch.models import MF, NCF
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(fia_tpu_torch.__file__))
 FORBIDDEN = ("jax", "jaxlib", "fia_tpu")
+NCF_MODULES = ("fia_tpu_torch.models.ncf", "fia_tpu_torch.influence.kernels.ncf")
 
 
 def _forbidden(name: str) -> bool:
@@ -56,6 +57,7 @@ def test_forbidden_matches_exact_names():
 def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     names = _module_names()
     assert "fia_tpu_torch.influence.engine" in names and "chip_smoke" in names
+    assert set(NCF_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -87,11 +89,33 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
         assert not [m for m in mods if _forbidden(m)], (path, node.lineno)
 
 
-def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+@pytest.mark.parametrize("module", NCF_MODULES)
+def test_ncf_modules_import_alone_without_nvcc(module):
+    """Imported on their own, with no nvcc to be found: no JAX, nothing
+    of fia_tpu, and no kernel library built or loaded."""
+    env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
+    env["PATH"] = os.path.dirname(sys.executable)
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "from fia_tpu_torch.influence.kernels import common\n"
+        "print(json.dumps([sorted(sys.modules), len(common._LOADED)]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    loaded, n_libs = __import__("json").loads(
+        out.stdout.strip().splitlines()[-1])
+    assert module in loaded and n_libs == 0
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("Model", [MF, NCF], ids=["mf", "ncf"])
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch, Model):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
-    model = MF(4, 3, 2, 1e-3)
+    model = Model(4, 3, 2, 1e-3)
     params = model.init_params(torch.Generator().manual_seed(0))
     train = RatingDataset(np.asarray([[0, 0], [1, 2], [3, 1]]),
                           np.asarray([1.0, 2.0, 3.0]))

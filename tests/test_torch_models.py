@@ -1,5 +1,6 @@
-"""The port's MF hooks and test vector against the reference's, on the
-reference's own params carried across as numpy (rtol 1e-6)."""
+"""The port's MF and NCF hooks and test vector against the reference's,
+on the reference's own params carried across as numpy (rtol 1e-6, the
+bar of tests/test_kernels.py:135-136)."""
 
 import jax
 import jax.numpy as jnp
@@ -9,28 +10,39 @@ import torch
 
 from fia_tpu.influence import grads as ref_grads
 from fia_tpu.models import MF as RefMF
+from fia_tpu.models import NCF as RefNCF
 from fia_tpu_torch.influence import grads as port_grads
-from fia_tpu_torch.models import MF, params_from_numpy
+from fia_tpu_torch.models import MF, NCF, params_from_numpy
 
 torch.set_num_threads(2)
 
 U, I, K_EMB, WD = 24, 18, 4, 1e-3
 RTOL, ATOL = 1e-6, 1e-7
+FAMILIES = {"mf": (MF, RefMF), "ncf": (NCF, RefNCF)}
+# per family: an embedding table, a zero-initialised bias, the block size
+TABLE = {"mf": "P", "ncf": "P_mlp"}
+BIAS = {"mf": "bu", "ncf": "b1"}
+BLOCK = {"mf": 2 * K_EMB + 2, "ncf": 4 * K_EMB}
 
 
-@pytest.fixture(scope="module")
-def pair():
-    ref = RefMF(U, I, K_EMB, WD)
-    arrays = jax.tree_util.tree_map(
+@pytest.fixture(scope="module", params=sorted(FAMILIES))
+def pair(request):
+    Port, Ref = FAMILIES[request.param]
+    ref = Ref(U, I, K_EMB, WD)
+    arrays = dict(jax.tree_util.tree_map(
         np.asarray, ref.init_params(jax.random.PRNGKey(0))
-    )
+    ))
     # non-zero biases, so the bias terms are exercised too
     rng = np.random.default_rng(1)
-    arrays = dict(arrays)
-    arrays["bu"] = rng.standard_normal(U).astype(np.float32)
-    arrays["bi"] = rng.standard_normal(I).astype(np.float32)
-    arrays["bg"] = np.float32(0.3)
-    port = MF(U, I, K_EMB, WD)
+    if request.param == "mf":
+        arrays["bu"] = rng.standard_normal(U).astype(np.float32)
+        arrays["bi"] = rng.standard_normal(I).astype(np.float32)
+        arrays["bg"] = np.float32(0.3)
+    else:
+        for name in ("b1", "b2", "b3"):
+            shape = arrays[name].shape
+            arrays[name] = 0.1 * rng.standard_normal(shape).astype(np.float32)
+    port = Port(U, I, K_EMB, WD)
     ref_params = jax.tree_util.tree_map(jnp.asarray, arrays)
     return ref, ref_params, port, params_from_numpy(port, arrays, "cpu")
 
@@ -62,7 +74,8 @@ def test_block_and_flatten(pair):
     _close(flat, ref.flatten_block(rblk))
     back = port.unflatten_block(flat, blk)
     assert all(torch.equal(back[k], blk[k]) for k in port.block_keys)
-    assert port.block_size == ref.block_size == 2 * K_EMB + 2
+    assert port.block_size == ref.block_size
+    assert port.block_size == BLOCK[port.kernel_family]
 
 
 def test_block_predict(pair):
@@ -131,24 +144,67 @@ def test_block_prediction_grad_batched(pair):
     _close(got, want)
 
 
-def test_init_params_seeded():
-    port = MF(U, I, K_EMB, WD)
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_init_params_seeded(family):
+    port = FAMILIES[family][0](U, I, K_EMB, WD)
     a = port.init_params(torch.Generator().manual_seed(0))
     b = port.init_params(torch.Generator().manual_seed(0))
     c = port.init_params(torch.Generator().manual_seed(1))
     assert {k: tuple(v.shape) for k, v in a.items()} == port.param_shapes()
     assert all(torch.equal(a[k], b[k]) for k in a)
-    assert not torch.equal(a["P"], c["P"])
+    table, bias = TABLE[family], BIAS[family]
+    assert not torch.equal(a[table], c[table])
     # truncated at 2 sigma, sigma = 1/sqrt(k)
-    assert float(a["P"].abs().max()) <= 2.0 / np.sqrt(K_EMB) + 1e-6
-    assert float(a["bu"].abs().max()) == 0.0
+    assert float(a[table].abs().max()) <= 2.0 / np.sqrt(K_EMB) + 1e-6
+    assert float(a[bias].abs().max()) == 0.0
 
 
-def test_params_from_numpy_validates():
-    port = MF(U, I, K_EMB, WD)
+def test_ncf_init_params_stddevs():
+    """Weights at 1/sqrt(fan_in), the seven draws distinct."""
+    p = NCF(U, I, K_EMB, WD).init_params(torch.Generator().manual_seed(0))
+    k, k2 = K_EMB, K_EMB // 2
+    for name, fan_in in (("W1", 2 * k), ("W2", k), ("W3", k2 + k)):
+        assert float(p[name].abs().max()) <= 2.0 / np.sqrt(fan_in) + 1e-6
+    assert not torch.equal(p["P_mlp"], p["P_gmf"])
+    assert all(float(p[b].abs().max()) == 0.0 for b in ("b1", "b2", "b3"))
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_params_from_numpy_validates(family):
+    port = FAMILIES[family][0](U, I, K_EMB, WD)
     good = {k: np.zeros(s, np.float32) for k, s in port.param_shapes().items()}
     assert set(params_from_numpy(port, good, "cpu")) == set(good)
     with pytest.raises(ValueError, match="names"):
         params_from_numpy(port, {**good, "extra": np.zeros(1)}, "cpu")
+    bad = TABLE[family]
     with pytest.raises(ValueError, match="shape"):
-        params_from_numpy(port, {**good, "P": np.zeros((U, K_EMB + 1))}, "cpu")
+        params_from_numpy(port, {**good, bad: np.zeros((U, K_EMB + 1))}, "cpu")
+
+
+def test_ncf_param_shapes_match_reference():
+    """The reference's own params carry across: every name and shape,
+    b3 (1,) included."""
+    ref = RefNCF(U, I, K_EMB, WD)
+    arrays = jax.tree_util.tree_map(
+        np.asarray, ref.init_params(jax.random.PRNGKey(0)))
+    port = NCF(U, I, K_EMB, WD)
+    assert {k: a.shape for k, a in arrays.items()} == port.param_shapes()
+    assert port.param_shapes()["b3"] == (1,)
+    with pytest.raises(ValueError, match="shape"):
+        params_from_numpy(port, {**arrays, "W2": np.zeros((K_EMB, K_EMB))},
+                          "cpu")
+
+
+def test_ncf_own_grads_match_autograd():
+    """The closed-form own-row backward equals torch.autograd of the
+    row sum (each r̂_j touches only row j's rows)."""
+    port = NCF(U, I, K_EMB, WD)
+    pp = port.init_params(torch.Generator().manual_seed(2))
+    pp["b1"] = 0.1 * torch.randn(K_EMB, generator=torch.Generator().manual_seed(3))
+    xu, xi = (torch.as_tensor(c) for c in _x(64).T)
+    rows = [pp[n][ix].clone().requires_grad_(True) for n, ix in
+            (("P_mlp", xu), ("Q_mlp", xi), ("P_gmf", xu), ("Q_gmf", xi))]
+    total = torch.sum(port._head(pp, *rows))
+    want = torch.autograd.grad(total, rows)
+    for got, w in zip(port.own_grads(pp, xu, xi), want):
+        _close(got, w)
