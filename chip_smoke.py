@@ -6,12 +6,19 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the paths from the sources in the
-     checkout (one ``nvcc`` each, all started together);
+     checkout (one ``nvcc`` each, all started together); print
+     ``nvcc --version`` and each kernel instantiation's ``ptxas``
+     registers and spills;
   3. hold each kernel against its plain PyTorch version on the card, at
      its main path's shapes plus edge cases (a ragged row count, a fully
-     masked segment, rows matching neither query id; MF's scalar path and
-     k = 6; NCF at k = 6, 64 and 256, where the kernel and the float32
-     plain version are each held against the plain version in float64);
+     masked segment, rows matching neither query id, rows that are their
+     query's own pair (a = b = 1), rows permuted so that ``t`` is
+     unsorted, one query over many row tiles; MF's scalar path and k = 6;
+     NCF's general path on unaligned tables, and NCF at every width of the
+     sweep, k = 6, 8, 32, 64, 128 and 256, where at k = 64, 128 and 256
+     the kernel and the float32 plain version are each held against the
+     plain version in float64), and require that two launches on the same
+     inputs give the same bits;
   4. drive each main path — ``InfluenceEngine.query_batch`` at ML-1M
      shape (6040 users x 3706 items, 975,460 rows, k = 16), random seeded
      weights, for 256 and then 1024 held-out queries, first MF, then
@@ -46,6 +53,8 @@ from __future__ import annotations
 import functools
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -80,12 +89,16 @@ BOUNDARY_REL = 1e-5
 # two scores closer than this share of the larger (≈ 8 float32 ulps, in
 # float64) are a tie that float32 arithmetic cannot order
 TIE_REL = 1e-6
-# NCF operand-level widths beyond the main path's, and row cuts
-NCF_WIDE_K = (6, 64, 256)
+# NCF operand-level widths beyond the main path's k = 16: the kernel's
+# register-blocked widths (8, 32, 64) and its general path (6, 128, 256);
+# and row cuts
+NCF_WIDE_K = (6, 8, 32, 64, 128, 256)
 NCF_WIDE_ROWS = {256: 65_536}
 # widths whose 128..512-term dots drift apart in two float32 orders: there
 # the kernel and the float32 plain version are each held against float64
-NCF_FLOAT64_K = (64, 256)
+NCF_FLOAT64_K = (64, 128, 256)
+# queries whose rows make the one-query case (~4k rows, many row tiles)
+ONE_QUERY_FROM = 12
 # published H100 SXM peaks (dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -107,6 +120,46 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (the toolkit's release)."""
+    out = subprocess.run([common.find_nvcc(), "--version"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()
+    return out[-1].strip() if out else "unknown"
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from
+    ``nvcc -Xptxas -v`` output, names demangled where ``c++filt`` is."""
+    report, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            report[fn] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1) if m.group(1) in report else None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            report[fn]["spill_stores"] = int(m.group(1))
+            report[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            report[fn]["registers"] = int(m.group(1))
+    filt = shutil.which("c++filt")
+    if filt and report:
+        names = subprocess.run([filt], input="\n".join(report), text=True,
+                               capture_output=True, timeout=60,
+                               check=True).stdout.splitlines()
+        if len(names) == len(report):
+            report = dict(zip(names, report.values()))
+    return report
 
 
 def card_line() -> str:
@@ -146,10 +199,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int) -> float:
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
     """Device ms of one ``fn`` call: ``iters`` calls captured in one
     CUDA graph and replayed between two events, so the host's launch
-    overhead is not counted."""
+    overhead is not counted; the median of ``replays`` replays, so one
+    stall of the card during a replay does not set the number."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -162,13 +216,16 @@ def graph_ms(fn, iters: int) -> float:
             fn()
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
 
 
 def device_breakdown(fn, wall_ms: float, top: int = 8) -> dict:
@@ -347,7 +404,9 @@ def kernel_args(ops):
 
 def edge_cases(ops, gen: torch.Generator):
     """(name, operands) at the main path's shapes plus the edge cases
-    both kernels take: a ragged S, a fully masked segment, foreign rows."""
+    both kernels take: a ragged S, a fully masked segment, foreign rows,
+    rows that are their query's own pair, unsorted ``t``, and one query
+    whose rows span many row tiles."""
     tx, t, rel_x, e, wv, B, *tables = ops
     S = rel_x.shape[0]
     cases = [("main path", ops)]
@@ -361,7 +420,42 @@ def edge_cases(ops, gen: torch.Generator):
     pick = torch.randint(0, S, (S,), generator=gen).to(rel_x.device)
     foreign[::3] = rel_x[pick[::3]]  # mostly rows of other queries
     cases.append(("foreign rows", (tx, t, foreign, e, wv, B, *tables)))
+    own = rel_x.clone()
+    own[::7] = tx[t[::7].long()]  # a = b = 1
+    cases.append(("own pair rows", (tx, t, own, e, wv, B, *tables)))
+    perm = torch.randperm(S, generator=gen).to(rel_x.device)
+    cases.append(("unsorted t", (tx, t[perm], rel_x[perm], e[perm], wv[perm],
+                                 B, *tables)))
+    one = t < ONE_QUERY_FROM  # query 0's rows, then other queries' as foreign
+    cases.append(("T=1", (tx[:1], torch.zeros_like(t[one]), rel_x[one], e[one],
+                          wv[one], B[:1], *tables)))
     return cases
+
+
+def ncf_cases(ops, gen: torch.Generator):
+    """NCF: the edge cases and the general path (one warp a row) at the
+    main path's width, which tables off 16-byte alignment take."""
+    tx, t, rel_x, e, wv, B, *tables = ops
+    cases = edge_cases(ops, gen)
+    shifted = []
+    for x in tables[:4]:  # the embedding tables, 4 bytes off alignment
+        y = torch.empty(x.numel() + 1, device=x.device)[1:].view_as(x)
+        y.copy_(x)
+        shifted.append(y)
+    cases.append(("general path", (tx, t, rel_x, e, wv, B, *shifted,
+                                   *tables[4:])))
+    return cases
+
+
+def launch_twice(mod, args) -> torch.Tensor:
+    """The kernel's scores; fails unless a second launch on the same
+    inputs gives the same bits."""
+    got = mod.fused_scores(*args)
+    again = mod.fused_scores(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{mod.__name__}: two launches on the same "
+          "inputs differ")
+    return got
 
 
 def mf_cases(ops, gen: torch.Generator):
@@ -440,10 +534,10 @@ def check_kernel(family: str, eng, pts) -> dict:
     err, excused = 0.0, 0
     # NCF's float64 tables, for its relu-boundary rule
     tables64 = to64(ops[6:]) if family == "ncf" else None
-    cases = mf_cases if family == "mf" else edge_cases
+    cases = mf_cases if family == "mf" else ncf_cases
     for case, c_ops in cases(ops, gen):
         args = kernel_args(c_ops)
-        got = mod.fused_scores(*args)
+        got = launch_twice(mod, args)
         want = mod.fused_scores_reference(*args)
         torch.cuda.synchronize()
         e, n = hold(got, want, c_ops[4], f"{name} {case}", c_ops[2], tables64)
@@ -455,7 +549,7 @@ def check_kernel(family: str, eng, pts) -> dict:
     for k in NCF_WIDE_K:
         w_ops = ncf_wide_ops(ops, k, gen)
         args = kernel_args(w_ops)
-        got = mod.fused_scores(*args)
+        got = launch_twice(mod, args)
         plain32 = mod.fused_scores_reference(*args)
         args64 = kernel_args(to64(w_ops))
         want64 = mod.fused_scores_reference(*args64)
@@ -553,6 +647,8 @@ def measure(family: str, eng, pts) -> tuple[dict, dict]:
         k_ms = graph_ms(lambda: mod.fused_scores(*k_args), iters=50)
         p_ms = graph_ms(lambda: mod.fused_scores_reference(*k_args), iters=20)
         call_ms = time_ms(lambda: mod.fused_scores(*k_args), iters=50)
+        # one call's device time by kernel (NCF: its two launches)
+        parts = device_breakdown(lambda: mod.fused_scores(*k_args), call_ms)
         b_ms, bound_by = BOUNDS[family](ops)
         total = int(counts.sum())
         batches[str(T)] = {
@@ -563,6 +659,8 @@ def measure(family: str, eng, pts) -> tuple[dict, dict]:
             "scores_per_s": total / wall,
             "kernel_ms": k_ms, "kernel_plain_ms": p_ms,
             "kernel_call_ms": call_ms,
+            "kernel_parts_ms": [[name, ms] for name, ms, _ in
+                                parts["top_kernels"]],
             "kernel_bound_ms": b_ms, "kernel_bound_by": bound_by,
             "query_batch_device": device_breakdown(
                 lambda: eng.query_batch(pts[:T]), wall * 1e3),
@@ -586,12 +684,17 @@ def main() -> int:
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # -- phase 2: build --------------------------------------------------
+    build = {"nvcc": nvcc_version(), "seconds": {}, "ptxas": {}}
+    log(f"nvcc: {build['nvcc']}")
     secs = common.build(list(SOURCES.values()))
     for name, s in secs.items():
         log(f"build {name}: {s:.2f} s")
-        for line in common.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        build["seconds"][name] = s
+        build["ptxas"][name] = ptxas_report(common.build_log(name))
+        for fn, r in build["ptxas"][name].items():
+            log(f"  ptxas: {fn}: {r.get('registers')} registers, spill "
+                f"stores {r.get('spill_stores')} B, loads "
+                f"{r.get('spill_loads')} B")
 
     # -- main paths' set-up (ML-1M shape, seeded weights) ---------------
     t0 = time.perf_counter()
@@ -608,7 +711,7 @@ def main() -> int:
         driven[family] = drive(family, eng, plain, pts)
 
     # -- phase 5: times --------------------------------------------------
-    perf = {"card": card, "models": {}}
+    perf = {"card": card, "build": build, "models": {}}
     rows = []
     for family, (eng, _) in engines.items():
         batches, last = measure(family, eng, pts)

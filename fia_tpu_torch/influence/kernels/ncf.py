@@ -37,8 +37,8 @@ from fia_tpu_torch.influence.kernels import common
 launches = 0
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 16 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p]
+    [ctypes.c_void_p] * 17 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_void_p]
 )
 _NAMES = ("rel_x", "t", "e", "wv", "tx", "P_mlp", "Q_mlp", "P_gmf", "Q_gmf",
           "W1", "b1", "W2", "b2", "W3", "B")
@@ -124,15 +124,18 @@ def fused_scores(rel_x, t, e, wv, tx, P_mlp, Q_mlp, P_gmf, Q_gmf, W1, b1, W2,
     if rel_x.device.type != "cuda":
         raise ValueError(f"unsupported device {rel_x.device}")
     _check(*args)
-    S, k, k2 = rel_x.shape[0], P_mlp.shape[1], W2.shape[1]
+    S, T, k, k2 = rel_x.shape[0], tx.shape[0], P_mlp.shape[1], W2.shape[1]
     out = torch.empty((S,), dtype=torch.float32, device=rel_x.device)
     if S == 0:
         return out
+    # the kernel's per-query products [cU|rU|gU|cI|rI|gI] (csrc note)
+    scratch = torch.empty((T, 6 * k), dtype=torch.float32,
+                          device=rel_x.device)
     fn = common.load_function("ncf_scores", "fia_ncf_fused_scores", _ARGTYPES)
     with torch.cuda.device(rel_x.device):
         stream = torch.cuda.current_stream(rel_x.device).cuda_stream
-        rc = fn(*(x.data_ptr() for x in args), out.data_ptr(), S, k, k2,
-                stream)
+        rc = fn(*(x.data_ptr() for x in args), out.data_ptr(),
+                scratch.data_ptr(), S, T, k, k2, stream)
     if rc != 0:
         raise RuntimeError(f"ncf_scores kernel launch failed: cudaError {rc}")
     launches += 1
