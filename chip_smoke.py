@@ -27,7 +27,28 @@ Phases, each of which makes the script exit non-zero when it fails:
      small input agrees with the port's CPU path;
   5. time the stages, the end-to-end query rate and each kernel beside
      its bound and its plain version (CUDA events; the card's power
-     limit is printed beside them).
+     limit is printed beside them);
+  6. drive the padded per-query program, first MF, then NCF, on 256 of
+     the same queries: ``impl="padded"`` with the direct solve, then
+     ``solver="cg"``, ``"schulz"`` and ``"lissa"`` (spectral tuning,
+     depth 10,000). Require that every result was computed on the card,
+     that neither score kernel launched (the padded path scores by
+     matvec), that two identical calls give the same bytes, and that
+     counts and related rows equal the flat path's; hold padded-direct,
+     cg and schulz to the flat direct path of phase 4 (rtol 1e-3, atol
+     1e-5, per-query Spearman ≥ 0.999), and LiSSA, which need not have
+     converged at that depth, to the same truncated recursion in float64
+     on the materialised block Hessians of 32 queries with the same
+     (scale, shift) (rtol 1e-3, atol 1e-5); its Spearman against direct
+     is recorded, not gated. On phase 4's small input, run every
+     configuration of the padded program (also the autodiff Hessian,
+     static LiSSA, ``group_queries`` and ``pad_policy="dataset"``) on
+     the card against the port's CPU path, at the same bars. Time each
+     solver's ``query_batch`` (median
+     of 3 after a warm-up, of 2 for LiSSA), its device busy share and
+     top kernels, the CG and Schulz iteration counts and LiSSA's ms a
+     recursion step, under ``models.<family>.padded`` in the ``perf``
+     line.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -35,6 +56,8 @@ of its mask and move that row's score far beyond the bar. Such a row
 passes only if the plain version in float64 puts one of the row's
 pre-activations within ``BOUNDARY_REL`` of 0; the rows so excused are
 counted and printed, and any other row beyond the bar fails the run.
+The same rule holds the NCF padded path against the flat one (phase 6),
+whose relu masks come from another forward pass.
 
 Likewise two rows whose exact scores differ by about one float32 ulp can
 be ordered either way by two summation orders, and one such swap costs a
@@ -67,6 +90,9 @@ from fia_tpu_torch.data.synthetic import (
     synthesize_ratings,
     synthetic_splits,
 )
+from fia_tpu_torch.influence import grads as G
+from fia_tpu_torch.influence import hvp as HV
+from fia_tpu_torch.influence import solvers, spectral
 from fia_tpu_torch.influence.engine import STAGES, InfluenceEngine
 from fia_tpu_torch.influence.kernels import common
 from fia_tpu_torch.influence.kernels import mf as kmf
@@ -102,6 +128,35 @@ ONE_QUERY_FROM = 12
 # published H100 SXM peaks (dense, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# the padded program (phase 6): its batch, solvers and bars against the
+# flat direct path on the same card (the reference's flat-vs-padded bar,
+# tests/test_influence.py:356-377, and the rank bar of an iterative solve)
+PADDED_T = 256
+PADDED_SOLVERS = ("direct", "cg", "schulz", "lissa")
+PADDED_RTOL, PADDED_ATOL, PADDED_RHO = 1e-3, 1e-5, 0.999
+# LiSSA is held to the same truncated recursion in float64 on this many
+# queries; a first call slower than LISSA_SLOW_S seconds times the rest
+# at LISSA_SMALL_T queries; the per-step time is over LISSA_TIMED_STEPS
+# steps; the profiled call runs LISSA_PROFILE_DEPTH steps (a 10,000-step
+# trace is too large for the profiler)
+LISSA_GATE_Q, LISSA_SLOW_S, LISSA_SMALL_T = 32, 30.0, 64
+LISSA_TIMED_STEPS, LISSA_PROFILE_DEPTH = 200, 200
+# every configuration of the padded program, on the small input of phase
+# 4 on the card against the port's CPU path, at the phase's bars; damping
+# 1e-2 keeps MF's blocks there at cond ≤ 2e2, so CG's float32 stopping
+# point (‖r‖ ≤ 1e-5‖v‖) stays well inside rtol 1e-3 on both sides
+SMALL_DAMPING = 1e-2
+SMALL_CONFIGS = {
+    "padded direct": {"impl": "padded"},
+    "autodiff Hessian": {"impl": "padded", "hessian_mode": "autodiff"},
+    "cg": {"solver": "cg"},
+    "schulz": {"solver": "schulz"},
+    "lissa spectral": {"solver": "lissa", "lissa_depth": 1000},
+    "lissa static": {"solver": "lissa", "lissa_tune": "static",
+                     "lissa_depth": 1000},
+    "group_queries": {"group_queries": True, "pad_bucket": 32},
+    "pad_policy dataset": {"pad_policy": "dataset"},
+}
 SOURCES = {"mf": "mf_scores", "ncf": "ncf_scores"}
 KERNEL_MODULES = {"mf": kmf, "ncf": kncf}
 REPLACES = {"mf": "fia_tpu/influence/kernels/mf.py:25",
@@ -572,6 +627,21 @@ def check_kernel(family: str, eng, pts) -> dict:
     return {"max_abs_err": err, "boundary_rows": excused}
 
 
+def relu_excuse(family: str, ops):
+    """NCF: ``excuse(rows)`` for :func:`compare_results`, over the packed
+    row numbers of a batch whose flat operands are ``ops``: which rows
+    lie on a relu boundary in float64. MF: ``None``."""
+    if family != "ncf":
+        return None
+    rel_x, tables64 = ops[2], to64(ops[6:])
+
+    def excuse(rows):
+        idx = torch.as_tensor(rows, device=rel_x.device)
+        return boundary_rows(rel_x[idx], tables64).cpu().numpy()
+
+    return excuse
+
+
 def drive(family: str, eng, plain, pts) -> dict:
     """Phase 4: the main path, launches counted from 0, against the
     plain score stage on the card and a small input against the CPU."""
@@ -595,16 +665,9 @@ def drive(family: str, eng, plain, pts) -> dict:
         def exact(ops=ops, total=total):
             scores = mod.fused_scores_reference(*kernel_args(to64(ops)))
             return scores[:total].cpu().numpy()
-        excuse = None
-        if family == "ncf":
-            rel_x, tables64 = ops[2], to64(ops[6:])
-
-            def excuse(rows, rel_x=rel_x, tables64=tables64):
-                idx = torch.as_tensor(rows, device=rel_x.device)
-                return boundary_rows(rel_x[idx], tables64).cpu().numpy()
         parity[T] = compare_results(res, ref, f"{family} T={T} kernel vs "
-                                    "plain", RTOL, ATOL, RHO_MIN, excuse,
-                                    exact)
+                                    "plain", RTOL, ATOL, RHO_MIN,
+                                    relu_excuse(family, ops), exact)
         log(f"{family} T={T}: {int(res.counts.sum())} scores, kernel vs "
             f"plain {parity[T]}")
     # a small input against the port's CPU path
@@ -673,6 +736,287 @@ def measure(family: str, eng, pts) -> tuple[dict, dict]:
     return batches, last
 
 
+def padded_engine(eng, train, solver: str, **kw):
+    """A padded-path engine on ``eng``'s params: ``impl="padded"`` for
+    the direct solve, else the iterative ``solver``."""
+    kw = dict(kw, **({"impl": "padded"} if solver == "direct"
+                     else {"solver": solver}))
+    return InfluenceEngine(eng.model, eng.params, train, damping=DAMPING, **kw)
+
+
+def spy_devices(eng) -> list:
+    """Record the device of every output tensor the engine fetches to
+    the host (its packed scores, iHVPs and test vectors)."""
+    seen = []
+    assemble = eng._assemble_packed
+
+    def spy(test_points, counts, out, pad, iterations=None):
+        seen.extend(o.device.type for o in out)
+        return assemble(test_points, counts, out, pad, iterations)
+
+    eng._assemble_packed = spy
+    return seen
+
+
+def padded_rows(eng, pts):
+    """``(u, i, rel_x, rel_y, w)`` of the padded program for queries
+    ``pts`` on the card: the related rows from the host index, in the
+    program's order (user rows, then item rows), padded as it pads."""
+    rel_idx, rel_mask, _ = eng.index.related_padded(pts, bucket=eng.pad_bucket)
+    idx = torch.as_tensor(rel_idx, device=eng.device).long()
+    tx = torch.as_tensor(np.asarray(pts, np.int64), device=eng.device)
+    w = torch.as_tensor(rel_mask, device=eng.device).to(torch.float32)
+    return tx[:, 0], tx[:, 1], eng.train_x[idx], eng.train_y[idx], w
+
+
+def lissa_recursions(eng, pts, depth: int) -> tuple[np.ndarray, np.ndarray,
+                                                    dict]:
+    """The LiSSA gate's references for queries ``pts``: the padded
+    program's truncated recursion run on the materialised analytic block
+    Hessians (+ damping + shift), with the (scale, shift) that
+    ``spectral.lissa_tuning`` gives on the port's traced HVP, once in
+    float64 and once in float32 on the same matrices; and the scores of
+    the per-example gradients against each iHVP. Returns the packed
+    float64 and float32 scores and the tuning's range."""
+    model, params = eng.model, eng.params
+    u, i, rel_x, rel_y, w = padded_rows(eng, pts)
+    d = model.block_size
+    hvp = HV.make_batched_block_hvp(model, params, u, i, rel_x, rel_y, w,
+                                    eng.damping, linearize=True)
+    scale, shift = spectral.lissa_tuning(hvp, d, scale_floor=eng.lissa_scale,
+                                         batch_shape=(len(pts),),
+                                         device=eng.device)
+    H = torch.func.vmap(lambda uu, ii, xx, yy, ww: model.block_hessian(
+        params, uu, ii, xx, yy, ww))(u, i, rel_x, rel_y, w)
+    H = H + (eng.damping + shift[:, None, None]) * torch.eye(
+        d, device=eng.device)
+    v = torch.func.vmap(lambda uu, ii, xj: G.block_prediction_grad(
+        model, params, uu, ii, xj[None, :]))(
+            u, i, torch.stack([u, i], dim=1).to(torch.int32))
+    per_ex = torch.func.vmap(
+        lambda uu, ii, xx, yy: G.per_example_block_loss_grads(
+            model, params, uu, ii, xx, yy))(u, i, rel_x, rel_y)
+    n = torch.clamp(w.sum(1), min=1.0)
+    mask = w.bool()
+    out = []
+    for dt in (torch.float64, torch.float32):
+        Hd, vd, s = H.to(dt), v.to(dt), scale.to(dt)[:, None]
+        cur = vd
+        for _ in range(depth):
+            cur = vd + cur - torch.einsum("tij,tj->ti", Hd, cur) / s
+        scores = torch.einsum("tpd,td->tp", per_ex.to(dt), cur / s) / n.to(
+            dt)[:, None]
+        out.append(scores[mask].double().cpu().numpy())  # query order
+    return out[0], out[1], {"scale": [float(scale.min()), float(scale.max())],
+                            "shift_max": float(shift.max())}
+
+
+def hold_lissa(got, exact, plain32, counts) -> dict:
+    """LiSSA's scores ``got`` against the float64 recursion ``exact``:
+    each within rtol PADDED_RTOL / atol PADDED_ATOL, plus a per-query
+    slack of twice the float32 recursion's own distance from float64 on
+    that query (``plain32``: the same recursion on the same matrices in
+    float32).
+
+    Why the slack (float64 argument): 10,000 float32 steps round the
+    running sum to ~1e-6 of the iHVP's norm, and that error reaches every
+    score of the query through one dot product as an ABSOLUTE error, so
+    a score that is small by cancellation misses a relative bar whatever
+    float32 recursion computes it: the plain float32 recursion, which
+    shares nothing with the port but the matrices, misses it on the same
+    scores by the same amounts (measured on an H100 at ML-1M shape, 32
+    queries: 1 (MF) and 6 (NCF) of 8,147 scores miss the elementwise
+    bar, the same ones for both, and the port is 7.3e-7 / 1.8e-7 from
+    the plain float32 recursion). The slack is that measured float32
+    error, and it must itself stay within PADDED_RTOL of the query's
+    largest score, so it cannot hide a wrong HVP, scale or shift.
+    """
+    off = np.concatenate([[0], np.cumsum(counts)])
+    beyond = beyond32 = slack_max = 0
+    for t in range(len(counts)):
+        a, b, c = (x[off[t]:off[t + 1]] for x in (got, exact, plain32))
+        if not len(a):
+            continue
+        bar = PADDED_ATOL + PADDED_RTOL * np.abs(b)
+        slack = 2.0 * float(np.max(np.abs(c - b)))
+        check(slack <= PADDED_RTOL * float(np.max(np.abs(b))) + PADDED_ATOL,
+              f"LiSSA gate: the float32 recursion itself is {slack / 2:.3e} "
+              f"from float64 on query {t}, beyond rtol {PADDED_RTOL} of its "
+              "largest score")
+        err = np.abs(a - b)
+        check(bool(np.all(err <= bar + slack)),
+              f"LiSSA gate: query {t}: {int(np.sum(err > bar + slack))} "
+              f"scores beyond rtol {PADDED_RTOL} atol {PADDED_ATOL} plus the "
+              f"float32 slack {slack:.3e} of the float64 recursion (max abs "
+              f"err {float(err.max()):.3e})")
+        beyond += int(np.sum(err > bar))
+        beyond32 += int(np.sum(np.abs(c - b) > bar))
+        slack_max = max(slack_max, slack / max(float(np.max(np.abs(b))),
+                                                1e-30))
+    err = np.abs(got - exact)
+    return {"scores": int(got.size), "max_abs_err": float(err.max()),
+            "max_abs_err_float32_recursion": float(np.abs(plain32 - exact)
+                                                   .max()),
+            "max_abs_err_vs_float32_recursion": float(np.abs(got - plain32)
+                                                      .max()),
+            "beyond_elementwise_bar": beyond,
+            "float32_recursion_beyond_elementwise_bar": beyond32,
+            "max_slack_share_of_largest_score": slack_max}
+
+
+def query_walls(eng, pts, n: int) -> tuple[list, list]:
+    """Host seconds of ``n`` back-to-back ``query_batch`` calls (each
+    returns host arrays, so each ends synchronised) and their results."""
+    walls, results = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        results.append(eng.query_batch(pts))
+        walls.append(time.perf_counter() - t0)
+    return walls, results
+
+
+def rank_agreement(res, ref) -> dict:
+    """Per-query Spearman of ``res`` against ``ref``: min and median."""
+    rhos = [spearman(res.scores_of(t), ref.scores_of(t))
+            for t in range(len(res.counts))
+            if res.counts[t] > 1 and np.ptp(res.scores_of(t)) > 0
+            and np.ptp(ref.scores_of(t)) > 0]
+    return {"min_spearman": float(min(rhos)),
+            "median_spearman": float(np.median(rhos))}
+
+
+def same_bytes(a, b, what: str) -> None:
+    check(a._packed.tobytes() == b._packed.tobytes()
+          and a.ihvp.tobytes() == b.ihvp.tobytes()
+          and a.test_grad.tobytes() == b.test_grad.tobytes(),
+          f"{what}: two identical query_batch calls differ")
+
+
+def padded_small(family: str, model) -> dict:
+    """Every padded configuration (``SMALL_CONFIGS``) on the card against
+    the port's CPU path, on phase 4's small input."""
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+    tm = type(model)(60, 40, 8, 1e-3)
+    tp = tm.init_params(torch.Generator().manual_seed(0))
+    tq = tiny["test"].x[:21]
+    out = {}
+    for name, kw in SMALL_CONFIGS.items():
+        card = InfluenceEngine(tm, tp, tiny["train"], damping=SMALL_DAMPING,
+                               **kw)
+        devices = spy_devices(card)
+        on_card = card.query_batch(tq)
+        on_cpu = InfluenceEngine(tm, tp, tiny["train"], damping=SMALL_DAMPING,
+                                 device="cpu", **kw).query_batch(tq)
+        what = f"{family} {name} card vs CPU (small)"
+        check(card.solver == kw.get("solver", "direct"),
+              f"{what}: the ladder escalated to {card.solver!r}")
+        check(devices and set(devices) == {"cuda"},
+              f"{what}: results computed on {set(devices)}")
+        if "group_queries" in kw:
+            check(on_card._packed is None
+                  and np.array_equal(on_card.related_idx, on_cpu.related_idx)
+                  and np.array_equal(on_card.related_mask,
+                                     on_cpu.related_mask),
+                  f"{what}: the dense views differ")
+        out[name] = compare_results(on_card, on_cpu, what, PADDED_RTOL,
+                                    PADDED_ATOL, PADDED_RHO)
+        log(f"{what}: {out[name]}")
+    return out
+
+
+def drive_padded(family: str, eng, train, pts) -> dict:
+    """Phase 6: the padded per-query program, each solver against the
+    flat direct path on the same card, with its times."""
+    T = PADDED_T
+    q = pts[:T]
+    flat = eng.query_batch(q)
+    ops = operands(eng, pts, T)
+    excuse = relu_excuse(family, ops)
+    d = eng.model.block_size
+    out = {"T": T}
+    for m in KERNEL_MODULES.values():
+        m.launches = 0
+    for solver in PADDED_SOLVERS:
+        p_eng = padded_engine(eng, train, solver)
+        devices = spy_devices(p_eng)
+        t0 = time.perf_counter()
+        res = p_eng.query_batch(q)  # the warm-up
+        first_s = time.perf_counter() - t0
+        check(p_eng.solver == solver, f"{family} padded {solver}: the NaN "
+              f"ladder escalated it to {p_eng.solver!r}")
+        check(res.ihvp.shape == (T, d) and np.isfinite(res.ihvp).all(),
+              f"{family} padded {solver}: iHVPs {res.ihvp.shape}, or "
+              "non-finite")
+        check(np.array_equal(res.counts, flat.counts)
+              and all(np.array_equal(res.related_of(t), flat.related_of(t))
+                      for t in range(T)),
+              f"{family} padded {solver}: counts or related rows differ "
+              "from the flat path's")
+        row = {"first_call_ms": first_s * 1e3, "iterations": res.iterations}
+        if solver == "lissa":
+            lt = T if first_s <= LISSA_SLOW_S else min(T, LISSA_SMALL_T)
+            walls, results = query_walls(p_eng, pts[:lt], 2)
+            same_bytes(*results, f"{family} padded lissa")
+            row["T"] = lt
+            row["vs_flat_direct"] = rank_agreement(res, flat)  # recorded
+            exact, plain32, tuning = lissa_recursions(
+                p_eng, pts[:LISSA_GATE_Q], p_eng.lissa_depth)
+            got = np.concatenate([res.scores_of(t)
+                                  for t in range(LISSA_GATE_Q)])
+            row["vs_float64_recursion"] = {
+                "queries": LISSA_GATE_Q, **tuning,
+                **hold_lissa(got, exact, plain32,
+                             res.counts[:LISSA_GATE_Q])}
+            # the HVP's trace, then the recursion alone on it, per step
+            u, i, rel_x, rel_y, w = padded_rows(p_eng, pts[:lt])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hvp = HV.make_batched_block_hvp(p_eng.model, p_eng.params, u, i,
+                                            rel_x, rel_y, w, DAMPING,
+                                            linearize=True)
+            torch.cuda.synchronize()
+            row["hvp_trace_ms"] = (time.perf_counter() - t0) * 1e3
+            v = torch.as_tensor(results[-1].test_grad, device=p_eng.device)
+
+            def steps():
+                return solvers.solve_lissa(
+                    hvp, v, scale=100.0, recursion_depth=LISSA_TIMED_STEPS,
+                    auto_scale=False)
+
+            steps_ms = time_ms(steps, iters=1, warmup=1)
+            row["ms_per_step"] = steps_ms / LISSA_TIMED_STEPS
+            row["recursion_device"] = device_breakdown(steps, steps_ms)
+            prof = padded_engine(eng, train, solver,
+                                 lissa_depth=LISSA_PROFILE_DEPTH)
+            pw, _ = query_walls(prof, pts[:lt], 2)
+            row["device"] = {"lissa_depth": LISSA_PROFILE_DEPTH,
+                             **device_breakdown(lambda: prof.query_batch(
+                                 pts[:lt]), pw[-1] * 1e3)}
+        else:
+            walls, results = query_walls(p_eng, q, 3)
+            same_bytes(res, results[-1], f"{family} padded {solver}")
+            row["T"] = T
+            row["vs_flat_direct"] = compare_results(
+                res, flat, f"{family} padded {solver} vs flat direct",
+                PADDED_RTOL, PADDED_ATOL, PADDED_RHO, excuse)
+            row["device"] = device_breakdown(lambda: p_eng.query_batch(q),
+                                             float(np.median(walls)) * 1e3)
+        check(devices and set(devices) == {"cuda"},
+              f"{family} padded {solver}: results computed on {set(devices)}")
+        wall = float(np.median(walls))
+        row["query_batch_ms"] = wall * 1e3
+        row["query_batch_ms_runs"] = [x * 1e3 for x in walls]
+        row["scores_per_s"] = int(results[-1].counts.sum()) / wall
+        out[solver] = row
+        log(f"{family} padded {solver}: {json.dumps(row, sort_keys=True)}")
+    out["small_card_vs_cpu"] = padded_small(family, eng.model)
+    launches = {SOURCES[f]: m.launches for f, m in KERNEL_MODULES.items()}
+    check(not any(launches.values()), f"{family} padded path launched a "
+          f"score kernel: {launches}")
+    out["score_kernel_launches"] = launches
+    return out
+
+
 def main() -> int:
     # -- phase 1: the card ---------------------------------------------
     if not torch.cuda.is_available():
@@ -732,6 +1076,11 @@ def main() -> int:
             "library_ms": None,
             "shape": last["shape"],
         })
+
+    # -- phase 6: the padded per-query program -------------------------
+    for family, (eng, _) in engines.items():
+        perf["models"][family]["padded"] = drive_padded(family, eng, train,
+                                                        pts)
 
     log("perf " + json.dumps(perf, sort_keys=True))
     log(card)

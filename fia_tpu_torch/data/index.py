@@ -63,6 +63,29 @@ class InteractionIndex:
         appears twice — the reference's ordering."""
         return np.concatenate([self.rows_of_user(u), self.rows_of_item(i)])
 
+    def related_count(self, u: int, i: int) -> int:
+        return int(
+            self._u_indptr[u + 1] - self._u_indptr[u]
+            + self._i_indptr[i + 1] - self._i_indptr[i]
+        )
+
+    def user_degrees(self) -> np.ndarray:
+        """Interaction count per user id, (num_users,) int64."""
+        return np.diff(self._u_indptr)
+
+    def item_degrees(self) -> np.ndarray:
+        """Interaction count per item id, (num_items,) int64."""
+        return np.diff(self._i_indptr)
+
+    def max_related_count(self) -> int:
+        """Upper bound on any query's related-set size: the heaviest user
+        degree plus the heaviest item degree (``pad_policy="dataset"``
+        pads every batch to it)."""
+        return int(
+            np.diff(self._u_indptr).max(initial=0)
+            + np.diff(self._i_indptr).max(initial=0)
+        )
+
     def counts_batch(self, test_points: np.ndarray) -> np.ndarray:
         """Related-set sizes for a (T, 2) batch — O(T) indptr diffs."""
         test_points = np.asarray(test_points)

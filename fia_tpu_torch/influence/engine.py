@@ -1,29 +1,44 @@
-"""The FIA influence engine, flat direct-solve path (port of
-``fia_tpu/influence/engine.py``: ``InfluenceResult``, the constructor's
-subset this path reads, ``_flat_prelude``, ``_flat_fn``'s single-device
+"""The FIA influence engine (port of ``fia_tpu/influence/engine.py``:
+``InfluenceResult``, the constructor's options its two query programs
+read, the flat program (``_flat_prelude``, ``_flat_fn``'s single-device
 branch, ``_query_pad``/``_s_pad_for``, ``_dispatch_flat``/
-``_finalize_flat``, ``_assemble_packed`` and ``query_batch``).
+``_finalize_flat``, ``_assemble_packed``), the padded per-query program
+(``_query_one``, ``_batched_packed``, the single-device
+``_query_padded``), the dispatch choice (``_flat_eligible``,
+``_query_batch_impl``), the NaN solver ladder (``_nan_ladder``),
+``query_batch``, ``get_influence_on_test_loss`` and ``related_indices``).
 
 For a test interaction (u*, i*) the engine computes the block-restricted
 inverse-HVP and scores every related training row's influence on the
-test prediction. A (T, 2) batch runs as one flat program: every query's
-related rows concatenated on one (S,) axis, gathered on the device from
-resident CSR postings, with the per-query Gauss-Newton block Hessians
-accumulated by segment. Five stages:
+test prediction. Two programs, both gathering related rows on the device
+from resident CSR postings:
+
+- flat (the default where eligible: direct solver, the model's
+  Gauss-Newton hooks): every query's related rows concatenated on one
+  (S,) axis, the per-query block Hessians accumulated by segment, five
+  stages:
 
   1. the integer prelude (segment ids and train rows of the flat axis);
   2. per-row block gradients g (the model's closed-form hook);
   3. the segment-reduced damped block Hessians;
   4. a batched LU solve for the iHVPs;
-  5. the fused score stage (the model family's CUDA kernel on the card).
+  5. the fused score stage (the model family's CUDA kernel on the card);
 
-Options of the reference that this slice does not port raise
+- padded (every other configuration: cg, lissa, schulz,
+  ``impl="padded"``, ``hessian_mode="autodiff"``, ``group_queries``,
+  ``pad_policy="dataset"``): the T queries' related rows at a common pad
+  P, the block Hessian or HVP of each query from its own (P,) rows, the
+  solve batched over T, and scores by per-example gradient and matvec
+  (no score kernel).
+
+Options of the reference that the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
@@ -32,32 +47,46 @@ from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.index import InteractionIndex, bucketed_pad
 from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence import grads as G
+from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import kernels as K
-from fia_tpu_torch.influence import solvers
+from fia_tpu_torch.influence import solvers, spectral
 from fia_tpu_torch.influence.kernels import common as Kc
+from fia_tpu_torch.reliability import policy, taxonomy
 
 #: the flat program's cumulative prefixes (``_flat_fn(stage=...)``)
 STAGES = ("grads", "hessian", "solve", "scores")
 
 
 class InfluenceResult:
-    """Batched influence query results, stored PACKED: one flat score
-    array in query order plus counts. The padded (T, P) ``scores``/
-    ``related_idx``/``related_mask`` views are built on first access."""
+    """Batched influence query results, in one of two forms.
 
-    def __init__(self, counts, ihvp, test_grad, packed, test_points, index,
-                 pad):
+    Packed (the flat and padded programs): one flat score array in query
+    order plus counts; the padded (T, P) ``scores``/``related_idx``/
+    ``related_mask`` views are built on first access. Dense
+    (``group_queries`` over several pads): the (T, P) views themselves.
+    ``iterations`` is the iterative solver's loop count (CG, Schulz),
+    else ``None``.
+    """
+
+    def __init__(self, scores=None, related_idx=None, related_mask=None,
+                 counts=None, ihvp=None, test_grad=None, packed=None,
+                 test_points=None, index=None, pad=None, iterations=None):
         self.counts = counts
         self.ihvp = ihvp
         self.test_grad = test_grad
+        self.iterations = iterations
+        self._scores = scores
+        self._related_idx = related_idx
+        self._related_mask = related_mask
         self._packed = packed
         self._test_points = test_points
         self._index = index
         self._pad = pad
-        self._scores = self._related_idx = self._related_mask = None
-        self._offsets = np.concatenate(
-            [[0], np.cumsum(np.asarray(counts, np.int64))]
-        )
+        self._offsets = None
+        if packed is not None:
+            self._offsets = np.concatenate(
+                [[0], np.cumsum(np.asarray(counts, np.int64))]
+            )
 
     def _materialize(self):
         rel_idx, rel_mask, _ = self._index.related_padded(
@@ -89,11 +118,15 @@ class InfluenceResult:
 
     def scores_of(self, t: int) -> np.ndarray:
         """Unpadded scores for test point t."""
-        return self._packed[self._offsets[t] : self._offsets[t + 1]]
+        if self._packed is not None:
+            return self._packed[self._offsets[t] : self._offsets[t + 1]]
+        return self.scores[t, : self.counts[t]]
 
     def related_of(self, t: int) -> np.ndarray:
-        u, i = (int(v) for v in self._test_points[t])
-        return self._index.related(u, i)
+        if self._packed is not None:
+            u, i = (int(v) for v in self._test_points[t])
+            return self._index.related(u, i)
+        return self.related_idx[t, : self.counts[t]]
 
 
 def _segment_hessian(g, t, wv, abe, T: int, chunk: int, onehot: bool):
@@ -132,16 +165,37 @@ class InfluenceEngine:
     """Block-restricted (FIA) influence over a trained model.
 
     Args:
-      model: a LatentFactorModel with the Gauss-Newton hooks and a
-        score-kernel family (MF or NCF).
+      model: a LatentFactorModel (MF or NCF).
       params: parameter dict (tensors or numpy arrays), moved to the
         engine's device as float32.
       train: the training RatingDataset.
       damping: Hessian damping λ, added after accumulation.
-      query_bucket: the query axis of a dispatch is padded to
+      solver: ``direct`` (materialise + LU), ``cg`` (matrix-free
+        conjugate gradients), ``lissa`` (the Neumann-series recursion)
+        or ``schulz`` (Newton–Schulz inversion of the materialised
+        block).
+      cg_maxiter, cg_tol: CG's (and Schulz's) iteration cap and
+        tolerance.
+      lissa_scale, lissa_depth: LiSSA's scale (a floor, see
+        ``lissa_tune``) and recursion depth.
+      pad_bucket: pad granule of the padded program and result views.
+      hessian_mode: the padded direct/schulz Hessian: ``analytic`` (the
+        model's closed-form ``block_hessian``), ``autodiff`` (HVPs over
+        the identity), ``auto`` (analytic where the model has it).
+      group_queries: padded path: one dispatch per pad bucket of the
+        batch (a dense result) instead of one at the batch's largest pad.
+      pad_policy: ``batch`` (pad to the batch's largest related set) or
+        ``dataset`` (to the dataset's ceiling, max user + max item
+        degree: one geometry for every batch; padded path).
+      impl: ``flat``, ``padded`` or ``auto`` (flat where eligible).
+      query_bucket: the query axis of a flat dispatch is padded to
         ``bucketed_pad(T, query_bucket)`` by repeating the last pair.
-      kernel: score-stage variant, ``auto`` | ``cuda`` | ``torch``
+      kernel: flat score-stage variant, ``auto`` | ``cuda`` | ``torch``
         (:func:`fia_tpu_torch.influence.kernels.resolve_variant`).
+      lissa_tune: ``spectral`` (both ends of each block's spectrum by
+        power iteration give a scale past λ_max and a shift that makes
+        an indefinite block PD) or ``static`` (the configured scale with
+        ``solve_lissa``'s λ_max guard).
       device: ``None`` (the CUDA device; raises without one), ``"cuda"``
         or ``"cpu"``.
     """
@@ -153,39 +207,51 @@ class InfluenceEngine:
         train: RatingDataset,
         damping: float = 1e-6,
         solver: str = "direct",
+        cg_maxiter: int = 100,
+        cg_tol: float = 1e-10,
+        lissa_scale: float = 10.0,
+        lissa_depth: int = 10_000,  # reference depth, genericNeuralNet.py:544
         mesh=None,
         cache_dir: str | None = None,
+        model_name: str = "model",
         pad_bucket: int = 128,
         shard_tables: bool = False,
+        hessian_mode: str = "auto",
+        group_queries: bool = False,
+        pad_policy: str = "batch",
         impl: str = "auto",
         flat_chunk: int = 2048,
         row_features: str = "auto",
         query_bucket: int = 64,
         kernel: str = "auto",
+        lissa_tune: str = "spectral",
         device=None,
     ):
-        if solver not in ("direct", "cg", "lissa", "schulz",
-                          "precomputed", "sampled"):
+        if solver not in policy.BLOCK_SOLVERS:
             raise ValueError(f"unknown solver {solver!r}")
-        if impl not in ("auto", "flat", "padded"):
-            raise ValueError(f"unknown impl {impl!r}")
-        if row_features not in ("auto", "on", "off"):
-            raise ValueError(f"unknown row_features {row_features!r}")
+        for name, value, allowed in (
+            ("impl", impl, ("auto", "flat", "padded")),
+            ("row_features", row_features, ("auto", "on", "off")),
+            ("hessian_mode", hessian_mode, ("auto", "analytic", "autodiff")),
+            ("pad_policy", pad_policy, ("batch", "dataset")),
+            ("lissa_tune", lissa_tune, ("spectral", "static")),
+        ):
+            if value not in allowed:
+                raise ValueError(f"unknown {name} {value!r}")
+        if hessian_mode == "analytic" and model.block_hessian is None:
+            raise ValueError(
+                f"{type(model).__name__} defines no closed-form block_hessian"
+            )
         for unported, item in (
-            (solver != "direct", f"solver={solver!r}: ROADMAP Queue A.4 and A.9"),
+            (solver in ("precomputed", "sampled"),
+             f"solver={solver!r}: ROADMAP Queue A.9"),
             (mesh is not None, "mesh: ROADMAP Queue A.13"),
             (shard_tables, "shard_tables: ROADMAP Queue A.13"),
-            (row_features == "on", "row_features='on': ROADMAP Queue A.6"),
-            (impl == "padded", "impl='padded': ROADMAP Queue A.6"),
+            (row_features == "on", "row_features='on': ROADMAP Queue A.6b"),
             (cache_dir is not None, "cache_dir: ROADMAP Queue A.10"),
         ):
             if unported:
                 raise NotImplementedError(f"not ported yet — {item}")
-        if model.block_cross_const is None or model.block_reg_diag is None:
-            raise ValueError(
-                f"{type(model).__name__} lacks the Gauss-Newton hooks the "
-                "flat path needs"
-            )
         self.device = resolve_device(device)
         self.model = model
         self._kernel_variant = K.resolve_variant(kernel, model, self.device)
@@ -200,7 +266,22 @@ class InfluenceEngine:
             torch.as_tensor(a).to(self.device) for a in self.index.postings()
         )
         self.damping = float(damping)
+        self.solver = solver
+        self.cg_maxiter = int(cg_maxiter)
+        self.cg_tol = float(cg_tol)
+        self.lissa_scale = float(lissa_scale)
+        self.lissa_depth = int(lissa_depth)
+        self.lissa_tune = lissa_tune
+        self.model_name = model_name
         self.pad_bucket = int(pad_bucket)
+        self.hessian_mode = hessian_mode
+        # 'auto' resolves as the reference does off a TPU: the closed
+        # form wherever the model defines one
+        self._analytic_hessian = (model.block_hessian is not None
+                                  and hessian_mode != "autodiff")
+        self.group_queries = bool(group_queries)
+        self.pad_policy = pad_policy
+        self.impl = impl
         # Hessian accumulation chunk: a power of two that divides the
         # power-of-two-floored S pad, capped so the (chunk, d²) outer-
         # product buffer stays <= 64M float32 elements.
@@ -375,11 +456,12 @@ class InfluenceEngine:
         test_points, counts, out, pad = handle
         return self._assemble_packed(test_points, counts, out, pad)
 
-    def _assemble_packed(self, test_points, counts, out, pad: int
-                         ) -> InfluenceResult:
-        """Fetch the flat outputs to the host and wrap them as a packed
-        result. Query-axis pad rows slice away here; their flat rows
-        already sit past the real total in the packed scores."""
+    def _assemble_packed(self, test_points, counts, out, pad: int,
+                         iterations: int | None = None) -> InfluenceResult:
+        """Fetch the packed outputs ``(packed, ihvp, v)`` to the host and
+        wrap them as a packed result. Query-axis pad rows slice away
+        here; their flat rows already sit past the real total in the
+        packed scores."""
         packed, ihvp, v = (o.cpu().numpy() for o in out)
         T = int(np.asarray(counts).shape[0])
         total = int(counts.sum())
@@ -391,13 +473,225 @@ class InfluenceEngine:
             test_points=np.asarray(test_points),
             index=self.index,
             pad=pad,
+            iterations=iterations,
         )
 
     def _query_flat(self, test_points: np.ndarray,
                     pad_to: int | None = None) -> InfluenceResult:
         return self._finalize_flat(self._dispatch_flat(test_points, pad_to))
 
+    def _flat_eligible(self) -> bool:
+        return (
+            self.solver == "direct"
+            and not self.group_queries
+            # the flat path builds the Hessian from the Gauss-Newton
+            # hooks: an explicit 'autodiff' request is honoured
+            and self.hessian_mode != "autodiff"
+            # 'dataset' promises one geometry and a uniform output pad
+            # across batches: a padded-path contract
+            and self.pad_policy == "batch"
+            and self.model.block_cross_const is not None
+            and self.model.block_reg_diag is not None
+        )
+
+    # -- padded per-query path -------------------------------------------
+    def _solve_blocks(self, params, u, i, rel_x, rel_y, w, v):
+        """``(ihvp, iterations)`` of T queries' block systems over their
+        padded related rows ((T, P, 2), (T, P), (T, P) weights), the
+        solver's per-query branch of the reference's ``_query_one``."""
+        model, damping = self.model, self.damping
+        d = model.block_size
+        if self.solver in ("direct", "schulz"):
+            if self._analytic_hessian:
+                Hmat = torch.func.vmap(
+                    lambda uu, ii, xx, yy, ww: model.block_hessian(
+                        params, uu, ii, xx, yy, ww)
+                )(u, i, rel_x, rel_y, w)
+                Hmat = Hmat + damping * torch.eye(
+                    d, dtype=torch.float32, device=v.device)
+            else:
+                Hmat = torch.func.vmap(
+                    lambda uu, ii, xx, yy, ww: HV.materialize_block_hessian(
+                        model, params, uu, ii, xx, yy, ww, damping)
+                )(u, i, rel_x, rel_y, w)
+            if self.solver == "schulz":
+                # the CG knobs; an unreachably tight tol is safe (the
+                # best-iterate/divergence guard ends the loop)
+                return solvers.solve_schulz(Hmat, v, maxiter=self.cg_maxiter,
+                                            tol=self.cg_tol)
+            return solvers.solve_direct(Hmat, v), None
+        if self.solver == "cg":
+            hvp = HV.make_batched_block_hvp(model, params, u, i, rel_x,
+                                            rel_y, w, damping)
+            return solvers.solve_cg(hvp, v, maxiter=self.cg_maxiter,
+                                    tol=self.cg_tol)
+        # lissa: thousands of HVPs, so the jvp is traced once
+        hvp = HV.make_batched_block_hvp(model, params, u, i, rel_x, rel_y,
+                                        w, damping, linearize=True)
+        if self.lissa_tune == "spectral":
+            # both ends of each block's spectrum: the scale clears λ_max
+            # and an indefinite block (λ_min < 0 through the e·C cross
+            # term, where the recursion diverges at ANY scale) is
+            # shifted PD; the result solves (H + shift·I) x = v, and PD
+            # blocks see shift = 0
+            scale, shift = spectral.lissa_tuning(
+                hvp, d, scale_floor=self.lissa_scale,
+                batch_shape=(v.shape[0],), device=v.device)
+            shift = shift[:, None]
+            return solvers.solve_lissa(
+                lambda x_: hvp(x_) + shift * x_, v, scale=scale,
+                recursion_depth=self.lissa_depth, auto_scale=False), None
+        # one sample: the block HVP is deterministic, so averaged
+        # recursions would be identical
+        return solvers.solve_lissa(hvp, v, scale=self.lissa_scale,
+                                   recursion_depth=self.lissa_depth), None
+
+    def _padded_fn(self, pad: int):
+        """The reference's ``_query_one`` over T queries at once, packed
+        on the device (``_batched_packed``). Returns ``fn(params,
+        train_x, train_y, postings, tx, total) -> (packed, ihvp, v,
+        iterations)``; ``total`` is the batch's related-row count, which
+        the host knows, so packing needs no device-to-host wait."""
+        model = self.model
+
+        def fn(params, train_x, train_y, postings, tx, total: int):
+            T = tx.shape[0]
+            u, i = tx[:, 0].long(), tx[:, 1].long()
+            # related rows: user postings first, then item postings,
+            # duplicates kept (InteractionIndex.related's order)
+            uoff, urows, ioff, irows = postings
+            nu = uoff[u + 1] - uoff[u]
+            ni = ioff[i + 1] - ioff[i]
+            p = torch.arange(pad, device=tx.device)
+            gu = urows[torch.clamp(uoff[u][:, None] + p, 0,
+                                   urows.shape[0] - 1)]
+            gi = irows[torch.clamp(ioff[i][:, None] + (p - nu[:, None]), 0,
+                                   irows.shape[0] - 1)]
+            rel_idx = torch.where(p < nu[:, None], gu, gi)
+            rel_mask = p < (nu + ni)[:, None]
+            rel_x = train_x[rel_idx]
+            rel_y = train_y[rel_idx]
+            w = rel_mask.to(torch.float32)
+            count = torch.sum(w, dim=1)
+
+            # v = ∇_block r̂(u*, i*), the test-side vector
+            v = torch.func.vmap(
+                lambda uu, ii, xj: G.block_prediction_grad(
+                    model, params, uu, ii, xj[None, :])
+            )(u, i, tx)
+            ihvp, iterations = self._solve_blocks(params, u, i, rel_x, rel_y,
+                                                  w, v)
+
+            # per-example loss gradients and one matvec a query
+            per_ex = torch.func.vmap(
+                lambda uu, ii, xx, yy: G.per_example_block_loss_grads(
+                    model, params, uu, ii, xx, yy)
+            )(u, i, rel_x, rel_y)
+            scores = (per_ex @ ihvp[:, :, None])[..., 0] / torch.clamp(
+                count, min=1.0)[:, None]
+            scores = torch.where(rel_mask, scores, 0.0)
+
+            # pack the valid entries in query order: positions from the
+            # counts, not a boolean mask (which waits on the device)
+            n = nu + ni
+            tq = torch.repeat_interleave(torch.arange(T, device=tx.device),
+                                         n, output_size=total)
+            start = torch.cumsum(n, 0) - n
+            pos = torch.arange(total, device=tx.device) - start[tq]
+            packed = scores.reshape(-1)[tq * pad + pos]
+            return packed, ihvp, v, iterations
+
+        return fn
+
+    def _query_padded(self, test_points: np.ndarray, pad_to: int | None
+                      ) -> InfluenceResult:
+        """One padded dispatch at a single pad length."""
+        counts = self.index.counts_batch(test_points)
+        m = counts.max() if counts.size else 1
+        if pad_to is None and self.pad_policy == "dataset":
+            m = self.index.max_related_count()
+        pad = bucketed_pad(m, self.pad_bucket, pad_to)
+        tx = torch.as_tensor(
+            np.asarray(test_points, np.int64).astype(np.int32)
+        ).to(self.device)
+        *out, iterations = self._padded_fn(pad)(
+            self.params, self.train_x, self.train_y, self._postings, tx,
+            int(counts.sum()),
+        )
+        return self._assemble_packed(test_points, counts, out, pad,
+                                     iterations)
+
+    def _query_grouped(self, test_points: np.ndarray) -> InfluenceResult:
+        """``group_queries``: one padded dispatch per pad bucket of the
+        batch, stitched into a dense result at the largest pad."""
+        counts = self.index.counts_batch(test_points).astype(np.int64)
+        pads = np.array([bucketed_pad(int(c), self.pad_bucket)
+                         for c in counts])
+        uniq = np.unique(pads)
+        if len(uniq) == 1:
+            return self._query_padded(test_points, None)
+        T, P = len(test_points), int(uniq.max())
+        d = self.model.block_size
+        scores = np.zeros((T, P), np.float32)
+        rel_idx = np.zeros((T, P), np.int32)
+        rel_mask = np.zeros((T, P), bool)
+        out_counts = np.zeros(T, np.int32)
+        ihvp = np.zeros((T, d), np.float32)
+        test_grad = np.zeros((T, d), np.float32)
+        iterations = None
+        for p in uniq:
+            sel = np.flatnonzero(pads == p)
+            r = self._query_padded(test_points[sel], int(p))
+            w = r.scores.shape[1]
+            scores[sel, :w] = r.scores
+            rel_idx[sel, :w] = r.related_idx
+            rel_mask[sel, :w] = r.related_mask
+            out_counts[sel] = r.counts
+            ihvp[sel] = r.ihvp
+            test_grad[sel] = r.test_grad
+            if r.iterations is not None:
+                iterations = max(iterations or 0, r.iterations)
+        return InfluenceResult(scores, rel_idx, rel_mask, out_counts, ihvp,
+                               test_grad, iterations=iterations)
+
     # -- public API --------------------------------------------------------
+    def _query_batch_impl(self, test_points: np.ndarray,
+                          pad_to: int | None) -> InfluenceResult:
+        test_points = np.asarray(test_points)
+        if test_points.ndim == 1:
+            test_points = test_points[None, :]
+        if self.impl in ("auto", "flat") and self._flat_eligible():
+            return self._query_flat(test_points, pad_to)
+        if self.impl == "flat":
+            raise ValueError(
+                "impl='flat' requires the direct solver, a model defining "
+                "the Gauss-Newton hooks, pad_policy='batch', and no "
+                "explicit hessian_mode='autodiff'"
+            )
+        if self.group_queries and pad_to is None and len(test_points) > 1:
+            return self._query_grouped(test_points)
+        return self._query_padded(test_points, pad_to)
+
+    def _nan_ladder(self, res: InfluenceResult, recompute) -> InfluenceResult:
+        """Escalate the solver until the payload is finite, or the ladder
+        bottoms out at the direct solve. Escalation is sticky: the
+        engine keeps the more robust solver for later batches (the block
+        spectrum that diverged once will diverge again)."""
+        while taxonomy.classify_payload(
+            res.ihvp, res.test_grad, res._packed, res._scores
+        ) is not None:
+            nxt = policy.next_solver(self.solver)
+            if nxt is None:
+                _diag(f"non-finite influence payload from the {self.solver!r} "
+                      "solver with no fallback rung left; returning as-is "
+                      "(check damping/conditioning)")
+                return res
+            _diag(f"non-finite influence payload from {self.solver!r}; "
+                  f"escalating solver to {nxt!r}")
+            self.solver = nxt
+            res = recompute()
+        return res
+
     def query_batch(
         self,
         test_points: np.ndarray,
@@ -410,9 +704,33 @@ class InfluenceEngine:
           test_points: (T, 2) int array of (user, item) pairs.
           test_ratings: unused by the prediction-influence path (the test
             vector is ∇r̂, not ∇loss); accepted for API symmetry.
-          pad_to: a fixed pad length for the padded result views.
+          pad_to: a fixed pad length (disables grouping).
+
+        A non-finite payload (a diverged LiSSA or Schulz solve returns a
+        "successful" NaN buffer) escalates the solver down the ladder
+        (``lissa → cg → direct``, ``schulz → direct``) and recomputes.
         """
-        test_points = np.asarray(test_points)
-        if test_points.ndim == 1:
-            test_points = test_points[None, :]
-        return self._query_flat(test_points, pad_to)
+        res = self._query_batch_impl(test_points, pad_to)
+        return self._nan_ladder(
+            res, lambda: self._query_batch_impl(test_points, pad_to))
+
+    def get_influence_on_test_loss(self, test_indices, test_ds: RatingDataset,
+                                   force_refresh: bool = True,
+                                   test_description=None) -> np.ndarray:
+        """The reference's signature: the scores of the related training
+        rows of ``test_ds.x[test_indices[0]]`` (one index at a time)."""
+        if len(test_indices) != 1:
+            raise ValueError(
+                f"one test index at a time, got {len(test_indices)}")
+        point = np.asarray(test_ds.x[int(test_indices[0])])
+        return self.query_batch(point[None, :]).scores_of(0)
+
+    def related_indices(self, test_point) -> np.ndarray:
+        u, i = int(test_point[0]), int(test_point[1])
+        return self.index.related(u, i)
+
+
+def _diag(msg: str) -> None:
+    """One reliability diagnostic on stderr (the reference's
+    ``obs.diag`` channel and format)."""
+    sys.stderr.write(f"[reliability] {msg}\n")

@@ -6,6 +6,8 @@ dict ``dict[str, Tensor]``:
 
   - ``init_params(generator, device)`` -> params
   - ``predict(params, x)``             -> (B,) predicted ratings
+  - ``loss(params, x, y, w)``          -> scalar total loss (masked-mean
+    squared error + L2)
   - ``extract_block`` / ``flatten_block`` / ``unflatten_block`` -> the
     FIA (user, item) parameter sub-block, flattened in ``block_keys``
     order so the iHVP layout matches the reference.
@@ -36,6 +38,15 @@ def truncated_normal(generator: torch.Generator, shape, stddev: float,
     return (stddev * out).to(device or generator.device)
 
 
+def _weighted_mean(err: torch.Tensor, w) -> torch.Tensor:
+    """Plain mean, or the masked mean sum(w·err)/max(sum(w), 1) when
+    ``w`` is given (padded callers mask rows out)."""
+    if w is None:
+        return torch.mean(err)
+    w = w.to(err.dtype)
+    return torch.sum(w * err) / torch.clamp(torch.sum(w), min=1.0)
+
+
 class LatentFactorModel:
     """Base class; subclasses define the forward pass and the FIA block."""
 
@@ -63,6 +74,11 @@ class LatentFactorModel:
     block_cross_const = None
     block_reg_diag = None
 
+    #: optional closed-form block Hessian
+    #: ``block_hessian(params, u, i, x, y, w) -> (d, d)`` (undamped); the
+    #: padded engine uses it in place of ``block_size`` autodiff HVPs.
+    block_hessian = None
+
     def __init__(self, num_users: int, num_items: int, embedding_size: int,
                  weight_decay: float):
         self.num_users = int(num_users)
@@ -84,6 +100,10 @@ class LatentFactorModel:
     def extract_block(self, params: Params, u, i) -> Block:
         raise NotImplementedError
 
+    def with_block(self, params: Params, block: Block, u, i) -> Params:
+        """params with the (u, i) block written back, out of place."""
+        raise NotImplementedError
+
     @property
     def block_size(self) -> int:
         raise NotImplementedError
@@ -95,6 +115,43 @@ class LatentFactorModel:
         for name in self.decayed:
             reg = reg + 0.5 * torch.sum(torch.square(params[name]))
         return self.weight_decay * reg
+
+    def indiv_loss_from_pred(self, pred: torch.Tensor, y) -> torch.Tensor:
+        """Per-example loss given predictions, (B,): the one hook both
+        the training loss and the block influence loss route through."""
+        return torch.square(pred - y)
+
+    def indiv_loss(self, params: Params, x, y) -> torch.Tensor:
+        return self.indiv_loss_from_pred(self.predict(params, x), y)
+
+    def loss(self, params: Params, x, y, w=None) -> torch.Tensor:
+        """(Weighted-)mean squared error + L2; with ``w`` the mean is
+        sum(w·err)/sum(w)."""
+        return _weighted_mean(self.indiv_loss(params, x, y), w) + \
+            self.reg_loss(params)
+
+    def loss_no_reg(self, params: Params, x, y, w=None) -> torch.Tensor:
+        return _weighted_mean(self.indiv_loss(params, x, y), w)
+
+    def mae(self, params: Params, x, y) -> torch.Tensor:
+        return torch.mean(torch.abs(self.predict(params, x) - y))
+
+    def block_predict(self, params: Params, block: Block, u, i, x):
+        """Predict rows ``x`` with the (u, i) block substituted."""
+        return self.predict(self.with_block(params, block, u, i), x)
+
+    def block_reg(self, params: Params, block: Block, u, i) -> torch.Tensor:
+        """L2 regulariser with the (u, i) block substituted. Subclasses
+        override with the scatter-free form ``reg(params) + wd/2 ·
+        (‖block rows‖² − ‖table rows‖²)``."""
+        return self.reg_loss(self.with_block(params, block, u, i))
+
+    def block_loss(self, params: Params, block: Block, u, i, x, y, w=None):
+        """Total loss over rows (x, y, w) with the block substituted."""
+        err = self.indiv_loss_from_pred(
+            self.block_predict(params, block, u, i, x), y
+        )
+        return _weighted_mean(err, w) + self.block_reg(params, block, u, i)
 
     def flatten_block(self, block: Block) -> torch.Tensor:
         keys = self.block_keys or tuple(sorted(block))

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from fia_tpu_torch.influence import grads
 from fia_tpu_torch.influence.kernels import ncf as kncf
 from fia_tpu_torch.models.base import LatentFactorModel, truncated_normal
 
@@ -97,6 +98,54 @@ class NCF(LatentFactorModel):
         pg = torch.where(mu, block["pu_gmf"][None, :], params["P_gmf"][xu])
         qg = torch.where(mi, block["qi_gmf"][None, :], params["Q_gmf"][xi])
         return self._head(params, pm, qm, pg, qg)
+
+    def with_block(self, params, block, u, i):
+        u, i = (torch.as_tensor(v, device=params["P_mlp"].device)
+                for v in (u, i))
+        out = dict(params)
+        out["P_mlp"] = params["P_mlp"].index_put((u,), block["pu_mlp"])
+        out["Q_mlp"] = params["Q_mlp"].index_put((i,), block["qi_mlp"])
+        out["P_gmf"] = params["P_gmf"].index_put((u,), block["pu_gmf"])
+        out["Q_gmf"] = params["Q_gmf"].index_put((i,), block["qi_gmf"])
+        return out
+
+    def block_reg(self, params, block, u, i):
+        """Scatter-free (see MF.block_reg)."""
+        corr = (
+            torch.sum(torch.square(block["pu_mlp"]))
+            - torch.sum(torch.square(params["P_mlp"][u]))
+            + torch.sum(torch.square(block["qi_mlp"]))
+            - torch.sum(torch.square(params["Q_mlp"][i]))
+            + torch.sum(torch.square(block["pu_gmf"]))
+            - torch.sum(torch.square(params["P_gmf"][u]))
+            + torch.sum(torch.square(block["qi_gmf"]))
+            - torch.sum(torch.square(params["Q_gmf"][i]))
+        )
+        return self.reg_loss(params) + 0.5 * self.weight_decay * corr
+
+    def block_hessian(self, params, u, i, x, y, w):
+        """Exact (undamped) block Hessian: Gauss-Newton plus the GMF
+        bilinear correction. r̂ is piecewise-linear in (pu_mlp, qi_mlp)
+        and linear in each of pu_gmf, qi_gmf, so ∇²r̂ vanishes a.e.
+        except the GMF cross term on rows equal to the query pair:
+
+          H = (2/n) Σ_j w_j (g_j g_jᵀ + a_j b_j e_j C) + wd·I
+
+        with g_j = ∇_block r̂(z_j) and C = ``block_cross_const``."""
+        xu, xi = x[:, 0], x[:, 1]
+        wf = w.to(torch.float32)
+        c = 2.0 / torch.clamp(torch.sum(wf), min=1.0)
+
+        block = self.extract_block(params, u, i)
+        g = grads.per_example_block_prediction_grads(self, params, u, i, x)
+        e = self.block_predict(params, block, u, i, x) - y
+        ab = (wf * (xu == u).to(torch.float32)
+              * (xi == i).to(torch.float32))
+        return (
+            c * (g.T * wf) @ g
+            + c * torch.sum(ab * e) * self.block_cross_const(params)
+            + torch.diag(self.block_reg_diag(params))
+        )
 
     def own_grads(self, params, xu, xi):
         """Per-row gradients of r̂ w.r.t. each row's OWN four embedding

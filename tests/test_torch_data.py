@@ -99,3 +99,18 @@ def test_bucketed_pad(m, bucket, pad_to):
 def test_bucketed_pad_rejects_short_pad_to():
     with pytest.raises(ValueError):
         port_index.bucketed_pad(300, 128, 256)
+
+
+def test_degree_methods(indexes):
+    """related_count, user_degrees, item_degrees, max_related_count."""
+    ref, got = indexes
+    _same(got.user_degrees(), ref.user_degrees())
+    _same(got.item_degrees(), ref.item_degrees())
+    assert got.max_related_count() == ref.max_related_count()
+    assert got.max_related_count() == int(got.user_degrees().max()
+                                          + got.item_degrees().max())
+    for u, i in ((0, 0), (5, 7), (60, 40), (59, 3)):
+        assert got.related_count(u, i) == ref.related_count(u, i)
+        assert got.related_count(u, i) == len(got.related(u, i))
+    empty = port_index.InteractionIndex(np.zeros((0, 2), np.int32), 3, 2)
+    assert empty.max_related_count() == 0

@@ -192,9 +192,9 @@ def test_stage_prefixes_match_reference(case, stage):
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [
-    {"solver": "cg"}, {"solver": "lissa"}, {"mesh": object()},
-    {"shard_tables": True}, {"row_features": "on"}, {"impl": "padded"},
-    {"cache_dir": "unused"},
+    {"solver": "precomputed"}, {"solver": "sampled"}, {"mesh": object()},
+    {"shard_tables": True}, {"row_features": "on"},
+    {"impl": "padded", "mesh": object()}, {"cache_dir": "unused"},
 ])
 def test_unported_options_raise(kw, family):
     shape, x, y, _ = _kernels_setup()

@@ -23,6 +23,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(os.path.abspath(fia_tpu_torch.__file__))
 FORBIDDEN = ("jax", "jaxlib", "fia_tpu")
 NCF_MODULES = ("fia_tpu_torch.models.ncf", "fia_tpu_torch.influence.kernels.ncf")
+# the padded program's modules
+PADDED_MODULES = ("fia_tpu_torch.influence.hvp",
+                  "fia_tpu_torch.influence.spectral",
+                  "fia_tpu_torch.influence.solvers",
+                  "fia_tpu_torch.reliability.policy",
+                  "fia_tpu_torch.reliability.taxonomy")
 
 
 def _forbidden(name: str) -> bool:
@@ -58,6 +64,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     names = _module_names()
     assert "fia_tpu_torch.influence.engine" in names and "chip_smoke" in names
     assert set(NCF_MODULES) <= set(names)
+    assert set(PADDED_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -89,7 +96,7 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
         assert not [m for m in mods if _forbidden(m)], (path, node.lineno)
 
 
-@pytest.mark.parametrize("module", NCF_MODULES)
+@pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""

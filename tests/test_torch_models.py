@@ -208,3 +208,84 @@ def test_ncf_own_grads_match_autograd():
     want = torch.autograd.grad(total, rows)
     for got, w in zip(port.own_grads(pp, xu, xi), want):
         _close(got, w)
+
+
+def _rows(pair, n=40):
+    """Rows (x, y, w) with some sharing user 3 / item 5, one equal to the
+    pair (3, 5) itself, and fractional weights with two masked rows."""
+    x = _x(n, seed=5)
+    x[:8, 0] = 3
+    x[6:14, 1] = 5
+    rng = np.random.default_rng(6)
+    y = rng.integers(1, 6, n).astype(np.float32)
+    w = rng.uniform(0.3, 1.0, n).astype(np.float32)
+    w[-2:] = 0.0
+    return x, y, w
+
+
+def test_losses(pair):
+    ref, rp, port, pp = pair
+    x, y, w = _rows(pair)
+    tx, ty, tw = (torch.as_tensor(a) for a in (x, y, w))
+    _close(port.indiv_loss(pp, tx, ty), ref.indiv_loss(rp, x, y))
+    _close(port.loss(pp, tx, ty), ref.loss(rp, x, y))
+    _close(port.loss(pp, tx, ty, tw), ref.loss(rp, x, y, w))
+    _close(port.loss_no_reg(pp, tx, ty, tw), ref.loss_no_reg(rp, x, y, w))
+    _close(port.mae(pp, tx, ty), ref.mae(rp, x, y))
+
+
+def test_block_reg_and_block_loss(pair):
+    """The scatter-free block_reg equals the reference's and the generic
+    (substitute-then-regularise) form; block_loss the reference's."""
+    ref, rp, port, pp = pair
+    x, y, w = _rows(pair)
+    rng = np.random.default_rng(7)
+    vec = rng.standard_normal(port.block_size).astype(np.float32)
+    blk = port.unflatten_block(torch.as_tensor(vec),
+                               port.extract_block(pp, 3, 5))
+    rblk = ref.unflatten_block(jnp.asarray(vec), ref.extract_block(rp, 3, 5))
+    got = port.block_reg(pp, blk, 3, 5)
+    _close(got, ref.block_reg(rp, rblk, 3, 5))
+    generic = type(port).__mro__[1].block_reg(port, pp, blk, 3, 5)
+    np.testing.assert_allclose(float(got), float(generic), rtol=1e-5)
+    _close(port.block_loss(pp, blk, 3, 5, torch.as_tensor(x),
+                           torch.as_tensor(y), torch.as_tensor(w)),
+           ref.block_loss(rp, rblk, 3, 5, x, y, w))
+    # the generic block_predict (substitute, then predict) agrees too
+    base_predict = type(port).__mro__[1].block_predict
+    _close(base_predict(port, pp, blk, 3, 5, torch.as_tensor(x)),
+           port.block_predict(pp, blk, 3, 5, torch.as_tensor(x)))
+
+
+def test_block_hessian(pair):
+    """The closed-form block Hessian against the reference's, on rows
+    with the cross term live and masked rows."""
+    ref, rp, port, pp = pair
+    x, y, w = _rows(pair)
+    got = port.block_hessian(pp, 3, 5, torch.as_tensor(x), torch.as_tensor(y),
+                             torch.as_tensor(w))
+    want = ref.block_hessian(rp, 3, 5, x, y, w)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    assert torch.allclose(got, got.T)
+
+
+def test_gradient_helpers(pair):
+    """block_loss_grad, per_example_block_loss_grads (each row with the
+    full regulariser), autodiff_row_grads (scalar and per-row ids) and
+    per_example_block_prediction_grads against the reference's."""
+    ref, rp, port, pp = pair
+    x, y, w = _rows(pair)
+    tx, ty, tw = (torch.as_tensor(a) for a in (x, y, w))
+    _close(port_grads.block_loss_grad(port, pp, 3, 5, tx, ty, tw),
+           ref_grads.block_loss_grad(ref, rp, 3, 5, x, y, w))
+    _close(port_grads.per_example_block_loss_grads(port, pp, 3, 5, tx, ty),
+           ref_grads.per_example_block_loss_grads(ref, rp, 3, 5, x, y))
+    _close(port_grads.autodiff_row_grads(port, pp, 3, 5, tx),
+           ref_grads.autodiff_row_grads(ref, rp, 3, 5, x))
+    u, i = _x(len(x), seed=8).T
+    _close(port_grads.autodiff_row_grads(port, pp, torch.as_tensor(u),
+                                         torch.as_tensor(i), tx),
+           ref_grads.autodiff_row_grads(ref, rp, u, i, x))
+    _close(port_grads.per_example_block_prediction_grads(port, pp, 3, 5, tx),
+           ref_grads.per_example_block_prediction_grads(ref, rp, 3, 5, x))
