@@ -48,7 +48,36 @@ Phases, each of which makes the script exit non-zero when it fails:
      of 3 after a warm-up, of 2 for LiSSA), its device busy share and
      top kernels, the CG and Schulz iteration counts and LiSSA's ms a
      recursion step, under ``models.<family>.padded`` in the ``perf``
-     line.
+     line;
+  7. training and the paper's experiments, first MF, then NCF, under
+     ``models.<family>.train``:
+     a. on phase 4's small input (k = 8), ``Trainer.fit`` through all
+        three phases (minibatch Adam, full-batch Adam, SGD), a
+        ``retrain`` and ``loo_retrain_many`` with four lanes (one of
+        them -1) on the card against the same calls on the CPU with the
+        same schedules, per-step losses and params at rtol 1e-4 /
+        atol 1e-6; lanes chunked 2 and 4 agree at the same bar;
+     b. at ML-1M shape (k = 16, batch 3020), a bounded run of each
+        training phase (``FULL_STEPS``), steps/s per phase, the device
+        busy share of a 200-step window, the loss required to fall; a
+        checkpoint round trip through ``save_rotated`` and
+        ``restore_latest_valid`` required bitwise; ``query_batch`` at
+        T = 256 on the trained weights, kernel against plain score
+        stage at phase 4's bar, relu-boundary rows counted;
+     c. RQ1: ``test_retraining`` on two held-out points with 7b's
+        weights (16 removals x 2 repeats, all lanes in one stack),
+        every lane finite, the score kernel launched for each point;
+        lane-steps/s, Pearson and Spearman printed, not gated;
+     d. RQ2: ``time_influence_queries`` at k = 8 ... 256 on 64 held-out
+        points with seeded weights, through ``query_batch`` and through
+        ``query_many(batch_queries=32)``; at each k the kernel's
+        ``query_batch`` against the plain score stage's at phase 4's
+        bar; each ``query_many`` batch bitwise equal to ``query_batch``
+        on its queries, no dispatch waiting on the card
+        (``torch.cuda.set_sync_debug_mode``), and the whole against one
+        ``query_batch`` at rtol 2e-5 / atol 1e-5 and ``RHO_MIN``.
+     The score-kernel launches of each path (phase 4's ``query_batch``,
+     7c, 7d) go into the ``kernels`` line under ``launches_by_path``.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -80,16 +109,21 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.synthetic import (
     sample_heldout_pairs,
     synthesize_ratings,
     synthetic_splits,
 )
+from fia_tpu_torch.eval import metrics
+from fia_tpu_torch.eval.rq1 import test_retraining
+from fia_tpu_torch.eval.rq2 import time_influence_queries
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import solvers, spectral
@@ -98,6 +132,8 @@ from fia_tpu_torch.influence.kernels import common
 from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
 from fia_tpu_torch.models import MF, NCF
+from fia_tpu_torch.train import checkpoint
+from fia_tpu_torch.train.trainer import Trainer, TrainConfig, loo_retrain_many
 
 # ML-1M shape and the reference's defaults (bench.py's full run)
 USERS, ITEMS, ROWS = 6040, 3706, 975_460
@@ -157,6 +193,37 @@ SMALL_CONFIGS = {
     "group_queries": {"group_queries": True, "pad_bucket": 32},
     "pad_policy dataset": {"pad_policy": "dataset"},
 }
+# phase 7a: training on the card against the port on the CPU, on phase
+# 4's small input at k = 8: one fit through all three phases, a retrain
+# and four leave-one-out lanes (one of them -1), with the same schedules
+TRAIN_SMALL_FIT = dict(batch_size=200, num_steps=60, learning_rate=1e-2,
+                       seed=5, iter_to_switch_to_batch=30,
+                       iter_to_switch_to_sgd=45)
+TRAIN_SMALL_LOO = dict(removed=(3, -1, 17, 3), seeds=(1, 2, 1, 2), steps=25)
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-6
+# phase 7b: training at full width (ML-1M shape, the reference's batch
+# 3020, lr 1e-3): minibatch Adam for three epochs, then full-batch Adam
+# and full-batch SGD; the device-busy share over a 200-step window
+FULL_BATCH, TRAIN_LR = 3020, 1e-3
+FULL_STEPS = {"minibatch": 969, "batch": 30, "sgd": 30}
+BUSY_WINDOW = 200
+# phase 7c: RQ1 on two held-out points per model from 7b's weights, all
+# (16 + 1) x 2 lanes stacked in one chunk, two epochs of retraining
+RQ1_POINTS, RQ1_REMOVE, RQ1_TIMES, RQ1_STEPS = 2, 16, 2, 646
+# phase 7d: RQ2's width sweep on 64 held-out points, through query_batch
+# and through query_many in batches of 32
+RQ2_K, RQ2_Q, RQ2_BATCH = (8, 16, 32, 64, 128, 256), 64, 32
+# query_many's two batches of 32 against one query_batch of 64: each block
+# Hessian sums its rows in another order (the one-hot product takes
+# another shape), so the scores differ by the solve's float32 noise. Read
+# on an H100 80GB HBM3 at 700 W over k = 8..256: at most 5.8e-6 absolute
+# (MF, k = 256), Spearman at least 1 - 3.5e-7; the bar leaves room on both
+RQ2_MANY_RTOL, RQ2_MANY_ATOL = 2e-5, 1e-5
+# widths whose dots drift apart in two float32 orders: there 7d holds the
+# kernel and the float32 plain version each against float64
+RQ2_FLOAT64_K = (64, 128, 256)
+# the card (phase 7 names it once)
+CARD = "cuda"
 SOURCES = {"mf": "mf_scores", "ncf": "ncf_scores"}
 KERNEL_MODULES = {"mf": kmf, "ncf": kncf}
 REPLACES = {"mf": "fia_tpu/influence/kernels/mf.py:25",
@@ -811,14 +878,24 @@ def lissa_recursions(eng, pts, depth: int) -> tuple[np.ndarray, np.ndarray,
                             "shift_max": float(shift.max())}
 
 
-def hold_lissa(got, exact, plain32, counts) -> dict:
-    """LiSSA's scores ``got`` against the float64 recursion ``exact``:
-    each within rtol PADDED_RTOL / atol PADDED_ATOL, plus a per-query
-    slack of twice the float32 recursion's own distance from float64 on
-    that query (``plain32``: the same recursion on the same matrices in
-    float32).
+def hold_float32_slack(got, exact, plain32, counts, rtol: float,
+                       atol: float, what: str, excuse=None) -> dict:
+    """Scores ``got`` against their float64 computation ``exact``: each
+    within ``rtol`` / ``atol``, plus a per-query slack of twice the plain
+    float32 computation's own distance from float64 on that query
+    (``plain32``: the same formula on the same operands in float32).
+    ``excuse(rows)`` (NCF), on the packed numbers of the rows that either
+    float32 version puts beyond the bar, says which lie on a relu
+    boundary: those pass, are counted, and are left out of the slack.
 
-    Why the slack (float64 argument): 10,000 float32 steps round the
+    Used for LiSSA's scores against the float64 recursion (phase 6), and
+    for the score kernels at RQ2's widths k >= 64 (7d), whose 64..256-term
+    dots (MF) and 128..512-term dots (NCF) end many ulps apart in two
+    float32 orders on scores that are small by cancellation (MF at
+    k = 128: kernel and plain 1.48e-6 apart on a score whose bar was
+    1.0e-6, H100 80GB HBM3 at 700 W), as phase 3 found for NCF.
+
+    Why the slack, for LiSSA (float64 argument): 10,000 float32 steps round the
     running sum to ~1e-6 of the iHVP's norm, and that error reaches every
     score of the query through one dot product as an ABSOLUTE error, so
     a score that is small by cancellation misses a relative bar whatever
@@ -828,40 +905,49 @@ def hold_lissa(got, exact, plain32, counts) -> dict:
     queries: 1 (MF) and 6 (NCF) of 8,147 scores miss the elementwise
     bar, the same ones for both, and the port is 7.3e-7 / 1.8e-7 from
     the plain float32 recursion). The slack is that measured float32
-    error, and it must itself stay within PADDED_RTOL of the query's
+    error, and it must itself stay within ``rtol`` of the query's
     largest score, so it cannot hide a wrong HVP, scale or shift.
     """
     off = np.concatenate([[0], np.cumsum(counts)])
-    beyond = beyond32 = slack_max = 0
+    beyond = beyond32 = slack_max = excused = 0
+    max_abs = 0.0  # over the rows not excused
     for t in range(len(counts)):
         a, b, c = (x[off[t]:off[t + 1]] for x in (got, exact, plain32))
         if not len(a):
             continue
-        bar = PADDED_ATOL + PADDED_RTOL * np.abs(b)
-        slack = 2.0 * float(np.max(np.abs(c - b)))
-        check(slack <= PADDED_RTOL * float(np.max(np.abs(b))) + PADDED_ATOL,
-              f"LiSSA gate: the float32 recursion itself is {slack / 2:.3e} "
-              f"from float64 on query {t}, beyond rtol {PADDED_RTOL} of its "
+        bar = atol + rtol * np.abs(b)
+        keep = np.ones(len(a), bool)
+        if excuse is not None:
+            rows = np.flatnonzero((np.abs(a - b) > bar) | (np.abs(c - b) > bar))
+            if len(rows):
+                edge = excuse(off[t] + rows)
+                keep[rows[edge]] = False
+                excused += int(edge.sum())
+        slack = 2.0 * float(np.max(np.abs(c - b)[keep], initial=0.0))
+        check(slack <= rtol * float(np.max(np.abs(b))) + atol,
+              f"{what}: the plain float32 version itself is {slack / 2:.3e} "
+              f"from float64 on query {t}, beyond rtol {rtol} of its "
               "largest score")
         err = np.abs(a - b)
-        check(bool(np.all(err <= bar + slack)),
-              f"LiSSA gate: query {t}: {int(np.sum(err > bar + slack))} "
-              f"scores beyond rtol {PADDED_RTOL} atol {PADDED_ATOL} plus the "
-              f"float32 slack {slack:.3e} of the float64 recursion (max abs "
-              f"err {float(err.max()):.3e})")
+        out = int(np.sum((err > bar + slack) & keep))
+        check(out == 0,
+              f"{what}: query {t}: {out} scores beyond rtol {rtol} atol "
+              f"{atol} plus the float32 slack {slack:.3e} of float64 (max "
+              f"abs err {float(err[keep].max()):.3e})")
+        max_abs = max(max_abs, float(np.max(err[keep], initial=0.0)))
         beyond += int(np.sum(err > bar))
         beyond32 += int(np.sum(np.abs(c - b) > bar))
         slack_max = max(slack_max, slack / max(float(np.max(np.abs(b))),
                                                 1e-30))
-    err = np.abs(got - exact)
-    return {"scores": int(got.size), "max_abs_err": float(err.max()),
+    return {"scores": int(got.size), "max_abs_err": max_abs,
             "max_abs_err_float32_recursion": float(np.abs(plain32 - exact)
                                                    .max()),
             "max_abs_err_vs_float32_recursion": float(np.abs(got - plain32)
                                                       .max()),
             "beyond_elementwise_bar": beyond,
             "float32_recursion_beyond_elementwise_bar": beyond32,
-            "max_slack_share_of_largest_score": slack_max}
+            "max_slack_share_of_largest_score": slack_max,
+            "boundary_rows": excused}
 
 
 def query_walls(eng, pts, n: int) -> tuple[list, list]:
@@ -965,8 +1051,9 @@ def drive_padded(family: str, eng, train, pts) -> dict:
                                   for t in range(LISSA_GATE_Q)])
             row["vs_float64_recursion"] = {
                 "queries": LISSA_GATE_Q, **tuning,
-                **hold_lissa(got, exact, plain32,
-                             res.counts[:LISSA_GATE_Q])}
+                **hold_float32_slack(got, exact, plain32,
+                                     res.counts[:LISSA_GATE_Q], PADDED_RTOL,
+                                     PADDED_ATOL, "LiSSA gate")}
             # the HVP's trace, then the recursion alone on it, per step
             u, i, rel_x, rel_y, w = padded_rows(p_eng, pts[:lt])
             torch.cuda.synchronize()
@@ -1014,6 +1101,327 @@ def drive_padded(family: str, eng, train, pts) -> dict:
     check(not any(launches.values()), f"{family} padded path launched a "
           f"score kernel: {launches}")
     out["score_kernel_launches"] = launches
+    return out
+
+
+# -- phase 7: training, checkpoints, RQ1 and RQ2 ---------------------------
+def close(got, want, rtol: float, atol: float, what: str) -> float:
+    """Tensors (or dicts of them) ``got`` against ``want`` elementwise at
+    ``rtol``/``atol``; returns the largest absolute difference."""
+    if isinstance(want, dict):
+        check(sorted(got) == sorted(want), f"{what}: keys differ")
+        return max(close(got[k], want[k], rtol, atol, f"{what} {k}")
+                   for k in sorted(want))
+    g = got.detach().double().cpu()
+    w = want.detach().double().cpu()
+    check(g.shape == w.shape, f"{what}: shape {tuple(g.shape)} != "
+          f"{tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite values")
+    diff = (g - w).abs()
+    bad = diff > atol + rtol * w.abs()
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} values beyond rtol "
+          f"{rtol} atol {atol} (max abs err {float(diff.max()):.3e})")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def train_small(family: str, cls) -> dict:
+    """Phase 7a: the small input's fit (all three phases), retrain and
+    leave-one-out lanes on the card against the same calls on the CPU,
+    with the same schedules; and lane chunking on the card."""
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)["train"]
+    x, y = tiny.x, tiny.y
+    model = cls(60, 40, 8, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    w = np.ones(len(x), np.float32)
+    w[11] = 0.0
+    lo = TRAIN_SMALL_LOO
+    out = {}
+    for side, dev in (("card", CARD), ("cpu", "cpu")):
+        tr = Trainer(model, TrainConfig(**TRAIN_SMALL_FIT), device=dev)
+        s = tr.fit(tr.init_state(params), x, y)
+        fit_losses = tr.last_losses
+        r = tr.retrain(s, x, y, weights=w, num_steps=20,
+                       reset_adam=family == "mf")
+        lanes = loo_retrain_many(model, params, x, y, np.asarray(lo["removed"]),
+                                 lo["steps"], 200, 1e-2,
+                                 seeds=np.asarray(lo["seeds"]), device=dev)
+        out[side] = {"fit losses": fit_losses, "fit params": s.params,
+                    "fit adam mu": s.opt_state.mu,
+                    "retrain losses": tr.last_losses,
+                    "retrain params": r.params, "lanes": lanes}
+    errs = {name: close(out["card"][name], out["cpu"][name], TRAIN_RTOL,
+                        TRAIN_ATOL, f"{family} 7a {name} card vs CPU")
+            for name in out["cpu"]}
+    whole = out["card"]["lanes"]
+    chunk_err = 0.0
+    for c in (0, 2):
+        part = loo_retrain_many(model, params, x, y,
+                                np.asarray(lo["removed"][c:c + 2]), lo["steps"],
+                                200, 1e-2, seeds=np.asarray(lo["seeds"][c:c + 2]),
+                                device=CARD)
+        chunk_err = max(chunk_err, close(
+            part, {k: v[c:c + 2] for k, v in whole.items()}, TRAIN_RTOL,
+            TRAIN_ATOL, f"{family} 7a lane_chunk 2 vs 4 on the card"))
+    errs["lane_chunk 2 vs 4 (card)"] = chunk_err
+    log(f"{family} 7a training card vs CPU, max abs err: {errs}")
+    return errs
+
+
+def full_loss(model, params, x, y) -> float:
+    with torch.no_grad():
+        return float(model.loss(params, x, y))
+
+
+def train_full(family: str, model, train, pts) -> tuple[dict, dict]:
+    """Phase 7b: training at ML-1M shape through the three phases, timed
+    a phase at a time; the device-busy share of a 200-step window; a
+    checkpoint round trip; and the flat query on the trained weights,
+    kernel against plain score stage. Returns the trained params and
+    the phase's report."""
+    dev = torch.device(CARD)
+    x = torch.as_tensor(train.x).to(dev)
+    y = torch.as_tensor(train.y).to(dev)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    rep = {"batch": FULL_BATCH, "learning_rate": TRAIN_LR,
+           "steps": dict(FULL_STEPS), "loss_full_before": full_loss(
+               model, params, x, y)}
+    phase_cfgs = {
+        "minibatch": {},
+        "batch": {"iter_to_switch_to_batch": 0},
+        "sgd": {"iter_to_switch_to_batch": 0, "iter_to_switch_to_sgd": 0},
+    }
+    state, losses, steps_per_s = None, [], {}
+    for phase, extra in phase_cfgs.items():
+        tr = Trainer(model, TrainConfig(FULL_BATCH, FULL_STEPS[phase],
+                                        TRAIN_LR, seed=0, **extra))
+        if state is None:
+            state = tr.init_state(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.fit(state, x, y)
+        torch.cuda.synchronize()
+        steps_per_s[phase] = FULL_STEPS[phase] / (time.perf_counter() - t0)
+        losses.append(tr.last_losses.cpu())
+    losses = torch.cat(losses)
+    check(bool(torch.isfinite(losses).all()), f"{family} 7b: non-finite loss")
+    rep["steps_per_s"] = steps_per_s
+    rep["first_step_loss"] = float(losses[0])
+    rep["last_step_loss"] = float(losses[-1])
+    rep["loss_full_after"] = full_loss(model, state.params, x, y)
+    check(rep["loss_full_after"] < rep["loss_full_before"],
+          f"{family} 7b: the training loss did not fall "
+          f"({rep['loss_full_before']} -> {rep['loss_full_after']})")
+    # a 200-step minibatch window: host wall, then its device time
+    tr = Trainer(model, TrainConfig(FULL_BATCH, BUSY_WINDOW, TRAIN_LR, seed=0))
+    tr.fit(state, x, y)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.fit(state, x, y)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rep["window"] = {"steps": BUSY_WINDOW, "wall_ms": wall_ms,
+                     "ms_per_step": wall_ms / BUSY_WINDOW,
+                     **device_breakdown(lambda: tr.fit(state, x, y), wall_ms)}
+    # the checkpoint round trip through the rotated directory
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save_rotated(d, state.params, state.opt_state, state.step)
+        restored = checkpoint.restore_latest_valid(d, state.params,
+                                                   state.opt_state,
+                                                   verbose=False)
+    check(restored is not None, f"{family} 7b: no checkpoint restored")
+    p, o, step = restored
+    check(step == state.step and all(
+        torch.equal(p[k], state.params[k]) for k in state.params) and all(
+        torch.equal(a, b) for a, b in zip(checkpoint.leaves(o),
+                                          checkpoint.leaves(state.opt_state))),
+          f"{family} 7b: the restored checkpoint is not bitwise equal")
+    rep["checkpoint"] = "bitwise equal"
+    # the flat query on the trained weights: kernel against plain
+    T = BATCHES[0]
+    eng = InfluenceEngine(model, state.params, train, damping=DAMPING)
+    plain = InfluenceEngine(model, state.params, train, damping=DAMPING,
+                            kernel="torch", device=CARD)
+    res, ref = eng.query_batch(pts[:T]), plain.query_batch(pts[:T])
+    ops = operands(eng, pts, T)
+    total = int(res.counts.sum())
+    mod = KERNEL_MODULES[family]
+
+    @functools.cache
+    def exact():
+        return mod.fused_scores_reference(
+            *kernel_args(to64(ops)))[:total].cpu().numpy()
+
+    rep["trained_parity"] = compare_results(
+        res, ref, f"{family} 7b trained weights kernel vs plain", RTOL, ATOL,
+        RHO_MIN, relu_excuse(family, ops), exact)
+    log(f"{family} 7b: {json.dumps(rep, sort_keys=True)}")
+    return state.params, rep
+
+
+def drive_rq1(family: str, eng, train, pts) -> dict:
+    """Phase 7c: ``test_retraining`` on held-out points with the trained
+    weights; every lane finite and the score kernel launched for each
+    point's query. The correlation is printed, not gated."""
+    test = RatingDataset(pts[:RQ1_POINTS], np.zeros(RQ1_POINTS, np.float32))
+    mod = KERNEL_MODULES[family]
+    for m in KERNEL_MODULES.values():
+        m.launches = 0
+    actual, predicted, points = [], [], []
+    for i in range(RQ1_POINTS):
+        before = mod.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = test_retraining(eng, train, test, i, num_to_remove=RQ1_REMOVE,
+                              num_steps=RQ1_STEPS, batch_size=FULL_BATCH,
+                              learning_rate=TRAIN_LR,
+                              retrain_times=RQ1_TIMES,
+                              lane_chunk=(RQ1_REMOVE + 1) * RQ1_TIMES,
+                              verbose=False)
+        secs = time.perf_counter() - t0
+        lanes = res.per_repeat_y.size
+        check(mod.launches - before >= 1, f"{family} 7c point {i}: the score "
+              "kernel never launched")
+        check(bool(np.isfinite(res.per_repeat_y).all()),
+              f"{family} 7c point {i}: a retrained lane is not finite")
+        actual.append(res.actual_y_diffs)
+        predicted.append(res.predicted_y_diffs)
+        points.append({"seconds": secs, "lanes": lanes,
+                       "lane_steps_per_s": lanes * RQ1_STEPS / secs,
+                       "bias_retrain": res.bias_retrain,
+                       "pearson": metrics.pearson(res.actual_y_diffs,
+                                                  res.predicted_y_diffs)})
+    a, p = np.concatenate(actual), np.concatenate(predicted)
+    rep = {"points": points, "steps": RQ1_STEPS, "removed": RQ1_REMOVE,
+           "retrain_times": RQ1_TIMES, "pearson": metrics.pearson(a, p),
+           "spearman": metrics.spearman(a, p),
+           "score_kernel_launches": mod.launches}
+    log(f"{family} 7c RQ1: {json.dumps(rep, sort_keys=True)}")
+    return rep
+
+
+class Stitched:
+    """``query_many``'s batches read as one result (counts, iHVPs and
+    per-query scores and related rows in order)."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        self.counts = np.concatenate([r.counts for r in parts])
+        self.ihvp = np.concatenate([r.ihvp for r in parts])
+        self._where = [(r, t) for r in parts for t in range(len(r.counts))]
+
+    def scores_of(self, t):
+        r, j = self._where[t]
+        return r.scores_of(j)
+
+    def related_of(self, t):
+        r, j = self._where[t]
+        return r.related_of(j)
+
+
+def dispatch_without_waits(eng) -> None:
+    """Make ``eng._dispatch_flat`` fail on any host wait for the card
+    (``torch.cuda.set_sync_debug_mode("error")``), so ``query_many``
+    provably queues batch k + 1 before it fetches batch k."""
+    dispatch = eng._dispatch_flat
+
+    def checked(points, pad_to):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(points, pad_to)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    eng._dispatch_flat = checked
+
+
+def drive_rq2(family: str, cls, train, pts) -> dict:
+    """Phase 7d: RQ2's width sweep with seeded weights (a query's cost
+    does not depend on training): ``time_influence_queries`` through
+    ``query_batch`` and through ``query_many``. At each width the
+    kernel's ``query_batch`` is held against the plain score stage's at
+    the kernel's bar (at RQ2_FLOAT64_K, each of the two against float64
+    with float32's own slack, :func:`hold_float32_slack`); each of ``query_many``'s batches must equal
+    ``query_batch`` on the same queries bit for bit, its dispatches must
+    not wait on the card, and the whole must equal one ``query_batch``
+    of all the queries at RQ2_MANY_RTOL / RQ2_MANY_ATOL."""
+    mod = KERNEL_MODULES[family]
+    q = pts[:RQ2_Q]
+    out = {}
+    for k in RQ2_K:
+        model = cls(USERS, ITEMS, k, WD)
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   device=CARD)
+        eng = InfluenceEngine(model, params, train, damping=DAMPING)
+        plain = InfluenceEngine(model, params, train, damping=DAMPING,
+                                kernel="torch", device=CARD)
+        row = {}
+        for name, bq in (("query_batch", None), ("query_many", RQ2_BATCH)):
+            for m in KERNEL_MODULES.values():
+                m.launches = 0
+            t = time_influence_queries(eng, q, repeats=3, batch_queries=bq)
+            row[name] = {**t.json(), "times_s": t.times_s,
+                         "compile_time_s": t.compile_time_s,
+                         "score_kernel_launches": mod.launches}
+            check(mod.launches >= 1, f"{family} 7d k={k} {name}: the score "
+                  "kernel never launched")
+        check(row["query_batch"]["num_scores"] == row["query_many"]["num_scores"],
+              f"{family} 7d k={k}: query_many scored another row count")
+        whole = eng.query_batch(q)
+        ops = operands(eng, pts, RQ2_Q)
+        total = int(whole.counts.sum())
+
+        @functools.cache
+        def exact(ops=ops, total=total):
+            return mod.fused_scores_reference(
+                *kernel_args(to64(ops)))[:total].cpu().numpy()
+
+        excuse = relu_excuse(family, ops)
+        ref = plain.query_batch(q)
+        what = f"{family} 7d k={k} kernel vs plain"
+        if k not in RQ2_FLOAT64_K:
+            row["kernel_vs_plain"] = compare_results(
+                whole, ref, what, RTOL, ATOL, RHO_MIN, excuse, exact)
+        else:
+            check(np.array_equal(whole.counts, ref.counts) and all(
+                np.array_equal(whole.related_of(t), ref.related_of(t))
+                for t in range(RQ2_Q)), f"{what}: rows differ")
+            got = np.concatenate([whole.scores_of(t) for t in range(RQ2_Q)])
+            plain32 = np.concatenate([ref.scores_of(t) for t in range(RQ2_Q)])
+            row["kernel_vs_plain"] = {
+                "vs_float64": True,
+                "max_abs_err_vs_plain": float(np.abs(got - plain32).max()),
+                **hold_float32_slack(got, exact(), plain32, whole.counts,
+                                     RTOL, ATOL, what + " vs float64",
+                                     excuse)}
+        dispatch_without_waits(eng)
+        parts = eng.query_many(q, batch_queries=RQ2_BATCH)
+        for j, part in enumerate(parts):
+            same_bytes(part, eng.query_batch(q[j * RQ2_BATCH:
+                                               (j + 1) * RQ2_BATCH]),
+                       f"{family} 7d k={k} query_many batch {j} vs "
+                       "query_batch on the same queries")
+        many = Stitched(parts)
+        # the scores beyond the kernel's own bar are counted
+        row["query_many_vs_query_batch"] = compare_results(
+            many, whole, f"{family} 7d k={k} query_many vs query_batch",
+            RQ2_MANY_RTOL, RQ2_MANY_ATOL, RHO_MIN, excuse, exact)
+        row["query_many_vs_query_batch"]["beyond_kernel_bar"] = int(sum(
+            np.sum(~np.isclose(many.scores_of(t), whole.scores_of(t),
+                               rtol=RTOL, atol=ATOL)) for t in range(RQ2_Q)))
+        check(all(np.array_equal(many.related_of(t), whole.related_of(t))
+                  for t in range(RQ2_Q)),
+              f"{family} 7d k={k}: query_many's related rows differ")
+        out[str(k)] = row
+        log(f"{family} 7d RQ2 k={k}: per-query ms "
+            f"{row['query_batch']['per_query_ms']:.4f} (query_batch) / "
+            f"{row['query_many']['per_query_ms']:.4f} (query_many), "
+            f"{row['query_batch']['scores_per_sec']:.0f} scores/s, launches "
+            f"{row['query_batch']['score_kernel_launches']} / "
+            f"{row['query_many']['score_kernel_launches']}, kernel vs plain "
+            f"{row['kernel_vs_plain']}, query_many vs query_batch "
+            f"{row['query_many_vs_query_batch']}")
+        del eng, plain, params, model, ops, exact
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1081,6 +1489,27 @@ def main() -> int:
     for family, (eng, _) in engines.items():
         perf["models"][family]["padded"] = drive_padded(family, eng, train,
                                                         pts)
+
+    # -- phase 7: training, checkpoints, RQ1 and RQ2 -------------------
+    t7 = time.perf_counter()
+    classes = {"mf": MF, "ncf": NCF}
+    for row, (family, (eng, _)) in zip(rows, engines.items()):
+        out = {"card_vs_cpu": train_small(family, classes[family])}
+        params, out["full"] = train_full(family, eng.model, train, pts)
+        trained = InfluenceEngine(eng.model, params, train, damping=DAMPING)
+        out["rq1"] = drive_rq1(family, trained, train, pts)
+        out["rq2"] = drive_rq2(family, classes[family], train, pts)
+        perf["models"][family]["train"] = out
+        row["launches_by_path"] = {
+            "query_batch": row["launches"],
+            "rq1": out["rq1"]["score_kernel_launches"],
+            "rq2_query_batch": {k: v["query_batch"]["score_kernel_launches"]
+                                for k, v in out["rq2"].items()},
+            "rq2_query_many": {k: v["query_many"]["score_kernel_launches"]
+                               for k, v in out["rq2"].items()},
+        }
+    perf["phase7_seconds"] = time.perf_counter() - t7
+    log(f"phase 7: {perf['phase7_seconds']:.1f} s")
 
     log("perf " + json.dumps(perf, sort_keys=True))
     log(card)

@@ -8,9 +8,13 @@ modules is copied here.
 Entry points run on the CUDA device unless the caller asks for the CPU
 (``device="cpu"``); without a CUDA device the default raises
 (:func:`fia_tpu_torch.device.resolve_device`). The port so far runs the
-flat direct-solve influence query (``InfluenceEngine.query_batch``) for
-the MF and NCF models; its score stage is a hand-written CUDA kernel for
-each (``influence/kernels/csrc/mf_scores.cu`` and ``ncf_scores.cu``).
+influence queries (``InfluenceEngine.query_batch`` and ``query_many``:
+the flat direct-solve program, whose score stage is a hand-written CUDA
+kernel for each model, ``influence/kernels/csrc/mf_scores.cu`` and
+``ncf_scores.cu``, and the padded program of the iterative solvers) for
+the MF and NCF models, their training and leave-one-out retraining
+(``train/``), and the paper's experiments (``eval/``, and the drivers
+``python -m fia_tpu_torch.cli.rq1|rq2``).
 """
 
 __version__ = "0.1.0"

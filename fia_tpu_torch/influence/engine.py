@@ -2,7 +2,8 @@
 ``InfluenceResult``, the constructor's options its two query programs
 read, the flat program (``_flat_prelude``, ``_flat_fn``'s single-device
 branch, ``_query_pad``/``_s_pad_for``, ``_dispatch_flat``/
-``_finalize_flat``, ``_assemble_packed``), the padded per-query program
+``_finalize_flat``, ``_assemble_packed``), ``query_many`` with its
+journal helpers, the padded per-query program
 (``_query_one``, ``_batched_packed``, the single-device
 ``_query_padded``), the dispatch choice (``_flat_eligible``,
 ``_query_batch_impl``), the NaN solver ladder (``_nan_ladder``),
@@ -436,7 +437,12 @@ class InfluenceEngine:
             tx_np = np.concatenate(
                 [tx_np, np.repeat(tx_np[-1:], t_pad - T, axis=0)]
             )
-        tx = torch.as_tensor(tx_np.astype(np.int32)).to(self.device)
+        tx = torch.as_tensor(tx_np.astype(np.int32))
+        if self.device.type == "cuda":
+            # a pageable upload would wait for the card to drain its
+            # queue, and with it for every batch query_many keeps in
+            # flight; a pinned one is queued like a kernel
+            tx = tx.pin_memory().to(self.device, non_blocking=True)
         return counts, tx, self._s_pad_for(int(counts.sum()))
 
     def _dispatch_flat(self, test_points: np.ndarray, pad_to: int | None):
@@ -713,6 +719,146 @@ class InfluenceEngine:
         res = self._query_batch_impl(test_points, pad_to)
         return self._nan_ladder(
             res, lambda: self._query_batch_impl(test_points, pad_to))
+
+    def query_many(
+        self,
+        test_points: np.ndarray,
+        batch_queries: int = 256,
+        pad_to: int | None = None,
+        window: int = 4,
+        journal=None,
+        deadline=None,
+    ) -> list[InfluenceResult]:
+        """Large workloads in batches of ``batch_queries``: up to
+        ``window`` flat programs in flight on the card, finalized in
+        order (port of ``fia_tpu/influence/engine.py:1509-1603``).
+
+        Batch k + ``window`` is dispatched before batch k is fetched, so
+        the host's work for one batch (counts, geometry, result
+        assembly) overlaps the card's work on the others; the flat
+        program waits on the device nowhere before its results are
+        fetched. Falls back to sequential :meth:`query_batch` whenever
+        the flat path is ineligible.
+
+        ``journal``: a reliability :class:`~fia_tpu_torch.reliability.
+        journal.Journal` (open it against :meth:`journal_fingerprint`);
+        each finalized batch is recorded durably, and batches already
+        journaled are rebuilt from it instead of recomputed.
+        ``deadline``: a reliability ``Deadline``; expiry between batches
+        raises ``DeadlineExpired`` with every completed batch journaled.
+
+        Two pieces of the reference are not carried over. Its
+        ``_wide_block_cap`` (``engine.py:1494-1507``) caps wide-block
+        dispatches at 32 queries to dodge a fault of the TPU worker, and
+        is scoped to that backend. Its worker-crash recovery
+        (``engine.py:1586-1603``: classify, rebuild the device state,
+        finish sequentially) belongs to ROADMAP Queue A.10; until then a
+        device failure rises to the caller, with the finished batches
+        journaled.
+        """
+        test_points = np.asarray(test_points)
+        if test_points.ndim == 1:
+            test_points = test_points[None, :]
+        batches = [
+            test_points[i : i + batch_queries]
+            for i in range(0, len(test_points), batch_queries)
+        ]
+        results: list[InfluenceResult | None] = [None] * len(batches)
+        todo: list[int] = []
+        for k in range(len(batches)):
+            if journal is not None and journal.done(f"batch:{k}"):
+                results[k] = self._result_from_journal(
+                    journal.get(f"batch:{k}")
+                )
+            else:
+                todo.append(k)
+
+        def bank(k: int, res: InfluenceResult) -> None:
+            results[k] = res
+            if journal is not None:
+                journal.record(f"batch:{k}", self._journal_payload(res))
+
+        if not (self.impl in ("auto", "flat") and self._flat_eligible()):
+            for k in todo:
+                if deadline is not None:
+                    deadline.check("query_many (sequential)")
+                bank(k, self.query_batch(batches[k], pad_to=pad_to))
+            return results
+        inflight: list = []
+        for k in todo:
+            if deadline is not None:
+                deadline.check("query_many (dispatch)")
+            inflight.append((k, self._dispatch_flat(batches[k], pad_to)))
+            if len(inflight) >= max(1, window):
+                j, h = inflight.pop(0)
+                bank(j, self._finalize_flat(h))
+        while inflight:
+            j, h = inflight.pop(0)
+            bank(j, self._finalize_flat(h))
+        return results
+
+    # -- resumable-execution plumbing --------------------------------------
+    def journal_fingerprint(self, test_points: np.ndarray,
+                            batch_queries: int = 256,
+                            pad_to: int | None = None, **extra) -> dict:
+        """Identity of a :meth:`query_many` workload for journal binding
+        (the reference's fields): two runs share journal progress iff
+        model, solver and config, the test points AND the batch split
+        agree. ``extra`` folds in the caller's own provenance."""
+        import hashlib
+
+        tp = np.ascontiguousarray(np.asarray(test_points, np.int64))
+        return {
+            "kind": "query_many",
+            "model": self.model_name,
+            "solver": self.solver,
+            "damping": repr(self.damping),
+            "pad_bucket": self.pad_bucket,
+            # the query-axis pad sets the batched solve's geometry
+            "query_bucket": self.query_bucket,
+            "batch_queries": int(batch_queries),
+            "pad_to": None if pad_to is None else int(pad_to),
+            "n_points": int(tp.shape[0]) if tp.ndim > 1 else 1,
+            "points_sha1": hashlib.sha1(tp.tobytes()).hexdigest(),
+            **extra,
+        }
+
+    def _journal_payload(self, res: InfluenceResult) -> dict:
+        """JSON-packable form of one batch result (exact round-trip;
+        the reference's fields less the sampled rung's, ROADMAP A.9)."""
+        base = {
+            "counts": np.asarray(res.counts),
+            "ihvp": np.asarray(res.ihvp),
+            "test_grad": np.asarray(res.test_grad),
+        }
+        if res._packed is not None:
+            base.update(
+                fmt="packed",
+                packed=np.asarray(res._packed),
+                test_points=np.asarray(res._test_points),
+                pad=int(res._pad),
+            )
+        else:
+            base.update(
+                fmt="dense",
+                scores=np.asarray(res.scores),
+                related_idx=np.asarray(res.related_idx),
+                related_mask=np.asarray(res.related_mask),
+            )
+        return base
+
+    def _result_from_journal(self, p: dict) -> InfluenceResult:
+        if p["fmt"] == "packed":
+            return InfluenceResult(
+                counts=p["counts"], ihvp=p["ihvp"],
+                test_grad=p["test_grad"], packed=p["packed"],
+                test_points=p["test_points"], index=self.index,
+                pad=int(p["pad"]),
+            )
+        return InfluenceResult(
+            p["scores"], p["related_idx"], p["related_mask"],
+            p["counts"], p["ihvp"], p["test_grad"],
+        )
 
     def get_influence_on_test_loss(self, test_indices, test_ds: RatingDataset,
                                    force_refresh: bool = True,

@@ -109,6 +109,9 @@ class LatentFactorModel:
         raise NotImplementedError
 
     # -- generic functions -------------------------------------------------
+    def num_params(self) -> int:
+        return sum(math.prod(s) for s in self.param_shapes().values())
+
     def reg_loss(self, params: Params) -> torch.Tensor:
         reg = torch.zeros((), dtype=torch.float32,
                           device=next(iter(params.values())).device)

@@ -171,10 +171,14 @@ class MF(LatentFactorModel):
         in the (pu, qi) blocks."""
         k = self.embedding_size
         d = self.block_size
-        r = torch.arange(k, device=params["P"].device)
-        C = torch.zeros((d, d), dtype=torch.float32, device=params["P"].device)
-        C[r, k + r] = 1.0
-        C[k + r, r] = 1.0
+        dev = params["P"].device
+        # written from a tensor on the device: a host scalar written into
+        # a CUDA tensor waits for its copy, and this runs inside the flat
+        # program, which must not wait before its results are fetched
+        eye = torch.eye(k, dtype=torch.float32, device=dev)
+        C = torch.zeros((d, d), dtype=torch.float32, device=dev)
+        C[:k, k : 2 * k] = eye
+        C[k : 2 * k, :k] = eye
         return C
 
     def block_reg_diag(self, params):

@@ -1,2 +1,12 @@
-"""Reliability pieces the influence engine reads: the query solver
-ladder and the non-finite payload check."""
+"""The reliability layer (port of ``fia_tpu/reliability/``):
+
+- ``taxonomy`` — the failure kinds and their classifier;
+- ``policy`` — the injectable clock, deadlines, bounded retries and the
+  query solver ladder;
+- ``inject`` and ``sites`` — the deterministic fault-injection harness
+  and its named sites (the reference's names);
+- ``journal`` — the fingerprinted JSONL progress journal behind
+  ``query_many``'s and the RQ1 driver's resume;
+- ``artifacts`` — atomic, checksummed npz publishes, verification on
+  read and quarantine.
+"""

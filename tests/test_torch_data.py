@@ -6,8 +6,10 @@ import pytest
 import torch
 
 from fia_tpu.data import index as ref_index
+from fia_tpu.data import loaders as ref_loaders
 from fia_tpu.data import synthetic as ref_syn
 from fia_tpu_torch.data import index as port_index
+from fia_tpu_torch.data import loaders as port_loaders
 from fia_tpu_torch.data import synthetic as port_syn
 
 torch.set_num_threads(2)
@@ -114,3 +116,89 @@ def test_degree_methods(indexes):
         assert got.related_count(u, i) == len(got.related(u, i))
     empty = port_index.InteractionIndex(np.zeros((0, 2), np.int32), 3, 2)
     assert empty.max_related_count() == 0
+
+
+# -- the calibrated stream, the scale tiers and the TSV loaders -------------
+def _same_splits(got, ref):
+    assert set(got) == set(ref)
+    for name in ref:
+        _same(got[name].x, ref[name].x)
+        _same(got[name].y, ref[name].y)
+        assert getattr(got[name], "synth_tag", "") == getattr(
+            ref[name], "synth_tag", "")
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_calibrated_splits(seed):
+    _same_splits(port_syn.calibrated_splits(80, 50, 3000, 40, seed=seed),
+                 ref_syn.calibrated_splits(80, 50, 3000, 40, seed=seed))
+
+
+@pytest.mark.parametrize("head_fit", [False, True])
+def test_synthesize_calibrated_with_heldout(head_fit):
+    """The cal2 and cal3 streams, fit to a heldout split: every heldout
+    item covered, pairs unique and disjoint from it, arrays byte-equal."""
+    held = ref_syn.synthesize_ratings(100, 80, 400, seed=9).x
+    kw = dict(heldout_x=held, seed=4, min_degree=8, head_fit=head_fit)
+    got = port_syn.synthesize_calibrated(100, 80, 2000, **kw)
+    ref = ref_syn.synthesize_calibrated(100, 80, 2000, **kw)
+    _same(got.x, ref.x)
+    _same(got.y, ref.y)
+
+
+def test_synthesize_scale_and_tiers():
+    assert port_syn.SCALE_TIERS == ref_syn.SCALE_TIERS
+    got = port_syn.synthesize_scale(5000, 800, 20_000, seed=2)
+    ref = ref_syn.synthesize_scale(5000, 800, 20_000, seed=2)
+    _same(got.x, ref.x)
+    _same(got.y, ref.y)
+
+
+def _write_split(ds, path):
+    ref_loaders.save_tsv(ds, str(path))
+
+
+@pytest.mark.parametrize("name", ["movielens", "yelp"])
+@pytest.mark.parametrize("with_train", [True, False])
+def test_load_dataset_over_tsv_files(tmp_path, monkeypatch, name, with_train):
+    """Rating files the test writes itself (the real ones are not in the
+    repository), with the train file present or synthesized; the dataset
+    specs are shrunk to the files' scale on both sides alike."""
+    spec = dict(prefix="t", n_train=900, n_valid=60, n_test=60,
+                num_users=50, num_items=40)
+    monkeypatch.setitem(ref_loaders._SPECS, name, spec)
+    monkeypatch.setitem(port_loaders._SPECS, name, spec)
+    full = ref_syn.synthesize_ratings(50, 40, 1100, seed=6)
+    parts = {"train": (0, 950), "valid": (950, 1020), "test": (1020, 1100)}
+    for short, (lo, hi) in parts.items():
+        if short == "train" and not with_train:
+            continue
+        _write_split(ref_syn.RatingDataset(full.x[lo:hi], full.y[lo:hi]),
+                     tmp_path / f"t.{short}.rating")
+    for cal in ({"calibrate": False}, {"calibrate": True, "cal_rev": "cal3"}):
+        got = port_loaders.load_dataset(name, str(tmp_path), synth_seed=1, **cal)
+        ref = ref_loaders.load_dataset(name, str(tmp_path), synth_seed=1, **cal)
+        _same_splits(got, ref)
+        assert got["validation"].num_examples == 60  # the spec's slice
+        if with_train:
+            assert got["train"].num_examples == 900
+            break
+    if not with_train:
+        with pytest.raises(FileNotFoundError):
+            port_loaders.load_dataset(name, str(tmp_path),
+                                      synthesize_train=False)
+    with pytest.raises(ValueError, match="unknown dataset"):
+        port_loaders.load_dataset("netflix", str(tmp_path))
+
+
+def test_save_tsv_writes_the_references_bytes(tmp_path):
+    ds = ref_syn.synthesize_ratings(30, 20, 200, seed=1)
+    port_loaders.save_tsv(port_syn.RatingDataset(ds.x, ds.y),
+                          str(tmp_path / "a.rating"))
+    ref_loaders.save_tsv(ds, str(tmp_path / "b.rating"))
+    assert (tmp_path / "a.rating").read_bytes() == (
+        tmp_path / "b.rating").read_bytes()
+    got = port_loaders.parse_tsv(str(tmp_path / "a.rating"), max_rows=150)
+    _same(got[0], ds.x[:150, 0])
+    _same(got[1], ds.x[:150, 1])
+    _same(got[2], ds.y[:150])

@@ -29,6 +29,23 @@ PADDED_MODULES = ("fia_tpu_torch.influence.hvp",
                   "fia_tpu_torch.influence.solvers",
                   "fia_tpu_torch.reliability.policy",
                   "fia_tpu_torch.reliability.taxonomy")
+# the training and experiment path
+TRAIN_MODULES = ("fia_tpu_torch.train.trainer",
+                 "fia_tpu_torch.train.checkpoint",
+                 "fia_tpu_torch.eval.metrics",
+                 "fia_tpu_torch.eval.rq1",
+                 "fia_tpu_torch.eval.rq2",
+                 "fia_tpu_torch.data.loaders",
+                 "fia_tpu_torch.cli.common",
+                 "fia_tpu_torch.cli.rq1",
+                 "fia_tpu_torch.cli.rq2",
+                 "fia_tpu_torch.reliability.artifacts",
+                 "fia_tpu_torch.reliability.inject",
+                 "fia_tpu_torch.reliability.journal",
+                 "fia_tpu_torch.reliability.sites",
+                 "fia_tpu_torch.obs.diag",
+                 "fia_tpu_torch.utils.io",
+                 "fia_tpu_torch.utils.logging")
 
 
 def _forbidden(name: str) -> bool:
@@ -65,6 +82,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert "fia_tpu_torch.influence.engine" in names and "chip_smoke" in names
     assert set(NCF_MODULES) <= set(names)
     assert set(PADDED_MODULES) <= set(names)
+    assert set(TRAIN_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -96,7 +114,8 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
         assert not [m for m in mods if _forbidden(m)], (path, node.lineno)
 
 
-@pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES)
+@pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
+                         + TRAIN_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""
@@ -139,6 +158,30 @@ def test_device_sets_the_fp32_policy(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_trainer_and_drivers_default_to_cuda(monkeypatch):
+    """The training and experiment entry points run on the card unless
+    asked for the CPU, and raise without one."""
+    from fia_tpu_torch.cli import common
+    from fia_tpu_torch.train.trainer import Trainer, TrainConfig, \
+        loo_retrain_many
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = MF(4, 3, 2, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    x, y = np.asarray([[0, 0], [1, 2], [3, 1]]), np.ones(3, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(model, TrainConfig(1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loo_retrain_many(model, params, x, y, [0], 1, 1)
+    args = common.base_parser("t").parse_args([])
+    assert args.backend is None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        common.apply_backend(args)
+    args = common.base_parser("t").parse_args(["--backend", "cpu"])
+    assert common.apply_backend(args).type == "cpu"
+    assert Trainer(model, TrainConfig(1, 1), device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch):
