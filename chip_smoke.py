@@ -6,10 +6,17 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the paths from the sources in the
-     checkout (one ``nvcc`` each, all started together); print
-     ``nvcc --version`` and each kernel instantiation's ``ptxas``
-     registers and spills;
-  3. hold each kernel against its plain PyTorch version on the card, at
+     checkout (``mf_scores``, ``ncf_scores``, ``segment_hessian``; one
+     ``nvcc`` each, all started together); print ``nvcc --version`` and
+     each kernel instantiation's ``ptxas`` registers and spills;
+  3. hold ``segment_hessian`` bit for bit against its plain scatter form
+     run in row order on the CPU and against float64 (``SEG_RTOL``), on
+     the main path's operands and on synthetic segments at every block
+     size RQ2 runs (d = 34, 64, 514, 1,024): empty, one row, the longest
+     related set of the data, wv = 0 rows, a truncated last segment; two
+     launches the same bits; one segment the same bits at another offset
+     in another batch size. Then hold each score kernel against its plain
+     PyTorch version on the card, at
      its main path's shapes plus edge cases (a ragged row count, a fully
      masked segment, rows matching neither query id, rows that are their
      query's own pair (a = b = 1), rows permuted so that ``t`` is
@@ -22,12 +29,27 @@ Phases, each of which makes the script exit non-zero when it fails:
   4. drive each main path — ``InfluenceEngine.query_batch`` at ML-1M
      shape (6040 users x 3706 items, 975,460 rows, k = 16), random seeded
      weights, for 256 and then 1024 held-out queries, first MF, then
-     NCF; require that it launched its kernel, that its scores equal
-     those of the same engine with the plain score stage, and that a
-     small input agrees with the port's CPU path;
-  5. time the stages, the end-to-end query rate and each kernel beside
-     its bound and its plain version (CUDA events; the card's power
-     limit is printed beside them);
+     NCF; require that it launched its score kernel and ``segment_hessian``
+     (each geometry a captured CUDA graph, whose replays count the
+     launches it holds), that its scores equal those of the same engine
+     with the plain score stage, and that a small input agrees with the
+     port's CPU path;
+  S. split invariance: the probe (:func:`probe`) takes fixed queries
+     through the flat program at several batch compositions and
+     requires every stage's per-query output (g and e rows, H_t, v_t,
+     iHVP, reg_dot, scores) the same bits, at k = 16 and every RQ2 width,
+     MF and NCF, and the batched LU alone the same bits at every batch
+     size; the any-split phase requires ``query_many`` over 1024 queries
+     at ``batch_queries`` 1024, 256, 100, 64 and 23 bitwise equal to one
+     dispatch; the graph phase requires a replayed graph bitwise equal to
+     the eager program, ``precompile_flat`` to report compiled then
+     cached, and a warm ``query_batch`` plus ``query_many`` at two
+     geometries to capture nothing (``utils/compilemon``);
+  5. time the stages (and the Hessian stage of the one-hot form it
+     replaced, in the same run), the end-to-end query rate with graphs
+     and the eager program's, and each kernel beside its bound and its
+     plain version (CUDA events; the card's power limit is printed
+     beside them);
   6. drive the padded per-query program, first MF, then NCF, on 256 of
      the same queries: ``impl="padded"`` with the direct solve, then
      ``solver="cg"``, ``"schulz"`` and ``"lissa"`` (spectral tuning,
@@ -74,10 +96,11 @@ Phases, each of which makes the script exit non-zero when it fails:
         ``query_batch`` against the plain score stage's at phase 4's
         bar; each ``query_many`` batch bitwise equal to ``query_batch``
         on its queries, no dispatch waiting on the card
-        (``torch.cuda.set_sync_debug_mode``), and the whole against one
-        ``query_batch`` at rtol 2e-5 / atol 1e-5 and ``RHO_MIN``.
-     The score-kernel launches of each path (phase 4's ``query_batch``,
-     7c, 7d) go into the ``kernels`` line under ``launches_by_path``.
+        (``torch.cuda.set_sync_debug_mode``), and the whole bitwise equal
+        to one ``query_batch``; each width's stages timed by cumulative
+        prefix, its captured geometries counted with their memory.
+     The kernel launches of each path (phase 4's ``query_batch``, 7c,
+     7d) go into the ``kernels`` line under ``launches_by_path``.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -88,12 +111,13 @@ counted and printed, and any other row beyond the bar fails the run.
 The same rule holds the NCF padded path against the flat one (phase 6),
 whose relu masks come from another forward pass.
 
-Likewise two rows whose exact scores differ by about one float32 ulp can
+Likewise two rows whose exact scores differ by a few float32 ulps can
 be ordered either way by two summation orders, and one such swap costs a
 query of 156 rows 3.2e-6 of Spearman. A query below ``RHO_MIN`` passes
 only if the plain version in float64 puts every pair the two rankings
-order differently within ``TIE_REL`` of each other; such pairs are
-counted and printed.
+order differently within ``TIE_REL`` of each other plus the plain
+float32 version's own distance from float64 on the two rows; such pairs
+are counted and printed.
 
 The last lines of standard output are a ``perf`` line, the card's
 ``nvidia-smi`` name and power limit, a ``{"kernels": [...]}`` line, and
@@ -127,13 +151,15 @@ from fia_tpu_torch.eval.rq2 import time_influence_queries
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import solvers, spectral
-from fia_tpu_torch.influence.engine import STAGES, InfluenceEngine
+from fia_tpu_torch.influence.engine import STAGES, InfluenceEngine, _in_pieces
 from fia_tpu_torch.influence.kernels import common
 from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
+from fia_tpu_torch.influence.kernels import segment as kseg
 from fia_tpu_torch.models import MF, NCF
 from fia_tpu_torch.train import checkpoint
 from fia_tpu_torch.train.trainer import Trainer, TrainConfig, loo_retrain_many
+from fia_tpu_torch.utils import compilemon
 
 # ML-1M shape and the reference's defaults (bench.py's full run)
 USERS, ITEMS, ROWS = 6040, 3706, 975_460
@@ -213,18 +239,36 @@ RQ1_POINTS, RQ1_REMOVE, RQ1_TIMES, RQ1_STEPS = 2, 16, 2, 646
 # phase 7d: RQ2's width sweep on 64 held-out points, through query_batch
 # and through query_many in batches of 32
 RQ2_K, RQ2_Q, RQ2_BATCH = (8, 16, 32, 64, 128, 256), 64, 32
-# query_many's two batches of 32 against one query_batch of 64: each block
-# Hessian sums its rows in another order (the one-hot product takes
-# another shape), so the scores differ by the solve's float32 noise. Read
-# on an H100 80GB HBM3 at 700 W over k = 8..256: at most 5.8e-6 absolute
-# (MF, k = 256), Spearman at least 1 - 3.5e-7; the bar leaves room on both
-RQ2_MANY_RTOL, RQ2_MANY_ATOL = 2e-5, 1e-5
+# the any-split phase: 1024 held-out queries through query_many at each
+# batch size (ragged finals; t_pad 1024, 256, 128, 64, 64), every query's
+# scores, iHVP and test vector the same bits as one dispatch of all
+ANY_SPLIT_Q, ANY_SPLITS = 1024, (1024, 256, 100, 64, 23)
+# the graph phase: query_batch at T = 256, then query_many at these batch
+# sizes over the same queries, once to warm and once counted
+GRAPH_T, GRAPH_SPLITS = 256, (8, 16)
 # widths whose dots drift apart in two float32 orders: there 7d holds the
 # kernel and the float32 plain version each against float64
 RQ2_FLOAT64_K = (64, 128, 256)
+# the segment-Hessian kernel: bit for bit the plain scatter form run in
+# row order on the CPU (the same products and sums in the same order: wv is
+# 0 or 1 on every case), and against float64 each entry of H_t within
+# SEG_RTOL of it plus SEG_ATOL_REL of max |H_t|; an entry beyond that
+# passes only within the bound of a float32 sum of the segment's n_t terms
+# in order, γ_{n_t} Σ|terms| (γ_n = n u / (1 - n u), u = 2^-24), and is
+# counted. Cases: the main path's operands (MF and NCF, T = 256), and
+# synthetic rows at every block size of SEG_D (MF k = 16, NCF k = 16, MF
+# k = 256, NCF k = 256) with segments empty, of one row, of the longest
+# related set (the data's at d <= 64, RQ2's 64 queries' at d > 64), rows
+# with wv = 0, and a last segment truncated at the flat pad
+SEG_RTOL, SEG_ATOL_REL = 1e-5, 1e-6
+SEG_D = (34, 64, 514, 1024)
 # the card (phase 7 names it once)
 CARD = "cuda"
 SOURCES = {"mf": "mf_scores", "ncf": "ncf_scores"}
+SEGMENT_SOURCE = "segment_hessian"
+# the reference's XLA segment reduction the Hessian kernel replaces
+# (accum: body_scatter / body_onehot, assembled into H_t at 972-977)
+SEGMENT_REPLACES = "fia_tpu/influence/engine.py:920"
 KERNEL_MODULES = {"mf": kmf, "ncf": kncf}
 REPLACES = {"mf": "fia_tpu/influence/kernels/mf.py:25",
             "ncf": "fia_tpu/influence/kernels/ncf.py:30"}
@@ -407,16 +451,23 @@ def hold(got, want, wv, what: str, rel_x=None, tables64=None
     return err, n_bad
 
 
-def float32_ties(a, b, exact) -> tuple[int, bool]:
-    """The pairs of rows that rankings ``a`` and ``b`` order differently:
-    their count, and whether ``exact`` (float64) puts every one of them
-    within TIE_REL of each other."""
+def float32_ties(a, b, exact) -> tuple[int, list]:
+    """The pairs of rows that rankings ``a`` and ``b`` (``b`` the plain
+    float32 version) order differently: their count, and those that
+    ``exact`` (float64) does not put within TIE_REL of each other plus
+    the plain float32 version's own error on the two rows, as ``(i, j,
+    a_i, a_j, b_i, b_j, exact_i, exact_j)`` (at most three)."""
     sa = np.sign(a[:, None] - a[None, :])
     sb = np.sign(b[:, None] - b[None, :])
     i, j = np.nonzero(np.triu(sa != sb, 1))
     gap = np.abs(exact[i] - exact[j])
-    tie = gap <= TIE_REL * np.maximum(np.abs(exact[i]), np.abs(exact[j]))
-    return len(i), bool(tie.all())
+    own = np.abs(b - exact)
+    tie = gap <= (TIE_REL * np.maximum(np.abs(exact[i]), np.abs(exact[j]))
+                  + own[i] + own[j])
+    wide = [(int(x), int(y), float(a[x]), float(a[y]), float(b[x]),
+             float(b[y]), float(exact[x]), float(exact[y]))
+            for x, y in zip(i[~tie][:3], j[~tie][:3])]
+    return len(i), wide
 
 
 def compare_results(res, ref, what: str, rtol: float, atol: float,
@@ -459,10 +510,12 @@ def compare_results(res, ref, what: str, rtol: float, atol: float,
             if rho < rho_min:
                 check(exact is not None,
                       f"{what}: query {t} Spearman {rho} < {rho_min}")
-                n, ties = float32_ties(
+                n, wide = float32_ties(
                     a, b, exact()[offsets[t]: offsets[t + 1]][keep])
-                check(ties, f"{what}: query {t} Spearman {rho} < {rho_min} "
-                      "and its rankings differ beyond float32 ties")
+                check(not wide, f"{what}: query {t} Spearman {rho} < "
+                      f"{rho_min} and its rankings differ beyond float32 "
+                      f"ties: (i, j, a_i, a_j, b_i, b_j, float64 i, j) "
+                      f"{wide}")
                 tie_pairs += n
     check(bool(np.isfinite(res.ihvp).all()), f"{what}: non-finite ihvp")
     return {"max_abs_err": max_abs, "min_spearman": min_rho,
@@ -694,6 +747,146 @@ def check_kernel(family: str, eng, pts) -> dict:
     return {"max_abs_err": err, "boundary_rows": excused}
 
 
+def segment_operands(eng, pts, T):
+    """The Hessian kernel's operands ``(g, t, wv, abe, off)`` of a
+    T-query batch, from the flat program's "segments" prefix."""
+    _, tx, s_pad = eng._flat_inputs(pts[:T])
+    return eng._flat_fn(s_pad, "segments")(
+        eng.params, eng.train_x, eng.train_y, eng._postings, tx)
+
+
+def segment_plain(ops, dtype=torch.float32, onehot: bool = False):
+    """The plain form (the scatter form, or the one-hot product it
+    replaced) of the kernel on ``ops``, in ``dtype``."""
+    g, t, wv, abe, off = ops
+    d = g.shape[1]
+    chunk = max(1, min(2048, 4_000_000 // (d * d)))
+    return kseg.segment_sums_reference(g.to(dtype), t, wv.to(dtype),
+                                       abe.to(dtype), off.numel() - 1, chunk,
+                                       onehot=onehot)
+
+
+def segment_launch_twice(ops):
+    g, t, wv, abe, off = ops
+    got = kseg.segment_sums(g, t, wv, abe, off, 0)
+    again = kseg.segment_sums(g, t, wv, abe, off, 0)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+          "segment_hessian: two launches on the same inputs differ")
+    return got
+
+
+def segment_hold(got, ops, what: str) -> dict:
+    """``(HH, sabe)`` of the kernel on ``ops`` against the plain scatter
+    form in row order on the CPU (bit for bit) and in float64 on the card
+    (at SEG_RTOL / SEG_ATOL_REL, or within the float32 recursive-sum bound
+    γ_{n_t} Σ|terms|, counted). Returns the largest error as a share of
+    max |H_t| and the count of entries the bound excused."""
+    g, t, wv, abe, off = ops
+    cpu = segment_plain(tuple(x.cpu() for x in ops))
+    for x, c in zip(got, cpu):
+        check(torch.equal(x.cpu(), c), f"{what}: not bit for bit the plain "
+              "scatter form in row order (CPU)")
+    want = segment_plain(ops, torch.float64)
+    absolute = segment_plain((g.abs(), t, wv, abe.abs(), off), torch.float64)
+    n = (off[1:] - off[:-1]).double() * 2.0 ** -24
+    gamma = n / (1.0 - n)
+    worst, worst_abs, excused = 0.0, 0.0, 0
+    for x, w, a in zip(got, want, absolute):
+        shape = (-1, *([1] * (w.dim() - 1)))
+        scale = w.abs().reshape(w.shape[0], -1).amax(dim=1).reshape(shape)
+        diff = (x.double() - w).abs()
+        bad = diff > SEG_RTOL * w.abs() + SEG_ATOL_REL * scale
+        beyond = bad & (diff > gamma.reshape(shape) * a)
+        check(not bool(beyond.any()), f"{what}: {int(beyond.sum())} entries "
+              f"beyond rtol {SEG_RTOL} / atol {SEG_ATOL_REL} x max|H_t| of "
+              "float64 and beyond the float32 sum's bound (max abs err "
+              f"{float(diff.max()):.3e})")
+        check(bool(torch.isfinite(x).all()), f"{what}: non-finite sums")
+        worst = max(worst, float((diff / scale.clamp(min=1e-30)).max()))
+        worst_abs = max(worst_abs, float(diff.max()))
+        excused += int(bad.sum())
+    return {"max_err_of_max_abs_H": worst, "max_abs_err": worst_abs,
+            "excused_by_float32_bound": excused}
+
+
+def synthetic_segments(counts, S: int, d: int, gen: torch.Generator):
+    """Operands ``(g, t, wv, abe, off)`` for segments of ``counts`` rows on
+    an S-row flat axis (offsets clamped to S; rows past the total belong
+    to the last segment with wv = 0, as the prelude lays them out), random
+    rows, and every 7th row's wv = 0."""
+    counts = torch.as_tensor(counts, dtype=torch.int64)
+    T = counts.numel()
+    off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).clamp(
+        max=S)
+    s = torch.arange(S)
+    t = torch.searchsorted(off[1:T].contiguous(), s, right=True).to(
+        torch.int32)
+    wv = (s < off[-1]).to(torch.float32)
+    wv[::7] = 0.0
+    g = torch.randn(S, d, generator=gen)
+    abe = torch.randn(S, generator=gen) * wv
+    return tuple(x.to(CARD) for x in (g, t, wv, abe, off))
+
+
+def check_segment(engines, pts, longest: int, longest_rq2: int) -> dict:
+    """Phase 3 for the Hessian kernel (:func:`segment_hold`) on the main
+    path's operands and on synthetic segments at every block size of
+    SEG_D; two launches the same bits; and a segment's sums the same bits
+    alone and at another offset in another batch size."""
+    gen = torch.Generator().manual_seed(2)
+    cases = [(f"{f} main path", segment_operands(eng, pts, BATCHES[0]))
+             for f, (eng, _) in engines.items()]
+    for d in SEG_D:
+        n = longest if d <= 64 else longest_rq2
+        cases.append((f"d={d} mixed", synthetic_segments(
+            [0, 1, n, 5, 0, 77], n + 83 + 300, d, gen)))
+        cases.append((f"d={d} truncated", synthetic_segments(
+            [40, 1, 300], 191, d, gen)))
+    worst, worst_abs, excused = 0.0, 0.0, 0
+    for name, ops in cases:
+        got = segment_launch_twice(ops)
+        r = segment_hold(got, ops, f"segment_hessian {name}")
+        worst_abs = max(worst_abs, r["max_abs_err"])
+        log(f"segment_hessian [{name}] S={ops[0].shape[0]} "
+            f"d={ops[0].shape[1]} T={ops[4].numel() - 1}: bit for bit the "
+            f"CPU's row-order scatter form; vs float64 {r}")
+        worst = max(worst, r["max_err_of_max_abs_H"])
+        excused += r["excused_by_float32_bound"]
+    for d, n in ((SEG_D[0], longest), (SEG_D[-1], longest_rq2)):
+        g1, t1, wv1, abe1, off1 = synthetic_segments([n], n, d, gen)
+        counts = torch.randint(0, 400, (40,), generator=gen)
+        counts[23] = n
+        g2, t2, wv2, abe2, off2 = synthetic_segments(counts, int(counts.sum()),
+                                                     d, gen)
+        a, b = int(off2[23]), int(off2[24])
+        g2[a:b], wv2[a:b], abe2[a:b] = g1, wv1, abe1
+        one = kseg.segment_sums(g1, t1, wv1, abe1, off1, 0)
+        many = kseg.segment_sums(g2, t2, wv2, abe2, off2, 0)
+        check(torch.equal(one[0][0], many[0][23])
+              and torch.equal(one[1][0], many[1][23]),
+              f"segment_hessian d={d}: a segment's sums change with its "
+              "offset or the batch size")
+        log(f"segment_hessian d={d}: a {n}-row segment alone and as segment "
+            f"23 of 40 at row {a}: the same bits")
+    return {"max_err_of_max_abs_H": worst, "max_abs_err": worst_abs,
+            "excused_by_float32_bound": excused, "longest_segment": longest, "longest_segment_rq2": longest_rq2,
+            "cases": len(cases)}
+
+
+def segment_bound_ms(ops) -> tuple[float, str]:
+    """Least time an H100 could take for the Hessian sums of ``ops``: the
+    rows inside a segment read once (g, wv, abe), the offsets, HH and sabe
+    written once; one multiply-add a row for each distinct entry of the
+    symmetric block."""
+    g, t, wv, abe, off = ops
+    d = g.shape[1]
+    T = off.numel() - 1
+    rows = int(off[-1] - off[0])
+    nb = rows * (d * 4 + 8) + (T + 1) * 8 + T * d * d * 4 + T * 4
+    return bound(nb, rows * d * (d + 1))
+
+
 def relu_excuse(family: str, ops):
     """NCF: ``excuse(rows)`` for :func:`compare_results`, over the packed
     row numbers of a batch whose flat operands are ``ops``: which rows
@@ -713,12 +906,14 @@ def drive(family: str, eng, plain, pts) -> dict:
     """Phase 4: the main path, launches counted from 0, against the
     plain score stage on the card and a small input against the CPU."""
     mod = KERNEL_MODULES[family]
-    for m in KERNEL_MODULES.values():
+    for m in (*KERNEL_MODULES.values(), kseg):
         m.launches = 0
     results = {T: eng.query_batch(pts[:T]) for T in BATCHES}
-    launches = mod.launches
+    launches, seg_launches = mod.launches, kseg.launches
     check(launches > 0, f"the {family} main path never launched "
           f"{SOURCES[family]}")
+    check(seg_launches > 0, f"the {family} main path never launched "
+          f"{SEGMENT_SOURCE}")
     d = eng.model.block_size
     parity = {}
     for T, res in results.items():
@@ -749,29 +944,42 @@ def drive(family: str, eng, plain, pts) -> dict:
     cpu_parity = compare_results(on_card, on_cpu, f"{family} card vs CPU "
                                  "(small)", CPU_RTOL, CPU_ATOL, CPU_RHO_MIN)
     log(f"{family} card vs CPU path, small input: {cpu_parity}")
-    return {"launches": launches, "parity": {str(T): v for T, v in
-                                             parity.items()},
+    return {"launches": launches, "segment_launches": seg_launches,
+            "parity": {str(T): v for T, v in parity.items()},
             "cpu_parity": cpu_parity}
 
 
-def measure(family: str, eng, pts) -> tuple[dict, dict]:
+def measure(family: str, eng, train, pts) -> tuple[dict, dict, dict]:
     """Phase 5: stage prefixes, query rate, the kernel beside its bound
     and its plain version, and the device breakdown, per batch size."""
     mod = KERNEL_MODULES[family]
-    batches, last = {}, None
+    batches, last, seg_last = {}, None, None
+    # the one-hot contraction the Hessian kernel replaced, same weights
+    onehot = InfluenceEngine(eng.model, eng.params, train,
+                             damping=DAMPING, flat_accum="onehot")
     for T in BATCHES:
         counts, tx, s_pad = eng._flat_inputs(pts[:T])
         args = (eng.params, eng.train_x, eng.train_y, eng._postings, tx)
-        stage_ms = {}
-        for stage in STAGES:
-            fn = eng._flat_fn(s_pad, stage)
-            stage_ms[stage] = time_ms(lambda: fn(*args), iters=5)
+        stage_ms = stage_times(eng, pts[:T])
+        onehot_ms = stage_times(onehot, pts[:T], iters=3)
         walls = []
         for _ in range(6):
             t0 = time.perf_counter()
             eng.query_batch(pts[:T])  # returns host arrays: synchronised
             walls.append(time.perf_counter() - t0)
         wall = float(np.median(walls[1:]))
+        program = eng._flat_fn(s_pad)
+        eager = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            [o.cpu() for o in program(*args)]
+            eager.append(time.perf_counter() - t0)
+        seg_ops = segment_operands(eng, pts, T)
+        seg_ms = graph_ms(lambda: kseg.segment_sums(*seg_ops, 0), iters=20)
+        seg_plain_ms = graph_ms(lambda: segment_plain(seg_ops), iters=3)
+        seg_onehot_ms = graph_ms(lambda: segment_plain(seg_ops, onehot=True),
+                                 iters=1)
+        seg_bound, seg_by = segment_bound_ms(seg_ops)
         ops = operands(eng, pts, T)
         k_args = kernel_args(ops)
         k_ms = graph_ms(lambda: mod.fused_scores(*k_args), iters=50)
@@ -785,7 +993,15 @@ def measure(family: str, eng, pts) -> tuple[dict, dict]:
             "scores": total, "s_pad": s_pad,
             "stage_ms_cumulative": stage_ms,
             "hessian_stage_ms": stage_ms["hessian"] - stage_ms["grads"],
+            "stage_ms_cumulative_onehot": onehot_ms,
+            "hessian_stage_ms_onehot": onehot_ms["hessian"]
+            - onehot_ms["grads"],
+            "segment_kernel_ms": seg_ms, "segment_plain_ms": seg_plain_ms,
+            "segment_onehot_ms": seg_onehot_ms,
+            "segment_bound_ms": seg_bound, "segment_bound_by": seg_by,
             "query_batch_ms": wall * 1e3,
+            "query_batch_ms_runs": [w * 1e3 for w in walls],
+            "eager_program_ms": float(np.median(eager[1:])) * 1e3,
             "scores_per_s": total / wall,
             "kernel_ms": k_ms, "kernel_plain_ms": p_ms,
             "kernel_call_ms": call_ms,
@@ -799,8 +1015,92 @@ def measure(family: str, eng, pts) -> tuple[dict, dict]:
                 "bound_by": bound_by,
                 "shape": {"S": int(ops[2].shape[0]), "T": int(tx.shape[0]),
                           "k": K_EMB}}
+        seg_last = {"ms": seg_ms, "plain_ms": seg_plain_ms,
+                    "onehot_ms": seg_onehot_ms, "bound_ms": seg_bound,
+                    "bound_by": seg_by,
+                    "shape": {"S": int(seg_ops[0].shape[0]),
+                              "T": int(tx.shape[0]),
+                              "d": int(seg_ops[0].shape[1])}}
         log(f"{family} T={T}: {json.dumps(batches[str(T)], sort_keys=True)}")
-    return batches, last
+    del onehot
+    torch.cuda.empty_cache()
+    return batches, last, seg_last
+
+
+def drive_any_split(family: str, eng, pts) -> dict:
+    """The any-split phase: ANY_SPLIT_Q held-out queries through
+    ``query_many`` at each of ANY_SPLITS, every query the same bits as
+    one ``query_batch`` of all (``tests/test_dispatch.py:67-92`` restated
+    port against port, on the card)."""
+    q = pts[:ANY_SPLIT_Q]
+    whole = eng.query_batch(q)
+    out = {}
+    for bq in ANY_SPLITS:
+        parts = eng.query_many(q, batch_queries=bq)
+        same_bytes_stitched(parts, whole, f"{family} any split: "
+                            f"query_many(batch_queries={bq})")
+        out[str(bq)] = {"batches": len(parts), "t_pad": sorted(
+            {eng._query_pad(len(r.counts)) for r in parts})}
+    out["geometries_captured"] = len(eng._programs)
+    log(f"{family} any split, {ANY_SPLIT_Q} queries: bitwise equal to one "
+        f"dispatch at batch_queries {ANY_SPLITS}: {json.dumps(out)}")
+    return out
+
+
+def drive_graphs(family: str, eng, train, pts) -> dict:
+    """The graph phase: a replayed graph equals the eager program of the
+    same geometry bit for bit; ``precompile_flat`` on a fresh engine
+    reports two geometries compiled, then cached, and arms the rest of
+    the plan; and after one warm pass, ``query_batch`` at GRAPH_T plus
+    ``query_many`` at GRAPH_SPLITS capture nothing (the compilemon count
+    stays; ``tests/test_dispatch.py:142-162`` restated)."""
+    q = pts[:GRAPH_T]
+    counts, tx, s_pad = eng._flat_inputs(q)
+    eager = eng._flat_fn(s_pad)(eng.params, eng.train_x, eng.train_y,
+                                eng._postings, tx)
+    res = eng.query_batch(q)
+    total, T = int(counts.sum()), len(q)
+    check(res._packed.tobytes() == eager[0][:total].cpu().numpy().tobytes()
+          and res.ihvp.tobytes() == eager[1][:T].cpu().numpy().tobytes()
+          and res.test_grad.tobytes() == eager[2][:T].cpu().numpy().tobytes(),
+          f"{family} graphs: a replayed graph differs from the eager program")
+    fresh = InfluenceEngine(eng.model, eng.params, train, damping=DAMPING)
+    plan = {fresh.flat_geometry(q)}
+    for bq in GRAPH_SPLITS:
+        plan |= {fresh.flat_geometry(q[i: i + bq])
+                 for i in range(0, len(q), bq)}
+    two = [fresh.flat_geometry(q), fresh.flat_geometry(q[:GRAPH_SPLITS[0]])]
+    first = fresh.precompile_flat(two)
+    again = fresh.precompile_flat(sorted(plan))
+    check(first["compiled"] == [list(g) for g in two] and not first["cached"]
+          and all(list(g) in again["cached"] for g in two)
+          and len(again["compiled"]) == len(plan) - 2,
+          f"{family} graphs: precompile_flat reported {first} then {again}")
+    fresh.query_batch(q)
+    for bq in GRAPH_SPLITS:
+        fresh.query_many(q, batch_queries=bq)
+    before = compilemon.count()
+    warm = fresh.query_batch(q)
+    for bq in GRAPH_SPLITS:
+        fresh.query_many(q, batch_queries=bq)
+    check(compilemon.count() == before, f"{family} graphs: the warm steady "
+          f"state captured {compilemon.count() - before} programs")
+    same_bytes(warm, res, f"{family} graphs: a precompiled engine")
+    out = {"replay_vs_eager": "bitwise equal",
+           "precompile_two": {"compiled": first["compiled"],
+                              "seconds": first["seconds"]},
+           "precompile_plan": {"geometries": len(plan),
+                               "compiled": len(again["compiled"]),
+                               "cached": len(again["cached"]),
+                               "seconds": again["seconds"]},
+           "steady_state_captures": 0,
+           "compiled_geometries_aot": len(
+               fresh.compiled_geometries()["aot"]),
+           **graph_inventory(fresh)}
+    log(f"{family} graphs: {json.dumps(out)}")
+    del fresh
+    torch.cuda.empty_cache()
+    return out
 
 
 def padded_engine(eng, train, solver: str, **kw):
@@ -1264,7 +1564,7 @@ def drive_rq1(family: str, eng, train, pts) -> dict:
     point's query. The correlation is printed, not gated."""
     test = RatingDataset(pts[:RQ1_POINTS], np.zeros(RQ1_POINTS, np.float32))
     mod = KERNEL_MODULES[family]
-    for m in KERNEL_MODULES.values():
+    for m in (*KERNEL_MODULES.values(), kseg):
         m.launches = 0
     actual, predicted, points = [], [], []
     for i in range(RQ1_POINTS):
@@ -1294,28 +1594,13 @@ def drive_rq1(family: str, eng, train, pts) -> dict:
     rep = {"points": points, "steps": RQ1_STEPS, "removed": RQ1_REMOVE,
            "retrain_times": RQ1_TIMES, "pearson": metrics.pearson(a, p),
            "spearman": metrics.spearman(a, p),
-           "score_kernel_launches": mod.launches}
+           "score_kernel_launches": mod.launches,
+           "segment_launches": kseg.launches,
+           "graphs": graph_inventory(eng)}
+    check(kseg.launches >= RQ1_POINTS, f"{family} 7c: the Hessian kernel "
+          f"launched {kseg.launches} times for {RQ1_POINTS} points")
     log(f"{family} 7c RQ1: {json.dumps(rep, sort_keys=True)}")
     return rep
-
-
-class Stitched:
-    """``query_many``'s batches read as one result (counts, iHVPs and
-    per-query scores and related rows in order)."""
-
-    def __init__(self, parts):
-        self.parts = parts
-        self.counts = np.concatenate([r.counts for r in parts])
-        self.ihvp = np.concatenate([r.ihvp for r in parts])
-        self._where = [(r, t) for r in parts for t in range(len(r.counts))]
-
-    def scores_of(self, t):
-        r, j = self._where[t]
-        return r.scores_of(j)
-
-    def related_of(self, t):
-        r, j = self._where[t]
-        return r.related_of(j)
 
 
 def dispatch_without_waits(eng) -> None:
@@ -1334,16 +1619,61 @@ def dispatch_without_waits(eng) -> None:
     eng._dispatch_flat = checked
 
 
+def same_bytes_stitched(parts, whole, what: str) -> None:
+    """``query_many``'s batches ``parts`` against one result ``whole`` of
+    the same queries: counts, related rows, and each query's scores, iHVP
+    and test vector the same bits."""
+    t = 0
+    for part in parts:
+        for j in range(len(part.counts)):
+            check(part.counts[j] == whole.counts[t]
+                  and np.array_equal(part.related_of(j), whole.related_of(t))
+                  and part.scores_of(j).tobytes()
+                  == whole.scores_of(t).tobytes()
+                  and part.ihvp[j].tobytes() == whole.ihvp[t].tobytes()
+                  and part.test_grad[j].tobytes()
+                  == whole.test_grad[t].tobytes(),
+                  f"{what}: query {t} differs from one dispatch")
+            t += 1
+    check(t == len(whole.counts), f"{what}: {t} queries, want "
+          f"{len(whole.counts)}")
+
+
+def stage_times(eng, pts, iters: int = 5) -> dict:
+    """Device ms of each cumulative prefix of the flat program on
+    ``pts`` (eager, CUDA events)."""
+    _, tx, s_pad = eng._flat_inputs(pts)
+    args = (eng.params, eng.train_x, eng.train_y, eng._postings, tx)
+    out = {}
+    for stage in STAGES:
+        fn = eng._flat_fn(s_pad, stage)
+        out[stage] = time_ms(lambda: fn(*args), iters=iters)
+    return out
+
+
+def graph_inventory(eng) -> dict:
+    """The engine's captured flat programs: how many, and the memory each
+    graph's pool holds."""
+    pools = [p.pool_bytes for p in eng._programs.values()]
+    return {"geometries": len(pools),
+            "pool_mb": [round(b / 2 ** 20, 1) for b in pools],
+            "capture_ms": [round(p.capture_s * 1e3, 1)
+                           for p in eng._programs.values()]}
+
+
 def drive_rq2(family: str, cls, train, pts) -> dict:
     """Phase 7d: RQ2's width sweep with seeded weights (a query's cost
     does not depend on training): ``time_influence_queries`` through
     ``query_batch`` and through ``query_many``. At each width the
     kernel's ``query_batch`` is held against the plain score stage's at
     the kernel's bar (at RQ2_FLOAT64_K, each of the two against float64
-    with float32's own slack, :func:`hold_float32_slack`); each of ``query_many``'s batches must equal
-    ``query_batch`` on the same queries bit for bit, its dispatches must
-    not wait on the card, and the whole must equal one ``query_batch``
-    of all the queries at RQ2_MANY_RTOL / RQ2_MANY_ATOL."""
+    with float32's own slack, :func:`hold_float32_slack`); each of
+    ``query_many``'s batches must equal ``query_batch`` on the same
+    queries bit for bit, its dispatches must not wait on the card, and
+    the whole must equal one ``query_batch`` of all the queries bit for
+    bit. Each width's flat stages are timed by cumulative prefix, and the
+    geometries its engine captured are counted with their graphs'
+    memory."""
     mod = KERNEL_MODULES[family]
     q = pts[:RQ2_Q]
     out = {}
@@ -1356,14 +1686,16 @@ def drive_rq2(family: str, cls, train, pts) -> dict:
                                 kernel="torch", device=CARD)
         row = {}
         for name, bq in (("query_batch", None), ("query_many", RQ2_BATCH)):
-            for m in KERNEL_MODULES.values():
+            for m in (*KERNEL_MODULES.values(), kseg):
                 m.launches = 0
             t = time_influence_queries(eng, q, repeats=3, batch_queries=bq)
             row[name] = {**t.json(), "times_s": t.times_s,
                          "compile_time_s": t.compile_time_s,
-                         "score_kernel_launches": mod.launches}
-            check(mod.launches >= 1, f"{family} 7d k={k} {name}: the score "
-                  "kernel never launched")
+                         "score_kernel_launches": mod.launches,
+                         "segment_launches": kseg.launches}
+            check(mod.launches >= 1 and kseg.launches >= 1,
+                  f"{family} 7d k={k} {name}: a kernel never launched "
+                  f"(score {mod.launches}, Hessian {kseg.launches})")
         check(row["query_batch"]["num_scores"] == row["query_many"]["num_scores"],
               f"{family} 7d k={k}: query_many scored another row count")
         whole = eng.query_batch(q)
@@ -1400,17 +1732,11 @@ def drive_rq2(family: str, cls, train, pts) -> dict:
                                                (j + 1) * RQ2_BATCH]),
                        f"{family} 7d k={k} query_many batch {j} vs "
                        "query_batch on the same queries")
-        many = Stitched(parts)
-        # the scores beyond the kernel's own bar are counted
-        row["query_many_vs_query_batch"] = compare_results(
-            many, whole, f"{family} 7d k={k} query_many vs query_batch",
-            RQ2_MANY_RTOL, RQ2_MANY_ATOL, RHO_MIN, excuse, exact)
-        row["query_many_vs_query_batch"]["beyond_kernel_bar"] = int(sum(
-            np.sum(~np.isclose(many.scores_of(t), whole.scores_of(t),
-                               rtol=RTOL, atol=ATOL)) for t in range(RQ2_Q)))
-        check(all(np.array_equal(many.related_of(t), whole.related_of(t))
-                  for t in range(RQ2_Q)),
-              f"{family} 7d k={k}: query_many's related rows differ")
+        same_bytes_stitched(parts, whole, f"{family} 7d k={k} query_many "
+                            f"({RQ2_BATCH} a batch) vs one query_batch")
+        row["query_many_vs_query_batch"] = "bitwise equal"
+        row["stage_ms_cumulative"] = stage_times(eng, q, iters=3)
+        row["graphs"] = graph_inventory(eng)
         out[str(k)] = row
         log(f"{family} 7d RQ2 k={k}: per-query ms "
             f"{row['query_batch']['per_query_ms']:.4f} (query_batch) / "
@@ -1419,9 +1745,133 @@ def drive_rq2(family: str, cls, train, pts) -> dict:
             f"{row['query_batch']['score_kernel_launches']} / "
             f"{row['query_many']['score_kernel_launches']}, kernel vs plain "
             f"{row['kernel_vs_plain']}, query_many vs query_batch "
-            f"{row['query_many_vs_query_batch']}")
+            f"{row['query_many_vs_query_batch']}, stages (ms, cumulative) "
+            f"{row['stage_ms_cumulative']}, graphs {row['graphs']}")
         del eng, plain, params, model, ops, exact
         torch.cuda.empty_cache()
+    return out
+
+
+# -- the split-invariance probe ----------------------------------------
+def flat_stage_outputs(eng, batch) -> dict:
+    """Every stage's per-query output of one flat dispatch of ``batch``:
+    ``{stage: [tensor of query j, ...]}`` for the query's g rows and e
+    rows, H_t, v_t, ihvp_t, reg_dot_t and its scores (query-pad rows and
+    flat pad rows dropped)."""
+    counts, tx, s_pad = eng._flat_inputs(batch)
+    T = len(counts)
+
+    def run(stage):
+        return eng._flat_fn(s_pad, stage)(eng.params, eng.train_x,
+                                          eng.train_y, eng._postings, tx)
+
+    g, e = run("grads")
+    H = run("hessian")
+    ihvp, v = run("solve")
+    B = run("operands")[5]
+    scores = run("scores")[0]
+    d = eng.model.block_size
+    off = np.concatenate([[0], np.cumsum(counts.astype(np.int64))])
+    rows = [slice(int(off[j]), int(off[j + 1])) for j in range(T)]
+    return {
+        "g": [g[r] for r in rows], "e": [e[r] for r in rows],
+        "H": list(H[:T]), "v": list(v[:T]), "ihvp": list(ihvp[:T]),
+        "reg_dot": list(B[:T, d]), "scores": [scores[r] for r in rows],
+    }
+
+
+PROBE_STAGES = ("g", "e", "H", "v", "ihvp", "reg_dot", "scores")
+
+
+def probe_layouts(n: int, wide: bool):
+    """``(name, [batch index arrays])`` of the probe: each batch a list of
+    positions into the probe's point list, whose first ``n`` points are
+    the queries compared. ``wide`` (RQ2's 64 queries): two halves, the
+    reverse order, and the queries inside a 72-query batch (t_pad 128);
+    else (256 queries): inside 1024 (t_pad 1024), behind 44 others
+    (rows shifted, t_pad 320), batches of 100 (t_pad 128, 128, 64) and
+    the reverse order."""
+    q = np.arange(n)
+    if wide:
+        return [("halves", [q[: n // 2], q[n // 2:]]),
+                ("reversed", [q[::-1]]),
+                ("inside 72", [np.arange(72)])]
+    return [("inside 1024", [np.arange(1024)]),
+            ("shifted 44", [np.concatenate([np.arange(n, n + 44), q])]),
+            ("batches of 100", [q[i: i + 100] for i in range(0, n, 100)]),
+            ("reversed", [q[::-1]])]
+
+
+def solve_isolated(H, v, n: int, batches) -> dict:
+    """The batched LU alone: the first ``n`` systems of (H, v) solved at
+    their own batch size and again inside batches of each size in
+    ``batches`` (rolled to other positions, padded by repeating the last
+    system); per batch size the count of systems whose solution differs
+    by a bit, for the library's solve over the whole batch (``library``,
+    recorded: it changes with the batch size on the card) and for the
+    engine's, in pieces of ``QUERY_PIECE`` systems (``engine``)."""
+    out = {}
+    for name, solve in (("library", solvers.solve_direct),
+                        ("engine", lambda Hb, vb: _in_pieces(
+                            solvers.solve_direct, Hb, vb))):
+        ref = solve(H[:n], v[:n])
+        out[name] = {}
+        for b in batches:
+            m = min(n, b)
+            sel = np.concatenate([np.arange(m), np.full(b - m, m - 1)])
+            shift = b // 3
+            x = torch.roll(solve(torch.roll(H[sel], shift, 0),
+                                 torch.roll(v[sel], shift, 0)), -shift, 0)[:m]
+            out[name][str(b)] = int(sum(not torch.equal(x[j], ref[j])
+                                        for j in range(m)))
+    return out
+
+
+def probe_split(eng, pts, n: int, wide: bool, solve_batches) -> dict:
+    """Module 1's probe on one engine: the first ``n`` of ``pts`` through
+    one flat dispatch, then through each of :func:`probe_layouts`; per
+    layout the count of queries whose output differs by a bit at each
+    stage, and the first stage that differs; and the batched LU alone
+    (:func:`solve_isolated`)."""
+    ref = flat_stage_outputs(eng, pts[:n])
+    out = {}
+    for name, batches in probe_layouts(n, wide):
+        got = {s: [None] * n for s in PROBE_STAGES}
+        for idx in batches:
+            outs = flat_stage_outputs(eng, pts[idx])
+            for j, q in enumerate(idx):
+                if q < n:
+                    for s in PROBE_STAGES:
+                        got[s][q] = outs[s][j]
+            del outs
+        diff = {s: int(sum(not torch.equal(got[s][q], ref[s][q])
+                           for q in range(n))) for s in PROBE_STAGES}
+        first = next((s for s in PROBE_STAGES if diff[s]), None)
+        out[name] = {"first_differing_stage": first, "queries_differing": diff}
+        del got
+    H = torch.stack(ref["H"])
+    v = torch.stack(ref["v"])
+    out["solve_isolated"] = solve_isolated(H, v, n, solve_batches)
+    return out
+
+
+def probe(train, pts) -> dict:
+    """The split-invariance probe for MF and NCF: at k = 16 on 256
+    queries, and at RQ2's other widths on 64."""
+    out = {}
+    for family, cls in (("mf", MF), ("ncf", NCF)):
+        for k in (K_EMB, *(k for k in RQ2_K if k != K_EMB)):
+            wide = k != K_EMB
+            model = cls(USERS, ITEMS, k, WD)
+            params = model.init_params(torch.Generator().manual_seed(0),
+                                       device=CARD)
+            eng = InfluenceEngine(model, params, train, damping=DAMPING)
+            row = probe_split(eng, pts, RQ2_Q if wide else BATCHES[0], wide,
+                              (64, 128, 256) if wide else (64, 256, 1024))
+            out[f"{family} k={k}"] = row
+            log(f"probe {family} k={k}: {json.dumps(row, sort_keys=True)}")
+            del eng, params, model
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1438,7 +1888,7 @@ def main() -> int:
     # -- phase 2: build --------------------------------------------------
     build = {"nvcc": nvcc_version(), "seconds": {}, "ptxas": {}}
     log(f"nvcc: {build['nvcc']}")
-    secs = common.build(list(SOURCES.values()))
+    secs = common.build([*SOURCES.values(), SEGMENT_SOURCE])
     for name, s in secs.items():
         log(f"build {name}: {s:.2f} s")
         build["seconds"][name] = s
@@ -1454,24 +1904,55 @@ def main() -> int:
     pts = sample_heldout_pairs(train.x, USERS, ITEMS, max(BATCHES), seed=17)
     engines = {f: setup_engines(cls(USERS, ITEMS, K_EMB, WD), train)
                for f, cls in (("mf", MF), ("ncf", NCF))}
-    log(f"set-up: {time.perf_counter() - t0:.2f} s")
+    index = engines["mf"][0].index
+    longest = index.max_related_count()
+    longest_rq2 = int(index.counts_batch(pts[:RQ2_Q]).max())
+    log(f"set-up: {time.perf_counter() - t0:.2f} s; longest related set "
+        f"{longest} rows (RQ2's 64 queries: {longest_rq2})")
 
-    # -- phases 3 and 4, per model: kernel, then main path ---------------
+    # -- phases 3 and 4, per model: kernels, then main path --------------
     checked, driven = {}, {}
+    seg_checked = check_segment(engines, pts, longest, longest_rq2)
     for family, (eng, plain) in engines.items():
         checked[family] = check_kernel(family, eng, pts)
         driven[family] = drive(family, eng, plain, pts)
 
-    # -- phase 5: times --------------------------------------------------
-    perf = {"card": card, "build": build, "models": {}}
-    rows = []
+    # -- the split-invariance probe, the any-split and graph phases ----
+    t_split = time.perf_counter()
+    probed = probe(train, pts)
+    for name, row in probed.items():
+        for layout, r in row.items():
+            if layout == "solve_isolated":
+                check(not any(r["engine"].values()), f"probe {name}: the "
+                      "engine's batched LU alone changes bits with the "
+                      f"batch size: {r}")
+            else:
+                check(r["first_differing_stage"] is None,
+                      f"probe {name} [{layout}]: stage "
+                      f"{r['first_differing_stage']} differs by batch split: "
+                      f"{r['queries_differing']}")
+    split, graphs = {}, {}
     for family, (eng, _) in engines.items():
-        batches, last = measure(family, eng, pts)
+        split[family] = drive_any_split(family, eng, pts)
+        graphs[family] = drive_graphs(family, eng, train, pts)
+    split_s = time.perf_counter() - t_split
+    log(f"probe, any-split and graph phases: {split_s:.1f} s")
+
+    # -- phase 5: times --------------------------------------------------
+    perf = {"card": card, "build": build, "models": {},
+            "segment_kernel_vs_plain": seg_checked, "probe": probed,
+            "split_and_graph_seconds": split_s}
+    rows, seg_rows = [], {}
+    for family, (eng, _) in engines.items():
+        batches, last, seg_last = measure(family, eng, train, pts)
         perf["models"][family] = {
             "batches": batches,
             "kernel_vs_plain": checked[family],
+            "any_split": split[family],
+            "graphs": graphs[family],
             **driven[family],
         }
+        seg_rows[family] = seg_last
         rows.append({
             "name": SOURCES[family],
             "route": "cuda",
@@ -1484,6 +1965,24 @@ def main() -> int:
             "library_ms": None,
             "shape": last["shape"],
         })
+    # the Hessian kernel's row: NCF's (d = 64) times at T = 1024; launches
+    # of both models' main paths
+    seg_last = seg_rows["ncf"]
+    rows.append({
+        "name": SEGMENT_SOURCE,
+        "route": "cuda",
+        "source": f"fia_tpu_torch/influence/kernels/csrc/{SEGMENT_SOURCE}.cu",
+        "replaces": SEGMENT_REPLACES,
+        "launches": sum(d["segment_launches"] for d in driven.values()),
+        "max_abs_err": seg_checked["max_abs_err"],
+        "max_err_of_max_abs_H": seg_checked["max_err_of_max_abs_H"],
+        "ms": seg_last["ms"], "plain_ms": seg_last["plain_ms"],
+        "bound_ms": seg_last["bound_ms"], "bound_by": seg_last["bound_by"],
+        "library_ms": None,
+        "onehot_ms": seg_last["onehot_ms"],
+        "shape": seg_last["shape"],
+        "mf": seg_rows["mf"],
+    })
 
     # -- phase 6: the padded per-query program -------------------------
     for family, (eng, _) in engines.items():
@@ -1493,6 +1992,7 @@ def main() -> int:
     # -- phase 7: training, checkpoints, RQ1 and RQ2 -------------------
     t7 = time.perf_counter()
     classes = {"mf": MF, "ncf": NCF}
+    seg_by_path = {}
     for row, (family, (eng, _)) in zip(rows, engines.items()):
         out = {"card_vs_cpu": train_small(family, classes[family])}
         params, out["full"] = train_full(family, eng.model, train, pts)
@@ -1508,6 +2008,15 @@ def main() -> int:
             "rq2_query_many": {k: v["query_many"]["score_kernel_launches"]
                                for k, v in out["rq2"].items()},
         }
+        seg_by_path[family] = {
+            "query_batch": driven[family]["segment_launches"],
+            "rq1": out["rq1"]["segment_launches"],
+            "rq2_query_batch": {k: v["query_batch"]["segment_launches"]
+                                for k, v in out["rq2"].items()},
+            "rq2_query_many": {k: v["query_many"]["segment_launches"]
+                               for k, v in out["rq2"].items()},
+        }
+    rows[-1]["launches_by_path"] = seg_by_path
     perf["phase7_seconds"] = time.perf_counter() - t7
     log(f"phase 7: {perf['phase7_seconds']:.1f} s")
 

@@ -20,7 +20,12 @@ def set_fp32_policy() -> None:
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means ``cuda``; a CUDA request without a CUDA device
-    raises. Also sets the float32 policy."""
+    raises. Also sets the float32 policy and, for the card, pins cuSOLVER
+    as PyTorch's linear-algebra backend (process-wide): the default
+    heuristic sends some batched LU solves to MAGMA, which cannot be
+    captured in a CUDA graph (the flat program is one graph a geometry),
+    while cuSOLVER's and cuBLAS's batched solves can, and replay bit for
+    bit (checked on an H100)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -31,4 +36,6 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     set_fp32_policy()
+    if dev.type == "cuda":
+        torch.backends.cuda.preferred_linalg_library("cusolver")
     return dev

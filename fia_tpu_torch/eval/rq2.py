@@ -7,9 +7,11 @@ scoring every related training row.
 
 Each timed run ends with its results on the host (``query_batch`` and
 ``query_many`` return host arrays), so it is fenced. The first call is
-timed apart from the others: on the card it builds the score kernel and
-launches it for the first time, the port's "compile". The report gives
-queries/s and scores/s over a batch of test points.
+timed apart from the others (``compile_time_s``): on the card it builds
+the kernels and captures one CUDA graph for each flat geometry it
+dispatches, the port's counterpart of the reference's trace and compile;
+later calls replay those graphs. The report gives queries/s and
+scores/s over a batch of test points.
 """
 
 from __future__ import annotations
@@ -55,8 +57,9 @@ def time_influence_queries(
 ) -> TimingResult:
     """Time batched influence queries over ``test_points`` (T, 2).
 
-    The first call (kernel build + run) is measured separately;
-    steady-state time is the best of ``repeats`` fenced runs.
+    The first call (kernel builds, graph captures and the run) is
+    measured separately; steady-state time is the best of ``repeats``
+    fenced runs.
 
     ``batch_queries``: cap the per-dispatch query count, routing through
     the engine's pipelined ``query_many``.

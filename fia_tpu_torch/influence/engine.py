@@ -2,7 +2,9 @@
 ``InfluenceResult``, the constructor's options its two query programs
 read, the flat program (``_flat_prelude``, ``_flat_fn``'s single-device
 branch, ``_query_pad``/``_s_pad_for``, ``_dispatch_flat``/
-``_finalize_flat``, ``_assemble_packed``), ``query_many`` with its
+``_finalize_flat``, ``_assemble_packed``), its geometry API
+(``flat_geometry``, ``precompile_flat``, ``compiled_geometries``,
+``_flat_exec``), ``query_many`` with its
 journal helpers, the padded per-query program
 (``_query_one``, ``_batched_packed``, the single-device
 ``_query_padded``), the dispatch choice (``_flat_eligible``,
@@ -21,9 +23,14 @@ from resident CSR postings:
 
   1. the integer prelude (segment ids and train rows of the flat axis);
   2. per-row block gradients g (the model's closed-form hook);
-  3. the segment-reduced damped block Hessians;
+  3. the segment-reduced damped block Hessians (a CUDA kernel on the
+     card, ``kernels/segment.py``);
   4. a batched LU solve for the iHVPs;
   5. the fused score stage (the model family's CUDA kernel on the card);
+
+  on the card each ``(t_pad, s_pad)`` geometry runs as one captured CUDA
+  graph, and every stage's bits depend only on the query's own rows, so
+  any batch split gives the same bits as one dispatch;
 
 - padded (every other configuration: cg, lissa, schulz,
   ``impl="padded"``, ``hessian_mode="autodiff"``, ``group_queries``,
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 import math
 import sys
+import time
 
 import numpy as np
 import torch
@@ -52,10 +60,17 @@ from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import kernels as K
 from fia_tpu_torch.influence import solvers, spectral
 from fia_tpu_torch.influence.kernels import common as Kc
+from fia_tpu_torch.influence.kernels import segment as Kseg
 from fia_tpu_torch.reliability import policy, taxonomy
+from fia_tpu_torch.utils import compilemon
 
 #: the flat program's cumulative prefixes (``_flat_fn(stage=...)``)
 STAGES = ("grads", "hessian", "solve", "scores")
+#: queries a piece of the flat program's query-axis stages (the test
+#: vector and the batched LU): each runs in pieces of exactly this many,
+#: the last padded by repeating its final query, because on the card
+#: their library kernels are chosen by batch size and change bits with it
+QUERY_PIECE = 64
 
 
 class InfluenceResult:
@@ -130,36 +145,58 @@ class InfluenceResult:
         return self.related_idx[t, : self.counts[t]]
 
 
-def _segment_hessian(g, t, wv, abe, T: int, chunk: int, onehot: bool):
-    """Per-segment sums ``(T, d, d) Σ_{s∈t} wv_s g_s g_sᵀ`` and
-    ``(T,) Σ_{s∈t} abe_s``, chunk by chunk in row order.
+def _in_pieces(fn, *xs):
+    """``fn`` over the leading axis of ``xs`` in pieces of exactly
+    ``QUERY_PIECE`` (the last padded by repeating its final entry), the
+    pieces' results concatenated and cut back to the axis' length."""
+    n = xs[0].shape[0]
+    outs = []
+    for j in range(0, n, QUERY_PIECE):
+        if j + QUERY_PIECE <= n:
+            outs.append(fn(*(x[j : j + QUERY_PIECE] for x in xs)))
+            continue
+        idx = torch.arange(j, j + QUERY_PIECE, device=xs[0].device).clamp_(
+            max=n - 1)
+        outs.append(fn(*(x[idx] for x in xs)))
+    return torch.cat(outs)[:n]
 
-    ``onehot`` (the CUDA form) contracts a (T, chunk) one-hot with the
-    chunk's (chunk, d²) outer products in one float32 matrix product
-    per chunk: ~2·T·S·d² flops, but deterministic for a fixed geometry,
-    where ``index_add_`` on CUDA adds with atomics in no fixed order.
-    Otherwise (the CPU form) the outer products are scatter-added, the
-    reference's ``body_scatter``.
-    """
-    S, d = g.shape
-    acc = g.new_zeros((T, d * d))
-    s_abe = g.new_zeros((T,))
-    ids = torch.arange(T, device=g.device, dtype=t.dtype)
-    for c0 in range(0, S, chunk):
-        gc, tc = g[c0 : c0 + chunk], t[c0 : c0 + chunk]
-        wc, ac = wv[c0 : c0 + chunk], abe[c0 : c0 + chunk]
-        outer = ((gc * wc[:, None])[:, :, None] * gc[:, None, :]).reshape(
-            -1, d * d
-        )
-        if onehot:
-            oh = (tc[:, None] == ids[None, :]).to(torch.float32)  # (chunk, T)
-            acc.addmm_(oh.T, outer)
-            s_abe += torch.sum(oh * ac[:, None], dim=0)
-        else:
-            tl = tc.long()
-            acc.index_add_(0, tl, outer)
-            s_abe.index_add_(0, tl, ac)
-    return acc.reshape(T, d, d), s_abe
+
+class _FlatGraph:
+    """One flat program geometry captured as a CUDA graph.
+
+    The capture runs the program once eagerly on a side stream (kernel
+    builds, library handles), then records it on a static (t_pad, 2)
+    query block. A call copies the query block in, replays the graph and
+    copies the outputs out, all on the current stream, so the host never
+    waits and a later replay cannot overwrite outputs still in flight.
+    Each replay adds the kernel launches the graph holds to the kernel
+    modules' counts (the wrappers count nothing while capturing)."""
+
+    def __init__(self, fn, args, t_pad: int, device):
+        self.tx = torch.zeros((t_pad, 2), dtype=torch.int32, device=device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn(*args, self.tx)  # the query (0, 0) everywhere: any valid ids
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        captured = K.captured_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph):
+            self.out = fn(*args, self.tx)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.launches = tuple(b - a for a, b in zip(captured,
+                                                    K.captured_counts()))
+
+    def __call__(self, tx):
+        self.tx.copy_(tx, non_blocking=True)
+        self.graph.replay()
+        K.count_replay(self.launches)
+        return tuple(o.clone() for o in self.out)
 
 
 class InfluenceEngine:
@@ -197,6 +234,13 @@ class InfluenceEngine:
         power iteration give a scale past λ_max and a shift that makes
         an indefinite block PD) or ``static`` (the configured scale with
         ``solve_lissa``'s λ_max guard).
+      flat_accum: the flat path's segment Hessian sums: ``auto`` (the
+        CUDA kernel ``kernels/segment.py`` on the card, the scatter form
+        on the CPU), ``scan`` (the scatter form, the reference's
+        ``body_scatter``) or ``onehot`` (a one-hot matrix product a
+        chunk, the reference's ``body_onehot``). Only ``auto`` on the
+        card is the same bits under any batch split; on the CPU
+        ``auto`` and ``scan`` are.
       device: ``None`` (the CUDA device; raises without one), ``"cuda"``
         or ``"cpu"``.
     """
@@ -226,6 +270,7 @@ class InfluenceEngine:
         query_bucket: int = 64,
         kernel: str = "auto",
         lissa_tune: str = "spectral",
+        flat_accum: str = "auto",
         device=None,
     ):
         if solver not in policy.BLOCK_SOLVERS:
@@ -236,6 +281,7 @@ class InfluenceEngine:
             ("hessian_mode", hessian_mode, ("auto", "analytic", "autodiff")),
             ("pad_policy", pad_policy, ("batch", "dataset")),
             ("lissa_tune", lissa_tune, ("spectral", "static")),
+            ("flat_accum", flat_accum, ("auto", "scan", "onehot")),
         ):
             if value not in allowed:
                 raise ValueError(f"unknown {name} {value!r}")
@@ -283,7 +329,9 @@ class InfluenceEngine:
         self.group_queries = bool(group_queries)
         self.pad_policy = pad_policy
         self.impl = impl
-        # Hessian accumulation chunk: a power of two that divides the
+        self.flat_accum = flat_accum
+        # Hessian accumulation chunk of the plain forms (scan, onehot;
+        # the kernel needs none): a power of two that divides the
         # power-of-two-floored S pad, capped so the (chunk, d²) outer-
         # product buffer stays <= 64M float32 elements.
         self.flat_chunk = 1 << max(0, int(flat_chunk).bit_length() - 1)
@@ -292,6 +340,10 @@ class InfluenceEngine:
         cap = 1 << max(0, cap_elems.bit_length() - 1) if cap_elems else 1
         self.flat_chunk = max(1, min(self.flat_chunk, cap))
         self.query_bucket = max(0, int(query_bucket))
+        # flat programs by _flat_key: CUDA graphs on the card, the
+        # program closures on the CPU; and the keys precompile_flat armed
+        self._programs: dict = {}
+        self._aot: set = set()
 
     def active_kernel_variant(self) -> str:
         return self._kernel_variant
@@ -347,18 +399,19 @@ class InfluenceEngine:
         truncates the program to a cumulative prefix: "grads" returns
         ``(g, e)``, "hessian" the damped ``H`` (T, d, d), "solve"
         ``(ihvp, v)``, "scores" (the default, the full program)
-        ``(scores, ihvp, v)``. "operands" returns the score stage's
-        inputs ``(tx, t, rel_x, e, wv, B)``, for timing the score kernel
-        alone at the path's shapes.
+        ``(scores, ihvp, v)``. "segments" and "operands" return the
+        inputs of the Hessian sums ``(g, t, wv, abe, off)`` and of the
+        score stage ``(tx, t, rel_x, e, wv, B)``, for holding and timing
+        each kernel alone at the path's shapes.
         """
-        if stage not in STAGES + ("operands",):
+        if stage not in STAGES + ("segments", "operands"):
             raise ValueError(f"unknown stage {stage!r}")
         model = self.model
         variant = self._kernel_variant
         damping = self.damping
         prelude = self._flat_prelude(s_pad)
         chunk = math.gcd(s_pad, self.flat_chunk)
-        onehot = self.device.type == "cuda"
+        accum = self.flat_accum
 
         def fn(params, train_x, train_y, postings, tx):
             T = tx.shape[0]
@@ -366,13 +419,21 @@ class InfluenceEngine:
             rel_x = train_x[row]
             rel_y = train_y[row]
             g = K.row_grads(model, params, ut, it, rel_x)
-            e = model.predict(params, rel_x) - rel_y
+            e = model.row_predict(params, rel_x) - rel_y
             ab = wv * (rel_x[:, 0] == ut) * (rel_x[:, 1] == it)
             if stage == "grads":
                 return g, e
 
             # H_t = (2/n_t)(Σ_{s∈t} w g gᵀ + (Σ a b e) C) + diag(reg + λ)
-            HH, sum_abe = _segment_hessian(g, t, wv, ab * e, T, chunk, onehot)
+            off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+            off.clamp_(max=s_pad)
+            if stage == "segments":
+                return g, t, wv, ab * e, off
+            if accum == "auto":
+                HH, sum_abe = Kseg.segment_sums(g, t, wv, ab * e, off, chunk)
+            else:
+                HH, sum_abe = Kseg.segment_sums_reference(
+                    g, t, wv, ab * e, T, chunk, onehot=accum == "onehot")
             n_t = torch.clamp(counts.to(torch.float32), min=1.0)
             C = model.block_cross_const(params)
             rdiag = model.block_reg_diag(params)
@@ -382,12 +443,12 @@ class InfluenceEngine:
             if stage == "hessian":
                 return H
 
-            v = torch.func.vmap(
+            v = _in_pieces(torch.func.vmap(
                 lambda uu, ii, xj: G.block_prediction_grad(
                     model, params, uu, ii, xj[None, :]
                 )
-            )(u, i, tx)
-            ihvp = solvers.solve_direct(H, v)
+            ), u, i, tx)
+            ihvp = _in_pieces(solvers.solve_direct, H, v)
             if stage == "solve":
                 return ihvp, v
 
@@ -398,7 +459,13 @@ class InfluenceEngine:
                     model.extract_block(params, uu, ii)
                 )
             )(u, i)
-            reg_dot = torch.sum(theta * rdiag[None] * ihvp, dim=1)  # (T,)
+            # (T,); each row padded to a multiple of 8 entries: on the card
+            # the row sum's vectorised loads start where a row starts, and
+            # a row not 32-byte aligned (MF's d = 2k + 2) sums in another
+            # order, so a query's reg_dot would follow its batch position
+            prod = theta * rdiag[None] * ihvp
+            reg_dot = torch.sum(
+                torch.nn.functional.pad(prod, (0, -prod.shape[1] % 8)), dim=1)
             B = Kc.query_matrix(ihvp, reg_dot, n_t)
             if stage == "operands":
                 return tx, t, rel_x, e, wv, B
@@ -419,6 +486,88 @@ class InfluenceEngine:
         (~12.5% granule) above a 2048 floor, so S stays a multiple of
         every power-of-two chunk up to 2048."""
         return bucketed_pad(total, 2048)
+
+    def flat_geometry(self, test_points: np.ndarray) -> tuple[int, int]:
+        """``(t_pad, s_pad)`` of the flat dispatch these points would
+        issue: what :meth:`precompile_flat` must arm so that the dispatch
+        itself captures nothing."""
+        test_points = np.asarray(test_points)
+        if test_points.ndim == 1:
+            test_points = test_points[None, :]
+        counts = self.index.counts_batch(test_points)
+        return (self._query_pad(int(test_points.shape[0])),
+                self._s_pad_for(int(counts.sum())))
+
+    def _flat_key(self, t_pad: int, s_pad: int):
+        """A flat program's cache key: its geometry, the score-kernel
+        variant, the Hessian form, and the addresses of the tensors it
+        reads (a captured graph reads them by address)."""
+        tensors = (*self.params.values(), self.train_x, self.train_y,
+                   *self._postings)
+        return ("flat", t_pad, s_pad, self._kernel_variant, self.flat_accum,
+                tuple(x.data_ptr() for x in tensors))
+
+    def precompile_flat(self, geometries) -> dict:
+        """Build the flat programs of ``(t_pad, s_pad)`` geometries ahead
+        of any dispatch (on the card, capture each as a CUDA graph), so a
+        warmed engine never builds on the hot path. Geometries come from
+        :meth:`flat_geometry` over the planned batches or an explicit
+        list. No-op when the flat path is ineligible. Returns
+        ``{"compiled": [[t, s], ...], "cached": [...], "seconds": float}``.
+        """
+        if not (self.impl in ("auto", "flat") and self._flat_eligible()):
+            return {"compiled": [], "cached": [], "seconds": 0.0}
+        t0 = time.perf_counter()
+        compiled, cached = [], []
+        for t_pad, s_pad in geometries:
+            t_pad, s_pad = int(t_pad), int(s_pad)
+            key = self._flat_key(t_pad, s_pad)
+            if key in self._programs:
+                cached.append([t_pad, s_pad])
+            else:
+                self._programs[key] = self._build_flat(t_pad, s_pad)
+                compiled.append([t_pad, s_pad])
+            self._aot.add(key)
+        return {"compiled": compiled, "cached": cached,
+                "seconds": time.perf_counter() - t0}
+
+    def compiled_geometries(self) -> dict:
+        """The built flat programs: ``"aot"``, the ``[t_pad, s_pad]``
+        pairs :meth:`precompile_flat` armed, and ``"jit"``, the keys of
+        those built on their first dispatch."""
+        return {
+            "aot": sorted([k[1], k[2]] for k in self._aot),
+            "jit": sorted(str(k) for k in self._programs
+                          if k not in self._aot),
+        }
+
+    def _build_flat(self, t_pad: int, s_pad: int):
+        """One geometry's program as ``run(tx) -> (scores, ihvp, v)``: on
+        the card a captured CUDA graph (raising with the cause if the
+        program cannot be captured), on the CPU the program closure.
+        Each build is counted by :mod:`fia_tpu_torch.utils.compilemon`."""
+        fn = self._flat_fn(s_pad)
+        args = (self.params, self.train_x, self.train_y, self._postings)
+        compilemon.record()
+        if self.device.type != "cuda":
+            return lambda tx: fn(*args, tx)
+        try:
+            return _FlatGraph(fn, args, t_pad, self.device)
+        except Exception as e:
+            raise RuntimeError(
+                f"the flat program at (t_pad, s_pad) = ({t_pad}, {s_pad}) "
+                f"could not be captured as a CUDA graph: {e}") from e
+
+    def _flat_exec(self, t_pad: int, s_pad: int):
+        """The program for one dispatch geometry: the one
+        :meth:`precompile_flat` or an earlier dispatch built, else built
+        now (captured on its first dispatch, as ``jit`` compiles on its
+        first call)."""
+        key = self._flat_key(t_pad, s_pad)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self._build_flat(t_pad, s_pad)
+        return prog
 
     def _flat_inputs(self, test_points: np.ndarray):
         """``(counts, tx, s_pad)`` of one flat dispatch: host-side
@@ -453,9 +602,7 @@ class InfluenceEngine:
         pad = bucketed_pad(
             counts.max() if counts.size else 1, self.pad_bucket, pad_to
         )
-        out = self._flat_fn(s_pad)(
-            self.params, self.train_x, self.train_y, self._postings, tx
-        )
+        out = self._flat_exec(tx.shape[0], s_pad)(tx)
         return (test_points, counts, out, pad)
 
     def _finalize_flat(self, handle) -> InfluenceResult:

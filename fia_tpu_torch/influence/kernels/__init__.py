@@ -1,5 +1,6 @@
 """Score kernels for the flat influence path (port of
-``fia_tpu/influence/kernels/__init__.py``).
+``fia_tpu/influence/kernels/__init__.py``), and the launch counts of
+every hand-written kernel of the port.
 
 The score stage computes, for every flat related row s owned by query t,
 
@@ -23,8 +24,11 @@ import torch
 
 from fia_tpu_torch.influence.kernels import mf as _mf
 from fia_tpu_torch.influence.kernels import ncf as _ncf
+from fia_tpu_torch.influence.kernels import segment as _segment
 
 VARIANTS = ("cuda", "torch")
+#: every module holding a hand-written kernel, with its launch counts
+KERNEL_MODULES = (_mf, _ncf, _segment)
 
 #: kernel_family -> the module of its CUDA kernel and plain version
 _CUDA_FAMILIES = {"mf": _mf, "ncf": _ncf}
@@ -90,3 +94,15 @@ def fused_scores(model, variant: str, params, tx, t, rel_x, e, wv, B):
     if variant == "torch":
         return impl.fused_scores_reference(*args)
     raise ValueError(f"unknown kernel variant {variant!r}")
+
+
+def captured_counts() -> tuple[int, ...]:
+    """``captured`` of each of :data:`KERNEL_MODULES`."""
+    return tuple(m.captured for m in KERNEL_MODULES)
+
+
+def count_replay(held) -> None:
+    """A graph holding ``held`` launches of each of
+    :data:`KERNEL_MODULES` was replayed."""
+    for m, n in zip(KERNEL_MODULES, held):
+        m.launches += n

@@ -55,6 +55,16 @@ def score_epilogue(gdot, e, wv, Bt, d: int) -> torch.Tensor:
     return wv * (2.0 * e * gdot + Bt[:, d]) / Bt[:, d + 1]
 
 
+def count_launch(module) -> None:
+    """Count one launch of ``module``'s kernel: in ``module.launches``,
+    or in ``module.captured`` while the current stream is capturing a
+    CUDA graph (the launch is recorded, not run)."""
+    if torch.cuda.is_current_stream_capturing():
+        module.captured += 1
+    else:
+        module.launches += 1
+
+
 def find_nvcc() -> str:
     """``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda/bin/nvcc``, then
     ``nvcc`` on ``$PATH``; raises when there is none."""

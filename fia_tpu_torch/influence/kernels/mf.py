@@ -19,13 +19,16 @@ Operands (the kernel's, and the plain version's):
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
 from fia_tpu_torch.influence.kernels import common
 
-#: launches of the CUDA kernel by :func:`fused_scores` in this process
+#: launches of the CUDA kernel by :func:`fused_scores` in this process, and
+#: launches recorded into CUDA graphs (:func:`common.count_launch`)
 launches = 0
+captured = 0
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -75,7 +78,6 @@ def _check(rel_x, t, e, wv, tx, P, Q, B) -> None:
 def fused_scores(rel_x, t, e, wv, tx, P, Q, B) -> torch.Tensor:
     """(S,) MF fused scores. CUDA tensors launch the kernel on the
     current stream (or raise); CPU tensors take the plain version."""
-    global launches
     if rel_x.device.type == "cpu":
         return fused_scores_reference(rel_x, t, e, wv, tx, P, Q, B)
     if rel_x.device.type != "cuda":
@@ -94,5 +96,5 @@ def fused_scores(rel_x, t, e, wv, tx, P, Q, B) -> torch.Tensor:
                 out.data_ptr(), S, k, int(vec4), stream)
     if rc != 0:
         raise RuntimeError(f"mf_scores kernel launch failed: cudaError {rc}")
-    launches += 1
+    common.count_launch(sys.modules[__name__])
     return out

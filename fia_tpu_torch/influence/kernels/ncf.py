@@ -28,13 +28,16 @@ Operands (the kernel's, and the plain version's):
 from __future__ import annotations
 
 import ctypes
+import sys
 
 import torch
 
 from fia_tpu_torch.influence.kernels import common
 
-#: launches of the CUDA kernel by :func:`fused_scores` in this process
+#: launches of the CUDA kernel by :func:`fused_scores` in this process, and
+#: launches recorded into CUDA graphs (:func:`common.count_launch`)
 launches = 0
+captured = 0
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 17 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -44,11 +47,30 @@ _NAMES = ("rel_x", "t", "e", "wv", "tx", "P_mlp", "Q_mlp", "P_gmf", "Q_gmf",
           "W1", "b1", "W2", "b2", "W3", "B")
 
 
+#: rows a piece of :func:`rows_product`
+ROW_PIECE = 2048
+
+
+def rows_product(x, W):
+    """``x @ W`` for (S, K) rows ``x``, each row's bits independent of S:
+    the rows in pieces of ROW_PIECE (the last zero-padded) as one batched
+    product. On the card a plain product's kernel is chosen by the row
+    count and changes every row's bits with it (seen on an H100 for
+    (S, 16) x (16, 8) between S <= 6144 and S >= 8192, and for most of
+    NCF's shapes); the batched product's is chosen by the piece, and gave
+    the same bits for 2 and 16 pieces at every shape tried."""
+    S, K = x.shape
+    n = -(-S // ROW_PIECE)
+    x = torch.nn.functional.pad(x, (0, 0, 0, n * ROW_PIECE - S))
+    out = torch.bmm(x.reshape(n, ROW_PIECE, K), W.expand(n, *W.shape))
+    return out.reshape(n * ROW_PIECE, W.shape[1])[:S]
+
+
 def preactivations(xu, xi, P_mlp, Q_mlp, W1, b1, W2, b2):
     """(S, k) z1 and (S, k2) z2 of the MLP tower of rows (xu, xi), in the
     tables' dtype: the values whose sign sets the relu masks."""
-    z1 = torch.cat([P_mlp[xu], Q_mlp[xi]], dim=1) @ W1 + b1
-    z2 = torch.relu(z1) @ W2 + b2
+    z1 = rows_product(torch.cat([P_mlp[xu], Q_mlp[xi]], dim=1), W1) + b1
+    z2 = rows_product(torch.relu(z1), W2) + b2
     return z1, z2
 
 
@@ -59,8 +81,8 @@ def own_backward(xu, xi, P_mlp, Q_mlp, W1, b1, W2, b2, W3):
     k2 = W2.shape[1]
     z1, z2 = preactivations(xu, xi, P_mlp, Q_mlp, W1, b1, W2, b2)
     dz2 = torch.where(z2 > 0, W3[:k2, 0], torch.zeros_like(z2))
-    dz1 = torch.where(z1 > 0, dz2 @ W2.T, torch.zeros_like(z1))
-    return dz1 @ W1.T
+    dz1 = torch.where(z1 > 0, rows_product(dz2, W2.T), torch.zeros_like(z1))
+    return rows_product(dz1, W1.T)
 
 
 def fused_scores_reference(rel_x, t, e, wv, tx, P_mlp, Q_mlp, P_gmf, Q_gmf,
@@ -116,7 +138,6 @@ def fused_scores(rel_x, t, e, wv, tx, P_mlp, Q_mlp, P_gmf, Q_gmf, W1, b1, W2,
                  b2, W3, B) -> torch.Tensor:
     """(S,) NCF fused scores. CUDA tensors launch the kernel on the
     current stream (or raise); CPU tensors take the plain version."""
-    global launches
     args = (rel_x, t, e, wv, tx, P_mlp, Q_mlp, P_gmf, Q_gmf, W1, b1, W2, b2,
             W3, B)
     if rel_x.device.type == "cpu":
@@ -138,5 +159,5 @@ def fused_scores(rel_x, t, e, wv, tx, P_mlp, Q_mlp, P_gmf, Q_gmf, W1, b1, W2,
                 scratch.data_ptr(), S, T, k, k2, stream)
     if rc != 0:
         raise RuntimeError(f"ncf_scores kernel launch failed: cudaError {rc}")
-    launches += 1
+    common.count_launch(sys.modules[__name__])
     return out

@@ -97,6 +97,12 @@ class LatentFactorModel:
         """x: (B, 2) int (user, item) -> (B,) float ratings."""
         raise NotImplementedError
 
+    def row_predict(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """``predict``, with each row's bits independent of how many rows
+        ``x`` has (the flat path's residuals; on the card a library kernel
+        chosen by the row count can change them)."""
+        return self.predict(params, x)
+
     def extract_block(self, params: Params, u, i) -> Block:
         raise NotImplementedError
 

@@ -78,6 +78,19 @@ class NCF(LatentFactorModel):
         return self._head(params, params["P_mlp"][u], params["Q_mlp"][i],
                           params["P_gmf"][u], params["Q_gmf"][i])
 
+    def row_predict(self, params, x):
+        """``predict`` with each row's bits independent of the row count:
+        the tower's products in fixed pieces of rows
+        (``kernels/ncf.py:rows_product``) and the (·, 1) output layer as a
+        product and row sum (on the card a matrix-vector product's kernel,
+        too, follows the row count)."""
+        u, i = x[:, 0], x[:, 1]
+        _, z2 = kncf.preactivations(u, i, *(params[n] for n in (
+            "P_mlp", "Q_mlp", "W1", "b1", "W2", "b2")))
+        h = torch.cat([torch.relu(z2), params["P_gmf"][u] * params["Q_gmf"][i]],
+                      dim=-1)
+        return torch.sum(h * params["W3"][:, 0], dim=-1) + params["b3"][0]
+
     # -- FIA block: 4 embedding rows, 4k params
     def extract_block(self, params, u, i):
         return {

@@ -46,6 +46,10 @@ TRAIN_MODULES = ("fia_tpu_torch.train.trainer",
                  "fia_tpu_torch.obs.diag",
                  "fia_tpu_torch.utils.io",
                  "fia_tpu_torch.utils.logging")
+# the split-invariant flat path: the segment-Hessian kernel's wrapper and
+# the program-build counter
+DISPATCH_MODULES = ("fia_tpu_torch.influence.kernels.segment",
+                    "fia_tpu_torch.utils.compilemon")
 
 
 def _forbidden(name: str) -> bool:
@@ -83,6 +87,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(NCF_MODULES) <= set(names)
     assert set(PADDED_MODULES) <= set(names)
     assert set(TRAIN_MODULES) <= set(names)
+    assert set(DISPATCH_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -115,7 +120,7 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
 
 
 @pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
-                         + TRAIN_MODULES)
+                         + TRAIN_MODULES + DISPATCH_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""
