@@ -9,14 +9,19 @@ Phases, each of which makes the script exit non-zero when it fails:
      checkout (``mf_scores``, ``ncf_scores``, ``segment_hessian``; one
      ``nvcc`` each, all started together); print ``nvcc --version`` and
      each kernel instantiation's ``ptxas`` registers and spills;
-  3. hold ``segment_hessian`` bit for bit against its plain scatter form
-     run in row order on the CPU and against float64 (``SEG_RTOL``), on
-     the main path's operands and on synthetic segments at every block
+  3. hold ``segment_hessian`` (two launches: the pieces, their
+     combination) bit for bit against its plain pieced form
+     (``piece=piece_rows(d)``: pieces of P rows from each segment's
+     start, each in row order, the partials added in piece order; run on
+     the card, and held bit for bit to the same form on the CPU on two
+     cases) and against float64 (``SEG_RTOL``), on the main path's
+     operands at every batch size and on synthetic segments at every block
      size RQ2 runs (d = 34, 64, 514, 1,024): empty, one row, the longest
-     related set of the data, wv = 0 rows, a truncated last segment; two
-     launches the same bits; one segment the same bits at another offset
-     in another batch size. Then hold each score kernel against its plain
-     PyTorch version on the card, at
+     related set of the data, P - 1, P, P + 1 and 3P + 5 rows, wv = 0
+     rows, a truncated last segment; two launches the same bits; one
+     segment the same bits at another offset in another batch size.
+     Then hold each score kernel against its plain PyTorch version on
+     the card, at
      its main path's shapes plus edge cases (a ragged row count, a fully
      masked segment, rows matching neither query id, rows that are their
      query's own pair (a = b = 1), rows permuted so that ``t`` is
@@ -151,7 +156,8 @@ from fia_tpu_torch.eval.rq2 import time_influence_queries
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import solvers, spectral
-from fia_tpu_torch.influence.engine import STAGES, InfluenceEngine, _in_pieces
+from fia_tpu_torch.influence.engine import (STAGES, InfluenceEngine,
+                                           _in_pieces, capturing)
 from fia_tpu_torch.influence.kernels import common
 from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
@@ -249,17 +255,19 @@ GRAPH_T, GRAPH_SPLITS = 256, (8, 16)
 # widths whose dots drift apart in two float32 orders: there 7d holds the
 # kernel and the float32 plain version each against float64
 RQ2_FLOAT64_K = (64, 128, 256)
-# the segment-Hessian kernel: bit for bit the plain scatter form run in
-# row order on the CPU (the same products and sums in the same order: wv is
+# the segment-Hessian kernel: bit for bit the plain pieced form
+# (piece=piece_rows(d); the same products and sums in the same order: wv is
 # 0 or 1 on every case), and against float64 each entry of H_t within
 # SEG_RTOL of it plus SEG_ATOL_REL of max |H_t|; an entry beyond that
 # passes only within the bound of a float32 sum of the segment's n_t terms
 # in order, γ_{n_t} Σ|terms| (γ_n = n u / (1 - n u), u = 2^-24), and is
-# counted. Cases: the main path's operands (MF and NCF, T = 256), and
+# counted. Cases: the main path's operands (MF and NCF, every T of BATCHES),
+# and
 # synthetic rows at every block size of SEG_D (MF k = 16, NCF k = 16, MF
 # k = 256, NCF k = 256) with segments empty, of one row, of the longest
-# related set (the data's at d <= 64, RQ2's 64 queries' at d > 64), rows
-# with wv = 0, and a last segment truncated at the flat pad
+# related set (the data's at d <= 64, RQ2's 64 queries' at d > 64), of
+# P - 1, P, P + 1 and 3P + 5 rows (P = piece_rows(d)), rows with wv = 0,
+# and a last segment truncated at the flat pad
 SEG_RTOL, SEG_ATOL_REL = 1e-5, 1e-6
 SEG_D = (34, 64, 514, 1024)
 # the card (phase 7 names it once)
@@ -377,7 +385,7 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with capturing(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -755,15 +763,36 @@ def segment_operands(eng, pts, T):
         eng.params, eng.train_x, eng.train_y, eng._postings, tx)
 
 
-def segment_plain(ops, dtype=torch.float32, onehot: bool = False):
-    """The plain form (the scatter form, or the one-hot product it
-    replaced) of the kernel on ``ops``, in ``dtype``."""
+def segment_plain(ops, dtype=torch.float32, onehot: bool = False,
+                  piece: int | None = None):
+    """A plain form of the kernel on ``ops``, in ``dtype``: the scatter
+    form in row order, the one-hot product it replaced, or (``piece``)
+    the kernel's pieced order."""
     g, t, wv, abe, off = ops
     d = g.shape[1]
     chunk = max(1, min(2048, 4_000_000 // (d * d)))
     return kseg.segment_sums_reference(g.to(dtype), t, wv.to(dtype),
                                        abe.to(dtype), off.numel() - 1, chunk,
-                                       onehot=onehot)
+                                       onehot=onehot, piece=piece, off=off)
+
+
+def segment_float64(ops, absolute: bool = False):
+    """``(HH, sabe)`` in float64 by definition, a segment at a time on
+    the card: (wv g)ᵀ g over its rows, or with ``absolute`` |wv g|ᵀ |g|
+    and Σ |abe| (the terms' magnitudes, for the float32 sum's bound)."""
+    g, t, wv, abe, off = ops
+    S, d = g.shape
+    g64, w64, a64 = g.double(), wv.double(), abe.double()
+    if absolute:
+        g64, w64, a64 = g64.abs(), w64.abs(), a64.abs()
+    r0, r1 = (x.tolist() for x in kseg.segment_rows(off, S))
+    HH = g64.new_zeros((len(r0), d, d))
+    sabe = g64.new_zeros((len(r0),))
+    for j, (a, b) in enumerate(zip(r0, r1)):
+        if b > a:
+            HH[j] = (g64[a:b] * w64[a:b, None]).T @ g64[a:b]
+            sabe[j] = a64[a:b].sum()
+    return HH, sabe
 
 
 def segment_launch_twice(ops):
@@ -776,19 +805,24 @@ def segment_launch_twice(ops):
     return got
 
 
+def segment_pieced_plain(ops):
+    """The pieced plain form at ``piece_rows(d)`` on the operands' device
+    (elementwise float32 products and sums in the kernel's order)."""
+    return segment_plain(ops, piece=kseg.piece_rows(ops[0].shape[1]))
+
+
 def segment_hold(got, ops, what: str) -> dict:
-    """``(HH, sabe)`` of the kernel on ``ops`` against the plain scatter
-    form in row order on the CPU (bit for bit) and in float64 on the card
-    (at SEG_RTOL / SEG_ATOL_REL, or within the float32 recursive-sum bound
-    γ_{n_t} Σ|terms|, counted). Returns the largest error as a share of
-    max |H_t| and the count of entries the bound excused."""
+    """``(HH, sabe)`` of the kernel on ``ops`` against the plain pieced
+    form (bit for bit) and float64 (at SEG_RTOL / SEG_ATOL_REL, or within
+    the float32 recursive-sum bound γ_{n_t} Σ|terms|, counted). Returns
+    the largest error as a share of max |H_t| and the count of entries
+    the bound excused."""
     g, t, wv, abe, off = ops
-    cpu = segment_plain(tuple(x.cpu() for x in ops))
-    for x, c in zip(got, cpu):
-        check(torch.equal(x.cpu(), c), f"{what}: not bit for bit the plain "
-              "scatter form in row order (CPU)")
-    want = segment_plain(ops, torch.float64)
-    absolute = segment_plain((g.abs(), t, wv, abe.abs(), off), torch.float64)
+    for x, c in zip(got, segment_pieced_plain(ops)):
+        check(torch.equal(x, c), f"{what}: not bit for bit the plain "
+              "pieced form")
+    want = segment_float64(ops)
+    absolute = segment_float64(ops, absolute=True)
     n = (off[1:] - off[:-1]).double() * 2.0 ** -24
     gamma = n / (1.0 - n)
     worst, worst_abs, excused = 0.0, 0.0, 0
@@ -832,17 +866,22 @@ def synthetic_segments(counts, S: int, d: int, gen: torch.Generator):
 def check_segment(engines, pts, longest: int, longest_rq2: int) -> dict:
     """Phase 3 for the Hessian kernel (:func:`segment_hold`) on the main
     path's operands and on synthetic segments at every block size of
-    SEG_D; two launches the same bits; and a segment's sums the same bits
-    alone and at another offset in another batch size."""
+    SEG_D; two launches the same bits; the pieced form the same bits on
+    the CPU and on the card; and a segment's sums the same bits alone and
+    at another offset in another batch size."""
     gen = torch.Generator().manual_seed(2)
-    cases = [(f"{f} main path", segment_operands(eng, pts, BATCHES[0]))
-             for f, (eng, _) in engines.items()]
+    cases = [(f"{f} main path T={T}", segment_operands(eng, pts, T))
+             for f, (eng, _) in engines.items() for T in BATCHES]
     for d in SEG_D:
         n = longest if d <= 64 else longest_rq2
+        P = kseg.piece_rows(d)
         cases.append((f"d={d} mixed", synthetic_segments(
             [0, 1, n, 5, 0, 77], n + 83 + 300, d, gen)))
         cases.append((f"d={d} truncated", synthetic_segments(
             [40, 1, 300], 191, d, gen)))
+        pieces = [P - 1, 0, P, P + 1, 3 * P + 5, 2]
+        cases.append((f"d={d} pieces P={P}", synthetic_segments(
+            pieces, sum(pieces) + 77, d, gen)))
     worst, worst_abs, excused = 0.0, 0.0, 0
     for name, ops in cases:
         got = segment_launch_twice(ops)
@@ -850,10 +889,23 @@ def check_segment(engines, pts, longest: int, longest_rq2: int) -> dict:
         worst_abs = max(worst_abs, r["max_abs_err"])
         log(f"segment_hessian [{name}] S={ops[0].shape[0]} "
             f"d={ops[0].shape[1]} T={ops[4].numel() - 1}: bit for bit the "
-            f"CPU's row-order scatter form; vs float64 {r}")
+            f"pieced plain form; vs float64 {r}")
         worst = max(worst, r["max_err_of_max_abs_H"])
         excused += r["excused_by_float32_bound"]
-    for d, n in ((SEG_D[0], longest), (SEG_D[-1], longest_rq2)):
+    # the pieced form is one function on either device
+    for name, ops in cases:
+        if name in (f"ncf main path T={BATCHES[-1]}", f"d={SEG_D[2]} mixed"):
+            cpu = segment_pieced_plain(tuple(x.cpu() for x in ops))
+            card = segment_pieced_plain(ops)
+            check(all(torch.equal(a, b.cpu()) for a, b in zip(cpu, card)),
+                  f"segment_hessian [{name}]: the pieced plain form differs "
+                  "between the CPU and the card")
+            log(f"segment_hessian [{name}]: the pieced plain form the same "
+                "bits on the CPU and on the card")
+    offsets = ((SEG_D[0], longest), (SEG_D[1], 3 * kseg.piece_rows(64) + 5),
+               (SEG_D[2], 3 * kseg.piece_rows(SEG_D[2]) + 5),
+               (SEG_D[-1], longest_rq2))
+    for d, n in offsets:
         g1, t1, wv1, abe1, off1 = synthetic_segments([n], n, d, gen)
         counts = torch.randint(0, 400, (40,), generator=gen)
         counts[23] = n
@@ -868,10 +920,27 @@ def check_segment(engines, pts, longest: int, longest_rq2: int) -> dict:
               f"segment_hessian d={d}: a segment's sums change with its "
               "offset or the batch size")
         log(f"segment_hessian d={d}: a {n}-row segment alone and as segment "
-            f"23 of 40 at row {a}: the same bits")
+            f"23 of 40 at row {a} (row {a % kseg.piece_rows(d)} of a piece "
+            "grid from 0): the same bits")
+        del g1, g2, one, many
+    torch.cuda.empty_cache()
     return {"max_err_of_max_abs_H": worst, "max_abs_err": worst_abs,
-            "excused_by_float32_bound": excused, "longest_segment": longest, "longest_segment_rq2": longest_rq2,
-            "cases": len(cases)}
+            "excused_by_float32_bound": excused, "longest_segment": longest,
+            "longest_segment_rq2": longest_rq2, "cases": len(cases),
+            "piece_rows": {str(d): kseg.piece_rows(d) for d in SEG_D}}
+
+
+def segment_geometry(ops) -> dict:
+    """The kernel's work on ``ops``: its pieces (blocks with rows, each
+    over every tile pair) and the scratch its later pieces may fill."""
+    g, off = ops[0], ops[4]
+    S, d = g.shape
+    P = kseg.piece_rows(d)
+    slots = kseg.scratch_slots(S, P)
+    return {"piece_rows": P,
+            "pieces": int(kseg.piece_counts(off, S, P).sum()),
+            "grid_x": off.numel() - 1 + slots,
+            "scratch_mb": slots * (d * d + 1) * 4 / 1e6}
 
 
 def segment_bound_ms(ops) -> tuple[float, str]:
@@ -976,10 +1045,20 @@ def measure(family: str, eng, train, pts) -> tuple[dict, dict, dict]:
             eager.append(time.perf_counter() - t0)
         seg_ops = segment_operands(eng, pts, T)
         seg_ms = graph_ms(lambda: kseg.segment_sums(*seg_ops, 0), iters=20)
+        seg_call_ms = time_ms(lambda: kseg.segment_sums(*seg_ops, 0),
+                              iters=20)
+        # one call's device time by launch (the pieces, the combination)
+        seg_parts = device_breakdown(lambda: kseg.segment_sums(*seg_ops, 0),
+                                     seg_call_ms)
+        # the plain version: the row-order scatter form by graph replay;
+        # the pieced form has host waits (its step count): events
         seg_plain_ms = graph_ms(lambda: segment_plain(seg_ops), iters=3)
+        seg_pieced_ms = time_ms(lambda: segment_pieced_plain(seg_ops),
+                                iters=2, warmup=1)
         seg_onehot_ms = graph_ms(lambda: segment_plain(seg_ops, onehot=True),
                                  iters=1)
         seg_bound, seg_by = segment_bound_ms(seg_ops)
+        seg_geo = segment_geometry(seg_ops)
         ops = operands(eng, pts, T)
         k_args = kernel_args(ops)
         k_ms = graph_ms(lambda: mod.fused_scores(*k_args), iters=50)
@@ -997,7 +1076,12 @@ def measure(family: str, eng, train, pts) -> tuple[dict, dict, dict]:
             "hessian_stage_ms_onehot": onehot_ms["hessian"]
             - onehot_ms["grads"],
             "segment_kernel_ms": seg_ms, "segment_plain_ms": seg_plain_ms,
+            "segment_pieced_ms": seg_pieced_ms,
             "segment_onehot_ms": seg_onehot_ms,
+            "segment_call_ms": seg_call_ms,
+            "segment_parts_ms": [[name, ms] for name, ms, _ in
+                                 seg_parts["top_kernels"]],
+            "segment_geometry": seg_geo,
             "segment_bound_ms": seg_bound, "segment_bound_by": seg_by,
             "query_batch_ms": wall * 1e3,
             "query_batch_ms_runs": [w * 1e3 for w in walls],
@@ -1016,8 +1100,9 @@ def measure(family: str, eng, train, pts) -> tuple[dict, dict, dict]:
                 "shape": {"S": int(ops[2].shape[0]), "T": int(tx.shape[0]),
                           "k": K_EMB}}
         seg_last = {"ms": seg_ms, "plain_ms": seg_plain_ms,
+                    "pieced_ms": seg_pieced_ms,
                     "onehot_ms": seg_onehot_ms, "bound_ms": seg_bound,
-                    "bound_by": seg_by,
+                    "bound_by": seg_by, **seg_geo,
                     "shape": {"S": int(seg_ops[0].shape[0]),
                               "T": int(tx.shape[0]),
                               "d": int(seg_ops[0].shape[1])}}
@@ -1965,8 +2050,10 @@ def main() -> int:
             "library_ms": None,
             "shape": last["shape"],
         })
-    # the Hessian kernel's row: NCF's (d = 64) times at T = 1024; launches
-    # of both models' main paths
+    # the Hessian kernel's row: NCF's (d = 64) times, pieces and scratch at
+    # T = 1024; launches (two a call) of both models' main paths; plain_ms
+    # the row-order scatter form by graph replay, pieced_ms the kernel's
+    # bit-for-bit reference (events, host waits a step)
     seg_last = seg_rows["ncf"]
     rows.append({
         "name": SEGMENT_SOURCE,
@@ -1976,10 +2063,14 @@ def main() -> int:
         "launches": sum(d["segment_launches"] for d in driven.values()),
         "max_abs_err": seg_checked["max_abs_err"],
         "max_err_of_max_abs_H": seg_checked["max_err_of_max_abs_H"],
+        "launches_per_call": 2,
         "ms": seg_last["ms"], "plain_ms": seg_last["plain_ms"],
         "bound_ms": seg_last["bound_ms"], "bound_by": seg_last["bound_by"],
         "library_ms": None,
         "onehot_ms": seg_last["onehot_ms"],
+        "pieced_ms": seg_last["pieced_ms"],
+        "piece_rows": seg_last["piece_rows"], "pieces": seg_last["pieces"],
+        "scratch_mb": seg_last["scratch_mb"],
         "shape": seg_last["shape"],
         "mf": seg_rows["mf"],
     })

@@ -45,6 +45,8 @@ Options of the reference that the port does not run yet raise
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import math
 import sys
 import time
@@ -161,6 +163,22 @@ def _in_pieces(fn, *xs):
     return torch.cat(outs)[:n]
 
 
+@contextlib.contextmanager
+def capturing(graph):
+    """``torch.cuda.graph(graph)`` with Python's cyclic collector paused.
+    A collection in the middle of a capture can free a dead graph (one
+    of a dropped engine's, held in a reference cycle), and destroying a
+    graph while a stream captures invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
+
+
 class _FlatGraph:
     """One flat program geometry captured as a CUDA graph.
 
@@ -185,7 +203,7 @@ class _FlatGraph:
         captured = K.captured_counts()
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph):
+        with capturing(self.graph):
             self.out = fn(*args, self.tx)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
@@ -235,8 +253,9 @@ class InfluenceEngine:
         an indefinite block PD) or ``static`` (the configured scale with
         ``solve_lissa``'s λ_max guard).
       flat_accum: the flat path's segment Hessian sums: ``auto`` (the
-        CUDA kernel ``kernels/segment.py`` on the card, the scatter form
-        on the CPU), ``scan`` (the scatter form, the reference's
+        CUDA kernel ``kernels/segment.py`` on the card, in pieces of
+        ``piece_rows(d)`` rows from each segment's start; the row-order
+        scatter form on the CPU), ``scan`` (the scatter form, the reference's
         ``body_scatter``) or ``onehot`` (a one-hot matrix product a
         chunk, the reference's ``body_onehot``). Only ``auto`` on the
         card is the same bits under any batch split; on the CPU

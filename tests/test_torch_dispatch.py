@@ -14,6 +14,9 @@ same contracts there (its any-split and graph phases). The one test here
 that needs the card skips itself without one.
 """
 
+import contextlib
+import gc
+
 import jax
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ from fia_tpu.data.dataset import RatingDataset as RefDataset
 from fia_tpu.influence.engine import InfluenceEngine as RefEngine
 from fia_tpu.models import MF as RefMF
 from fia_tpu_torch.data.dataset import RatingDataset
-from fia_tpu_torch.influence.engine import InfluenceEngine
+from fia_tpu_torch.influence.engine import InfluenceEngine, capturing
 from fia_tpu_torch.models import MF, NCF
 from fia_tpu_torch.utils import compilemon
 
@@ -221,3 +224,32 @@ def test_graph_replay_equals_eager_program_on_the_card(family):
         for got, want in zip(parts, full):
             for g, w in zip(got, want):
                 assert g.tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("was_enabled", [True, False])
+def test_capture_pauses_the_collector(monkeypatch, was_enabled):
+    """A graph capture runs with Python's cyclic collector off (a dead
+    graph freed mid-capture invalidates it) and leaves the collector as
+    it found it, on an error too. The capture itself is stood in for:
+    it needs the card."""
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g):
+        seen.append(gc.isenabled())
+        yield
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    before = gc.isenabled()
+    (gc.enable if was_enabled else gc.disable)()
+    try:
+        with capturing(object()):
+            seen.append(gc.isenabled())
+        assert gc.isenabled() == was_enabled
+        with pytest.raises(RuntimeError):
+            with capturing(object()):
+                raise RuntimeError("a failed capture")
+        assert gc.isenabled() == was_enabled
+    finally:
+        (gc.enable if before else gc.disable)()
+    assert seen == [False, False, False]

@@ -13,10 +13,18 @@ includes a count-0 query (an empty segment) and query-pad segments
 truncated at the flat pad. Synthetic segments (empty, one row, wv = 0
 rows, a truncated last segment) hold both plain forms against a float64
 sum, and the scatter form bitwise against itself at another chunking,
-offset and batch size. The CUDA kernel itself is held against these
-forms on the card by ``chip_smoke.py``; here the wrapper must take the
-plain version for CPU tensors and count no launch.
+offset and batch size. The pieced form (the kernel's order: pieces of P
+rows from a segment's start, each in row order, the partials added in
+piece order) meets the same float64 bar with pieces short enough that
+the long segments span many, equals the row-order form bit for bit when
+one piece covers every segment, and gives a segment the same bits alone
+and at another offset in another batch. The CUDA kernel itself is held
+against the pieced form on the card by ``chip_smoke.py``; here the
+wrapper must take the plain version for CPU tensors and count no
+launch.
 """
+
+import inspect
 
 import jax
 import numpy as np
@@ -206,9 +214,131 @@ def test_kernel_matches_scan_form_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the segment_hessian kernel has no "
                     "CPU form (chip_smoke.py holds it on the card)")
-    ops = _synthetic([0, 1, 37, 5, 300], 400, 34)
+    d = 34
+    P = segment.piece_rows(d)
+    ops = _synthetic([0, 1, 37, 5, 300, P - 1, P, P + 1, 3 * P + 5],
+                     1400 + 5 * P, d)
     got = segment.segment_sums(*(a.cuda() for a in ops), 0)
-    want = segment.segment_sums_reference(*ops[:4], 5, 64)
-    # wv in {0, 1}: the kernel is the scatter form's arithmetic in row order
+    want = segment.segment_sums_reference(*ops[:4], 9, 64, piece=P,
+                                          off=ops[4])
+    # wv in {0, 1}: the kernel is the pieced form's arithmetic in its order
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+PIECES = (7, 64)
+
+
+@pytest.mark.parametrize("piece", PIECES)
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("d", [6, 34])
+def test_pieced_form_against_float64(case, d, piece):
+    """Pieces of 7 and 64 rows: the 1,500-row segment spans 215 / 24 of
+    them and the truncated one 22 / 3."""
+    counts, S = CASES[case]
+    g, t, wv, abe, off = _synthetic(counts, S, d)
+    HH, sabe = segment.segment_sums_reference(g, t, wv, abe, len(counts), 64,
+                                              piece=piece, off=off)
+    want, want_s = _exact(g, wv, abe, off)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(HH.numpy(), want, rtol=RTOL,
+                               atol=ATOL_REL * scale)
+    np.testing.assert_allclose(sabe.numpy(), want_s, rtol=RTOL,
+                               atol=ATOL_REL * max(np.abs(want_s).max(), 1.0))
+    empty = np.diff(off.numpy()) == 0
+    assert not HH.numpy()[empty].any() and not sabe.numpy()[empty].any()
+    # wv in {0, 1}: both halves are the same sums
+    assert torch.equal(HH, HH.transpose(1, 2))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("d", [6, 34])
+def test_one_piece_is_the_row_order_form(case, d):
+    """A piece at least as long as the longest segment is the whole
+    segment in row order: the scatter form's bits."""
+    counts, S = CASES[case]
+    g, t, wv, abe, off = _synthetic(counts, S, d)
+    T = len(counts)
+    rows = segment.segment_sums_reference(g, t, wv, abe, T, 64)
+    for piece in (max(counts), S + 1):
+        one = segment.segment_sums_reference(g, t, wv, abe, T, 64,
+                                             piece=piece, off=off)
+        assert torch.equal(one[0], rows[0]) and torch.equal(one[1], rows[1])
+
+
+@pytest.mark.parametrize("piece", PIECES)
+def test_pieced_form_is_split_invariant(piece):
+    """Pieces are counted from a segment's start, so its sums do not
+    depend on its offset (on or off a multiple of the piece), on the
+    batch around it, on the flat pad or on the chunk argument."""
+    d = 10
+    g1, t1, wv1, abe1, off1 = _synthetic([700], 700, d, seed=1)
+    one = segment.segment_sums_reference(g1, t1, wv1, abe1, 1, 2048,
+                                         piece=piece, off=off1)
+    for T, at, pad, seed in ((30, 17, 0, 3), (9, 2, 300, 4), (64, 63, 51, 5)):
+        counts = np.random.default_rng(seed).integers(0, 90, T)
+        counts[at] = 700
+        g2, t2, wv2, abe2, off2 = _synthetic(counts, int(counts.sum()) + pad,
+                                             d, seed=seed)
+        a, b = int(off2[at]), int(off2[at + 1])
+        g2[a:b], wv2[a:b], abe2[a:b] = g1, wv1, abe1
+        for chunk in (1, 64, 2048):
+            many = segment.segment_sums_reference(g2, t2, wv2, abe2, T, chunk,
+                                                  piece=piece, off=off2)
+            assert torch.equal(many[0][at], one[0][0])
+            assert torch.equal(many[1][at], one[1][0])
+
+
+def test_piece_rows_depends_on_d_only():
+    assert list(inspect.signature(segment.piece_rows).parameters) == ["d"]
+    # 256 rows a 64 x 64 tile on or above the diagonal
+    want = {1: 256, 6: 256, 34: 256, 64: 256, 65: 768, 130: 1536,
+            514: 11520, 1024: 34816}
+    for d, rows in want.items():
+        assert segment.piece_rows(d) == rows
+        assert segment.piece_rows(np.int64(d)) == rows
+    got = [segment.piece_rows(d) for d in range(1, 600)]
+    assert got == sorted(got)
+
+
+@pytest.mark.parametrize("piece", [1, 7, 64])
+def test_piece_slots_cover_every_piece_once(piece):
+    """The kernel's slot scheme, restated: slot j >= 1 holds piece
+    q = j - r0[t] // P of the last segment t with r0[t] < jP, when such a
+    piece starts before the segment's end. Every piece q >= 1 of every
+    segment is found exactly once, inside ``scratch_slots``."""
+    rng = np.random.default_rng(piece)
+    for trial in range(20):
+        counts = rng.integers(0, 4 * piece + 3, rng.integers(1, 40))
+        counts[rng.random(counts.size) < 0.2] = 0
+        S = int(counts.sum()) + int(rng.integers(0, 2 * piece))
+        if trial % 3 == 0:  # a last segment cut at the flat pad
+            S = max(0, int(counts.sum()) - int(rng.integers(0, piece + 1)))
+        off = torch.as_tensor(np.minimum(
+            np.concatenate([[0], np.cumsum(counts)]), S))
+        r0, r1 = (x.numpy() for x in segment.segment_rows(off, S))
+        n = segment.piece_counts(off, S, piece).numpy()
+        want = {(t, q) for t in range(len(counts)) for q in range(1, n[t])}
+        found = set()
+        for j in range(1, -(-S // piece)):
+            below = np.nonzero(off.numpy()[:-1].clip(max=S) < j * piece)[0]
+            if below.size == 0:
+                continue
+            t = int(below[-1])
+            q = j - int(r0[t]) // piece
+            if r0[t] + q * piece < r1[t]:
+                assert q >= 1 and (t, q) not in found
+                assert j - 1 < segment.scratch_slots(S, piece)
+                found.add((t, q))
+        assert found == want
+
+
+def test_pieced_form_arguments():
+    g, t, wv, abe, off = _synthetic([3, 4], 7, 6)
+    with pytest.raises(ValueError, match="one-hot"):
+        segment.segment_sums_reference(g, t, wv, abe, 2, 4, onehot=True,
+                                       piece=3, off=off)
+    with pytest.raises(ValueError, match="offsets"):
+        segment.segment_sums_reference(g, t, wv, abe, 2, 4, piece=3)
+    with pytest.raises(ValueError, match="piece must be"):
+        segment.segment_sums_reference(g, t, wv, abe, 2, 4, piece=0, off=off)
