@@ -6,8 +6,9 @@ Phases, each of which makes the script exit non-zero when it fails:
 
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the paths from the sources in the
-     checkout (``mf_scores``, ``ncf_scores``, ``segment_hessian``; one
-     ``nvcc`` each, all started together); print ``nvcc --version`` and
+     checkout (``mf_scores``, ``ncf_scores``, ``segment_hessian``,
+     ``segment_certificate``; one ``nvcc`` each, all started together);
+     print ``nvcc --version`` and
      each kernel instantiation's ``ptxas`` registers and spills;
   3. hold ``segment_hessian`` (two launches: the pieces, their
      combination) bit for bit against its plain pieced form
@@ -106,6 +107,45 @@ Phases, each of which makes the script exit non-zero when it fails:
         prefix, its captured geometries counted with their memory.
      The kernel launches of each path (phase 4's ``query_batch``, 7c,
      7d) go into the ``kernels`` line under ``launches_by_path``.
+  8. the rest of the solver ladder at ML-1M shape, first MF, then NCF,
+     under ``ladder`` in the ``perf`` line:
+     a. ``segment_certificate`` (three launches a call) against its
+        plain version on the card (rtol 1e-5 plus 1e-6 of the output's
+        largest entry, NaN and infinity where it is), on the sampled
+        program's operands at T = 256 and 1024 and on synthetic
+        segments (empty; m = 0; m = 1; m = n; m = cap < n; the longest
+        related set; one truncated at the flat pad; pad rows past the
+        last segment; an infinite row that is not sampled, which must
+        make its segment's σ̂ NaN); two launches the same bits; its ms
+        by graph replay beside its bytes bound and the plain version;
+     b. ``segment_hessian`` under the sampled rung's weights n/m, on
+        the sampled program's operands and on synthetic segments (m < n,
+        m = 1): bit for bit the plain pieced form, and within the
+        float64 bar;
+     c. the sampled rung (``solver="sampled"``, cap 64): each of its
+        kernels launched; |sampled − direct| <= err_bound + 1e-6 on at
+        least 99% of 1024 queries; at cap 1e6 bitwise the direct path
+        with every bound 0; ``query_many`` at 1024, 256, 100 and 23 a
+        batch bitwise one dispatch, scores and bounds; at a tolerance
+        of the median bound of 64 queries, those over it bitwise the
+        lissa rung's (depth 200), each in its place; wall ms and
+        scores/s (median of 5) beside direct, busy share and device ms
+        by kernel, host waits a dispatch, ``sample_weights``' host ms;
+     d. the factor bank: 1024 hot pairs built (time, Cholesky and
+        inverse kinds, MB), published, loaded with nothing stale; on
+        256 queries, half bank pairs, hits at Spearman >= 0.999 against
+        direct, misses bitwise direct, a hit alone the same bits as in
+        the batch; all-hit batches of 256 and 1024 beside direct; a
+        user's row moved, ``refresh_bank`` drops exactly the entries it
+        touches; the library calls' times (``cholesky_ex``, ``eigh``,
+        the bank solve, ``eigvalsh`` in pieces of 64);
+     e. ``FullInfluenceEngine`` (MF, ML-1M shape, CG, maxiter 100, two
+        points): ms an HVP, iterations, relative residual; on phase 4's
+        small input the card against the CPU at rtol 1e-4;
+     f. ``FIAModel`` on phase 4's small input, trained 60 steps on the
+        card: its influence bitwise the engine's.
+     The ``kernels`` line gains the ``segment_certificate`` row, and
+     each row's ``launches_by_path`` the sampled and bank paths.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -140,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -150,14 +191,20 @@ from fia_tpu_torch.data.synthetic import (
     synthesize_ratings,
     synthetic_splits,
 )
+from fia_tpu_torch.api import FIAModel
 from fia_tpu_torch.eval import metrics
 from fia_tpu_torch.eval.rq1 import test_retraining
 from fia_tpu_torch.eval.rq2 import time_influence_queries
+from fia_tpu_torch.influence import factor as fbank
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence import hvp as HV
+from fia_tpu_torch.influence import sampled as sampled_mod
 from fia_tpu_torch.influence import solvers, spectral
 from fia_tpu_torch.influence.engine import (STAGES, InfluenceEngine,
-                                           _in_pieces, capturing)
+                                           _bank_solve, _in_pieces,
+                                           capturing)
+from fia_tpu_torch.influence.full import FullInfluenceEngine
+from fia_tpu_torch.influence.kernels import certificate as kcert
 from fia_tpu_torch.influence.kernels import common
 from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
@@ -270,6 +317,28 @@ RQ2_FLOAT64_K = (64, 128, 256)
 # and a last segment truncated at the flat pad
 SEG_RTOL, SEG_ATOL_REL = 1e-5, 1e-6
 SEG_D = (34, 64, 514, 1024)
+# phase 8, the rest of the solver ladder, at ML-1M shape. The certificate
+# kernel against its plain version: another float32 order of the same
+# sums (σ̂ from up to ~86k squared deviations), rtol 1e-5 plus 1e-6 of the
+# output's largest entry; the sampled rung at cap 64, its fidelity gate
+# (|sampled − direct| <= err_bound + 1e-6, influence/sampled.py) on at
+# least 99% of 1024 queries; query_many at these batch sizes bitwise one
+# dispatch; the escalation on 64 queries at LiSSA depth 200; a bank of
+# 1024 hot pairs, 256 queries half hits, hits at Spearman >= 0.999 against
+# direct (the reference's factor smoke bar); the full-parameter engine's
+# CG at maxiter 100, and on the small input the card against the CPU at
+# the training bar, rtol 1e-4 (damping 1: the tiny model's full Hessian
+# PD, so both CG runs converge); FIAModel trained 60 steps
+CERT_SOURCE = "segment_certificate"
+CERT_REPLACES = "fia_tpu/influence/sampled.py:103"
+CERT_RTOL, CERT_ATOL_REL = 1e-5, 1e-6
+SAMPLED_CAP = 64
+FIDELITY_SHARE = 0.99
+SAMPLED_SPLITS = (1024, 256, 100, 23)
+ESCALATE_T, ESCALATE_DEPTH = 64, 200
+BANK_ENTRIES, BANK_T, BANK_RHO = 1024, 256, 0.999
+FULL_MAXITER, FULL_RTOL, FULL_SMALL_DAMPING = 100, 1e-4, 1.0
+FACADE_STEPS = 60
 # the card (phase 7 names it once)
 CARD = "cuda"
 SOURCES = {"mf": "mf_scores", "ncf": "ncf_scores"}
@@ -1960,6 +2029,556 @@ def probe(train, pts) -> dict:
     return out
 
 
+# -- phase 8: the rest of the solver ladder ----------------------------------
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits, NaNs included."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def ladder_engine(eng, train, **kw) -> InfluenceEngine:
+    """An engine on ``eng``'s model and weights at another rung."""
+    kw.setdefault("damping", DAMPING)
+    return InfluenceEngine(eng.model, eng.params, train, **kw)
+
+
+def certificate_operands(samp, pts, T):
+    """The certificate kernel's operands ``(g, t, ihvp, Cx, wv, ws, abe,
+    e, off, m)`` of a T-query sampled dispatch, from the sampled
+    program's "certificate" prefix."""
+    _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T])
+    return samp._sampled_fn(s_pad, "certificate")(
+        samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws, m)
+
+
+def synthetic_certificate(counts, ms, S: int, d: int, gen: torch.Generator):
+    """Certificate operands for segments of ``counts`` rows on an S-row
+    axis (offsets clamped to S: a last segment past S is truncated; rows
+    past the total are pad rows of no segment), ``ms[k]`` rows of segment
+    k sampled at weight n/m, random rows and query vectors."""
+    counts = torch.as_tensor(counts, dtype=torch.int64)
+    T = counts.numel()
+    off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).clamp(
+        max=S)
+    s = torch.arange(S)
+    t = torch.searchsorted(off[1:T].contiguous(), s, right=True).to(
+        torch.int32)
+    wv = (s < off[-1]).to(torch.float32)
+    ws = torch.zeros(S)
+    for k, (n, m) in enumerate(zip(counts.tolist(), ms)):
+        rows = int(off[k]) + torch.randperm(n, generator=gen)[:m]
+        rows = rows[rows < S]
+        ws[rows] = float(np.float32(n) / np.float32(max(m, 1)))
+    g = torch.randn(S, d, generator=gen) * 0.3
+    ihvp = torch.randn(T, d, generator=gen)
+    cx = torch.randn(T, d, generator=gen) * 0.1
+    e = torch.randn(S, generator=gen)
+    abe = e * (torch.rand(S, generator=gen) < 0.05) * wv
+    m = torch.as_tensor(ms, dtype=torch.int32)
+    return tuple(x.to(CARD) for x in (g, t, ihvp, cx, wv, ws, abe, e, off,
+                                      m))
+
+
+def certificate_hold(got, ops, what: str) -> float:
+    """The kernel's ``(sigma, gmax, wmax)`` against the plain version on
+    the same operands: NaN where it is NaN, the same infinity where it is
+    infinite, else within CERT_RTOL of it plus CERT_ATOL_REL of the
+    output's largest finite entry. Returns the worst
+    error as a share of that entry, and the worst absolute error."""
+    want = kcert.segment_certificate_reference(*ops)
+    worst, worst_abs = 0.0, 0.0
+    for a, b, name in zip(got, want, ("sigma", "gmax", "wmax")):
+        nan = torch.isnan(b)
+        check(torch.equal(torch.isnan(a), nan),
+              f"{what} {name}: NaN where the plain version is not, or not "
+              "where it is")
+        a, b = a[~nan].double(), b[~nan].double()
+        inf = torch.isinf(b)
+        check(torch.equal(a[inf], b[inf]), f"{what} {name}: an infinite "
+              "entry differs from the plain version's")
+        a, b = a[~inf], b[~inf]
+        if not a.numel():
+            continue
+        scale = float(b.abs().max())
+        diff = (a - b).abs()
+        check(bool((diff <= CERT_RTOL * b.abs() + CERT_ATOL_REL * scale
+                    ).all()),
+              f"{what} {name}: beyond rtol {CERT_RTOL} / atol "
+              f"{CERT_ATOL_REL} x max of the plain version (max abs err "
+              f"{float(diff.max()):.3e})")
+        worst = max(worst, float(diff.max()) / max(scale, 1e-30))
+        worst_abs = max(worst_abs, float(diff.max()))
+    return worst, worst_abs
+
+
+def cert_launch_twice(ops):
+    got = kcert.segment_certificate(*ops)
+    again = kcert.segment_certificate(*ops)
+    torch.cuda.synchronize()
+    check(all(bits_equal(a, b) for a, b in zip(got, again)),
+          "segment_certificate: two launches on the same inputs differ")
+    return got
+
+
+def certificate_bound_ms(ops) -> tuple[float, str]:
+    """Least time an H100 could take for the certificate of ``ops``: every
+    input read once (g, the five row vectors, ihvp and Cx, off, m), three
+    (T,) outputs written; per row in a segment ~10 d operations (two dots
+    and h, its masked sum), per sampled row ~8 d more (a dot, h and the
+    squared deviation)."""
+    g, t, ihvp, cx, wv, ws, abe, e, off, m = ops
+    d = g.shape[1]
+    T = off.numel() - 1
+    rows = int(off[-1] - off[0])
+    sampled = int((ws[:rows] > 0).sum())
+    nb = nbytes(g, wv, ws, abe, e, ihvp, cx, off, m) + 3 * T * 4
+    return bound(nb, rows * d * 10 + sampled * d * 8)
+
+
+def check_certificate(family: str, samp, pts, gen) -> dict:
+    """8a: the certificate kernel against its plain version on the card,
+    on the sampled program's operands at every batch size and on
+    synthetic segments (empty; m = 0; m = 1; m = n; m = cap < n; the
+    longest related set; a segment truncated at the flat pad; pad rows
+    past the last segment; a non-finite row that is not sampled)."""
+    d = samp.model.block_size
+    longest = samp.index.max_related_count()
+    cap = samp.sampled_cap
+    cases = [(f"main path T={T}", certificate_operands(samp, pts, T))
+             for T in BATCHES]
+    counts = [0, 37, 37, 50, 300, longest, 500]
+    ms = [0, 0, 1, 50, cap, cap, cap]
+    cases.append(("edges", synthetic_certificate(
+        counts, ms, sum(counts) - 200, d, gen)))
+    cases.append(("pad tail", synthetic_certificate(
+        [3, 0, cap, cap + 1], [3, 0, cap, cap], 2 * cap + 104, d, gen)))
+    nonfinite = synthetic_certificate([40, 40], [8, 8], 80, d, gen)
+    unsampled = int(torch.nonzero(nonfinite[5][:40] == 0)[0])
+    nonfinite[0][unsampled] = float("inf")
+    cases.append(("inf on an unsampled row", nonfinite))
+    worst, worst_abs = 0.0, 0.0
+    for name, ops in cases:
+        got = cert_launch_twice(ops)
+        w, a = certificate_hold(got, ops,
+                                f"segment_certificate {family} {name}")
+        worst, worst_abs = max(worst, w), max(worst_abs, a)
+        log(f"segment_certificate {family} [{name}] S={ops[0].shape[0]} "
+            f"d={d} T={ops[8].numel() - 1}: two launches the same bits; vs "
+            f"plain max err {w:.3e} of max |out|")
+    sigma = kcert.segment_certificate(*nonfinite)[0]
+    check(bool(torch.isnan(sigma[0])) and bool(torch.isfinite(sigma[1])),
+          "segment_certificate: an inf on an unsampled row did not make "
+          "its segment's sigma, and only its, NaN")
+    ops = cases[len(BATCHES) - 1][1]
+    ms_kernel = graph_ms(lambda: kcert.segment_certificate(*ops), iters=20)
+    ms_plain = time_ms(lambda: kcert.segment_certificate_reference(*ops),
+                       iters=3, warmup=1)
+    b_ms, b_by = certificate_bound_ms(ops)
+    out = {"max_err_of_max_abs": worst, "max_abs_err": worst_abs,
+           "cases": len(cases),
+           "ms": ms_kernel, "plain_ms": ms_plain, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms_kernel,
+           "shape": {"S": ops[0].shape[0], "d": d,
+                     "T": ops[8].numel() - 1,
+                     "sampled_rows": int((ops[5] > 0).sum())}}
+    log(f"segment_certificate {family} T={BATCHES[-1]}: {ms_kernel:.4f} ms "
+        f"(graph replay), plain {ms_plain:.3f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), {100 * b_ms / ms_kernel:.1f}% of bound")
+    return out
+
+
+def check_segment_ht(family: str, samp, pts, gen) -> dict:
+    """8b: ``segment_hessian`` on the sampled program's operands (weights
+    wv·n/m) at every batch size, and on synthetic segments with weights
+    n/m for m < n and for m = 1: bit for bit the plain pieced form and
+    within the float64 bar (:func:`segment_hold`)."""
+    d = samp.model.block_size
+    cases = []
+    for T in BATCHES:
+        _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T])
+        cases.append((f"main path T={T}", samp._sampled_fn(s_pad, "segments")(
+            samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws,
+            m)))
+    P = kseg.piece_rows(d)
+    for cap in (13, 1):
+        counts = [0, 1, 37, P - 1, P + 1, 3 * P + 5, 500]
+        g, t, wv, abe, off = synthetic_segments(counts, sum(counts) + 50, d,
+                                                gen)
+        ws = np.zeros(g.shape[0], np.float32)
+        for k, n in enumerate(counts):
+            mk = min(n, cap)
+            rows = int(off[k]) + torch.randperm(n, generator=gen)[:mk]
+            ws[rows.numpy()] = np.float32(n) / np.float32(max(mk, 1))
+        cases.append((f"HT weights cap={cap}",
+                      (g, t, wv * torch.as_tensor(ws).to(CARD), abe, off)))
+    worst = 0.0
+    for name, ops in cases:
+        got = segment_launch_twice(ops)
+        r = segment_hold(got, ops, f"segment_hessian {family} {name}")
+        worst = max(worst, r["max_err_of_max_abs_H"])
+        log(f"segment_hessian {family} [{name}] S={ops[0].shape[0]}: bit for "
+            f"bit the pieced plain form under n/m weights; vs float64 {r}")
+    return {"cases": len(cases), "max_err_of_max_abs_H": worst}
+
+
+def reset_counts() -> None:
+    for m in (*KERNEL_MODULES.values(), kseg, kcert):
+        m.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: m.launches for name, m in
+            (*((SOURCES[f], m) for f, m in KERNEL_MODULES.items()),
+             (SEGMENT_SOURCE, kseg), (CERT_SOURCE, kcert))}
+
+
+def host_waits(fn) -> int:
+    """Host waits for the card during ``fn()``
+    (``torch.cuda.set_sync_debug_mode("warn")``), the final fetch
+    included."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def wall_ms(fn, reps: int = 5) -> float:
+    """Median host ms of ``fn()`` ended by a synchronise, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def drive_sampled(family: str, eng, train, pts) -> dict:
+    """8c: the sampled rung at cap SAMPLED_CAP, tol inf."""
+    samp = ladder_engine(eng, train, solver="sampled",
+                         sampled_cap=SAMPLED_CAP)
+    reset_counts()
+    res = {T: samp.query_batch(pts[:T]) for T in BATCHES}
+    launches = launch_counts()
+    for name in (SOURCES[family], SEGMENT_SOURCE, CERT_SOURCE):
+        check(launches[name] > 0, f"the {family} sampled rung never "
+              f"launched {name}")
+    direct = {T: eng.query_batch(pts[:T]) for T in BATCHES}
+    T = BATCHES[-1]
+    r, dr = res[T], direct[T]
+    check(r.approx and r.err_bound.shape == (T,)
+          and bool(np.isfinite(r.err_bound).all())
+          and bool((r.err_bound >= 0).all()),
+          f"{family} sampled: bounds {r.err_bound[:4]}...")
+    ok = np.array([
+        float(np.max(np.abs(r.scores_of(t) - dr.scores_of(t)), initial=0.0))
+        <= float(r.err_bound[t]) + 1e-6 for t in range(T)])
+    share = float(ok.mean())
+    check(share >= FIDELITY_SHARE, f"{family} sampled: |sampled - direct| "
+          f"<= err_bound + 1e-6 on {share:.4f} of {T} queries, want >= "
+          f"{FIDELITY_SHARE}")
+    log(f"{family} sampled cap={SAMPLED_CAP}: |sampled - direct| within the "
+        f"bound on {share:.4f} of {T} queries; bound median "
+        f"{float(np.median(r.err_bound)):.3e}, max "
+        f"{float(r.err_bound.max()):.3e}; launches {launches}")
+    # at a cap above every count the rung is the direct path, bound 0
+    T0 = BATCHES[0]
+    full = ladder_engine(eng, train, solver="sampled", sampled_cap=10 ** 6)
+    ex = full.query_batch(pts[:T0])
+    check(ex._packed.tobytes() == direct[T0]._packed.tobytes()
+          and ex.ihvp.tobytes() == direct[T0].ihvp.tobytes()
+          and bool((ex.err_bound == 0.0).all()),
+          f"{family} sampled at cap 1e6: not bitwise the direct path with "
+          "bounds 0")
+    log(f"{family} sampled at cap 1e6, T={T0}: bitwise the direct path, "
+        "every bound exactly 0")
+    # any split: every query's scores and bound the same bits
+    for bq in SAMPLED_SPLITS:
+        parts = samp.query_many(pts[:T], batch_queries=bq)
+        same_bytes_stitched(parts, r, f"{family} sampled query_many({bq})")
+        check(np.concatenate([p.err_bound for p in parts]).tobytes()
+              == r.err_bound.tobytes(), f"{family} sampled query_many({bq}): "
+              "bounds differ from one dispatch")
+    log(f"{family} sampled: query_many at {SAMPLED_SPLITS} bitwise one "
+        "dispatch, scores and bounds")
+    # escalation: tol at the median bound of ESCALATE_T queries
+    q = pts[:ESCALATE_T]
+    eb = r.err_bound[:ESCALATE_T]
+    tol = float(np.median(eb))
+    over, keep = np.flatnonzero(eb > tol), np.flatnonzero(eb <= tol)
+    esc = ladder_engine(eng, train, solver="sampled", sampled_cap=SAMPLED_CAP,
+                        sampled_tol=tol, lissa_depth=ESCALATE_DEPTH)
+    got = esc.query_batch(q)
+    lissa = ladder_engine(eng, train, solver="lissa",
+                          lissa_depth=ESCALATE_DEPTH).query_batch(q[over])
+    for k, t in enumerate(over):
+        check(got.scores_of(int(t)).tobytes() == lissa.scores_of(k).tobytes()
+              and got.err_bound[t] == 0.0,
+              f"{family} sampled escalation: query {t} not the lissa rung's")
+    for t in keep:
+        check(got.scores_of(int(t)).tobytes() == r.scores_of(int(t)).tobytes()
+              and got.err_bound[t] == r.err_bound[t],
+              f"{family} sampled escalation: kept query {t} changed")
+    check(esc.sampled_stats()["escalations"] == {"tolerance": len(over)},
+          f"{family} sampled escalation counts {esc.sampled_stats()}")
+    log(f"{family} sampled tol={tol:.3e} on {ESCALATE_T} queries: "
+        f"{len(over)} escalated to lissa (depth {ESCALATE_DEPTH}), each in "
+        "its place, the rest unchanged")
+    # times, beside direct in the same run
+    times = {}
+    for T in BATCHES:
+        q = pts[:T]
+        ms = wall_ms(lambda: samp.query_batch(q))
+        ms_direct = wall_ms(lambda: eng.query_batch(q))
+        total = int(res[T].counts.sum())
+        times[str(T)] = {
+            "ms": ms, "scores_per_s": total / ms * 1e3,
+            "direct_ms": ms_direct,
+            "direct_scores_per_s": total / ms_direct * 1e3,
+            "device": device_breakdown(lambda: samp.query_batch(q), ms),
+            "host_waits": host_waits(lambda: samp.query_batch(q)),
+        }
+        log(f"{family} sampled T={T}: {ms:.2f} ms ({total / ms:.0f} k "
+            f"scores/s), direct {ms_direct:.2f} ms; busy share "
+            f"{times[str(T)]['device']['busy_share']:.2f}; host waits "
+            f"{times[str(T)]['host_waits']}")
+    counts = samp.index.counts_batch(pts[:T])
+    s_pad = samp._s_pad_for(int(counts.sum()))
+    t0 = time.perf_counter()
+    sampled_mod.sample_weights(pts[:T], counts, s_pad, SAMPLED_CAP)
+    sw_ms = (time.perf_counter() - t0) * 1e3
+    log(f"{family} sample_weights on the host, T={T}: {sw_ms:.2f} ms")
+    return {"launches": launches, "fidelity_share": share,
+            "bound_median": float(np.median(r.err_bound)),
+            "escalated": int(len(over)), "times": times,
+            "sample_weights_host_ms": sw_ms}
+
+
+def library_times(eng, H, v) -> dict:
+    """The ladder's library calls at T = 1024 by CUDA events: the bank's
+    batched Cholesky (``cholesky_ex``) and ``eigh`` of ``factorize``, the
+    bank hit's solve (two triangular solves and a matvec, in pieces of
+    64), and the sampled rung's ``eigvalsh`` in pieces of 64."""
+    Hc = H.contiguous()
+    L = torch.linalg.cholesky_ex(Hc)[0]
+    kind = torch.zeros(Hc.shape[0], dtype=torch.int32, device=CARD)
+    return {
+        "cholesky_ex_ms": time_ms(lambda: torch.linalg.cholesky_ex(Hc),
+                                  iters=5),
+        "eigh_ms": time_ms(lambda: torch.linalg.eigh(Hc), iters=1,
+                           warmup=1),
+        "bank_solve_ms": time_ms(lambda: _in_pieces(_bank_solve, L, kind, v),
+                                 iters=5),
+        "eigvalsh_pieces_ms": time_ms(lambda: _in_pieces(
+            lambda h: torch.linalg.eigvalsh(h)[:, 0], Hc), iters=1, warmup=1),
+    }
+
+
+def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
+    """8d: a bank of BANK_ENTRIES hot pairs built, published and loaded;
+    hits against direct, misses bitwise direct, a hit alone and in the
+    batch, all-hit batches timed beside direct, and a surgical refresh."""
+    name = f"smoke-{family}"
+    builder = ladder_engine(eng, train, cache_dir=workdir, model_name=name)
+    pairs = fbank.select_hot_pairs(builder.index, BANK_ENTRIES)
+    reset_counts()
+    t0 = time.perf_counter()
+    bank = fbank.build_bank(builder, pairs, batch_queries=512)
+    build_s = time.perf_counter() - t0
+    build_launches = launch_counts()
+    check(build_launches[SEGMENT_SOURCE] > 0, f"{family} bank build never "
+          f"launched {SEGMENT_SOURCE}")
+    path = builder.factor_bank_path()
+    fbank.publish_bank(bank, path, fbank.bank_fingerprint(
+        name, eng.model.block_size, DAMPING, *builder._train_host))
+    kinds = {"cholesky": int((bank.kind == fbank.KIND_CHOLESKY).sum()),
+             "inverse": int((bank.kind == fbank.KIND_INVERSE).sum())}
+    log(f"{family} bank: {len(bank)} entries built in {build_s:.2f} s "
+        f"({kinds}), {bank.factor.nbytes / 1e6:.1f} MB")
+    # misses fall through the sampled rung at a cap above every count:
+    # bitwise the direct path
+    pre = ladder_engine(eng, train, solver="precomputed", cache_dir=workdir,
+                        model_name=name, sampled_cap=10 ** 6)
+    check(pre.ensure_factor_bank() == len(bank)
+          and pre.bank_stats()["dropped_stale"] == 0,
+          f"{family} bank: loaded {pre.bank_stats()}")
+    half = BANK_T // 2
+    banked = {tuple(p) for p in bank.pairs.tolist()}
+    misses = np.asarray([p for p in pts.tolist() if tuple(p) not in banked]
+                        [:half], np.int64)
+    hits = bank.pairs[:half].astype(np.int64)
+    mixed = np.empty((2 * half, 2), np.int64)
+    mixed[0::2], mixed[1::2] = hits, misses
+    reset_counts()
+    res = pre.query_batch(mixed)
+    bank_launches = launch_counts()
+    check(bank_launches[SOURCES[family]] > 0, f"{family} bank hits never "
+          f"launched {SOURCES[family]}")
+    check(pre.bank_stats()["hits"] == half
+          and pre.bank_stats()["misses"] == half,
+          f"{family} bank: {pre.bank_stats()}")
+    ref = eng.query_batch(mixed)
+    worst_rho, worst_rel = 1.0, 0.0
+    for t in range(len(mixed)):
+        a, b = res.scores_of(t), ref.scores_of(t)
+        if t % 2:
+            check(a.tobytes() == b.tobytes(), f"{family} bank miss {t} not "
+                  "bitwise the direct path")
+            continue
+        check(bool(np.isfinite(a).all()), f"{family} bank hit {t}: non-finite")
+        if len(a):
+            worst_rel = max(worst_rel, float(np.max(np.abs(a - b)))
+                            / max(float(np.max(np.abs(b))), 1e-30))
+        if len(a) > 1 and np.ptp(a) > 0 and np.ptp(b) > 0:
+            worst_rho = min(worst_rho, spearman(a, b))
+    check(worst_rho >= BANK_RHO, f"{family} bank hits: Spearman "
+          f"{worst_rho} < {BANK_RHO} against direct")
+    for t in (0, 2, 4):
+        solo = pre.query_batch(mixed[t:t + 1])
+        check(solo.scores_of(0).tobytes() == res.scores_of(t).tobytes(),
+              f"{family} bank hit {t}: alone differs from in the batch")
+    log(f"{family} bank on {2 * half} queries (half hits): hits' Spearman "
+        f">= {worst_rho:.6f} against direct (largest score difference "
+        f"{worst_rel:.3e} of the query's largest |score|); misses bitwise "
+        f"direct; a hit alone "
+        f"the same bits as in the batch; launches {bank_launches}")
+    times = {}
+    hot = bank.pairs.astype(np.int64)
+    for T in BATCHES:
+        q = hot[:T]
+        ms = wall_ms(lambda: pre.query_batch(q))
+        ms_direct = wall_ms(lambda: eng.query_batch(q))
+        total = int(pre.index.counts_batch(q).sum())
+        times[str(T)] = {"ms": ms, "direct_ms": ms_direct, "rows": total,
+                         "device": device_breakdown(
+                             lambda: pre.query_batch(q), ms)}
+        log(f"{family} bank all-hit T={T} ({total} rows): {ms:.2f} ms, "
+            f"direct {ms_direct:.2f} ms")
+    # surgical refresh: one user's row moves. A hot user rated every hot
+    # item, which touches every entry, so the user is the least active
+    # one who rated some banked item but not all of them
+    x = builder._train_host[0]
+    items = np.unique(bank.pairs[:, 1])
+    deg = builder.index.user_degrees()
+    u0 = next(int(u) for u in np.argsort(deg, kind="stable") if deg[u] and
+              0 < np.isin(x[builder.index.rows_of_user(int(u)), 1],
+                          items).sum() < len(items))
+    table = "P" if family == "mf" else "P_mlp"
+    host = {k: v.detach().cpu().numpy().copy()
+            for k, v in eng.params.items()}
+    host[table][u0] += 0.125
+    stale = np.asarray([
+        u == u0 or u0 in x[builder.index.rows_of_item(i), 0]
+        for u, i in bank.pairs.tolist()])
+    check(0 < stale.sum() < len(bank), f"{family} bank refresh: user {u0} "
+          f"touches {int(stale.sum())} of {len(bank)} entries")
+    out = fbank.refresh_bank(eng.model, host, *builder._train_host,
+                             builder.index, DAMPING, path, name)
+    check(out == {"kept": int((~stale).sum()), "dropped": int(stale.sum())},
+          f"{family} bank refresh {out}, want dropped {int(stale.sum())}")
+    log(f"{family} bank refresh after user {u0}'s row moved: {out}")
+    H = builder.block_hessians(hot[:BATCHES[-1]], batch_queries=512)
+    Hd = torch.as_tensor(H).to(CARD)
+    v = torch.randn(Hd.shape[0], Hd.shape[1], device=CARD)
+    lib = library_times(eng, Hd, v)
+    log(f"{family} library calls at T={Hd.shape[0]}: {lib}")
+    return {"entries": len(bank), "kinds": kinds, "build_s": build_s,
+            "mb": bank.factor.nbytes / 1e6, "hit_spearman_min": worst_rho,
+            "hit_max_rel_diff": worst_rel, "times": times,
+            "refresh": out, "launches": bank_launches,
+            "build_launches": build_launches, "library_ms": lib}
+
+
+def drive_full(train, pts) -> dict:
+    """8e: ``FullInfluenceEngine`` on MF k = 16 at ML-1M shape (CG,
+    maxiter FULL_MAXITER, two test points): ms an HVP, iterations and the
+    relative residual; on phase 4's small input, the card against the
+    port's CPU path."""
+    model = MF(USERS, ITEMS, K_EMB, WD)
+    params = model.init_params(torch.Generator().manual_seed(0), device=CARD)
+    full = FullInfluenceEngine(model, params, train, damping=DAMPING,
+                               solver="cg", cg_maxiter=FULL_MAXITER)
+    tx = pts[:2].astype(np.int32)
+    ty = np.ones(2, np.float32) * 3.0
+    v = full.test_loss_grad(tx, ty)
+    hvp_ms = time_ms(lambda: full._hvp(v), iters=5)
+    t0 = time.perf_counter()
+    scores = full.get_influence_on_test_loss(tx, ty)
+    wall_s = time.perf_counter() - t0
+    x = full.get_inverse_hvp(v)
+    rr = full.relative_residual(v, x)
+    check(scores.shape == (ROWS,) and bool(np.isfinite(scores).all()),
+          f"full engine: scores {scores.shape}")
+    log(f"full engine MF k={K_EMB}: {hvp_ms:.2f} ms an HVP, CG "
+        f"{full.last_iterations} iterations, relative residual {rr:.3e}, "
+        f"influence of {ROWS} rows in {wall_s:.2f} s")
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+    tm = MF(60, 40, 8, 1e-3)
+    tp = tm.init_params(torch.Generator().manual_seed(0))
+    kw = dict(damping=FULL_SMALL_DAMPING, solver="cg", cg_tol=1e-12,
+              cg_maxiter=300)
+    tq, tyy = tiny["test"].x[:2], tiny["test"].y[:2]
+    card = FullInfluenceEngine(tm, tp, tiny["train"], **kw
+                               ).get_influence_on_test_loss(tq, tyy)
+    cpu = FullInfluenceEngine(tm, tp, tiny["train"], device="cpu", **kw
+                              ).get_influence_on_test_loss(tq, tyy)
+    err = float(np.max(np.abs(card - cpu)) / np.max(np.abs(cpu)))
+    check(np.allclose(card, cpu, rtol=FULL_RTOL,
+                      atol=FULL_RTOL * np.abs(cpu).max()),
+          f"full engine: card vs CPU beyond rtol {FULL_RTOL} (max err "
+          f"{err:.3e} of max |score|)")
+    log(f"full engine, small input: card vs CPU within rtol {FULL_RTOL} "
+        f"(max err {err:.3e} of max |score|)")
+    return {"hvp_ms": hvp_ms, "iterations": full.last_iterations,
+            "relative_residual": rr, "influence_s": wall_s,
+            "small_card_vs_cpu_err": err}
+
+
+def drive_facade(workdir: str) -> dict:
+    """8f: ``FIAModel`` on phase 4's small input, trained a few steps on
+    the card; its influence bitwise the engine's."""
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+    fia = FIAModel(model="MF", num_users=60, num_items=40, embedding_size=8,
+                   weight_decay=1e-3, batch_size=200, data_sets=tiny,
+                   initial_learning_rate=1e-2, damping=1e-3,
+                   train_dir=workdir, model_name="smoke-facade")
+    fia.train(num_steps=FACADE_STEPS, verbose=False)
+    got = fia.get_influence_on_test_loss([0])
+    eng = InfluenceEngine(fia.model, fia.params, tiny["train"], damping=1e-3)
+    want = eng.get_influence_on_test_loss([0], tiny["test"])
+    check(got.tobytes() == want.tobytes() and bool(np.isfinite(got).all()),
+          "FIAModel: influence differs from the engine's")
+    log(f"FIAModel: trained {FACADE_STEPS} steps on the card; "
+        f"get_influence_on_test_loss bitwise the engine's ({got.size} rows)")
+    return {"steps": FACADE_STEPS, "rows": int(got.size)}
+
+
+def drive_ladder(engines, train, pts) -> dict:
+    """Phase 8, per model: 8a-8d, then 8e and 8f once."""
+    out = {}
+    gen = torch.Generator().manual_seed(8)
+    with tempfile.TemporaryDirectory() as workdir:
+        for family, (eng, _) in engines.items():
+            samp = ladder_engine(eng, train, solver="sampled",
+                                 sampled_cap=SAMPLED_CAP)
+            out[family] = {
+                "certificate": check_certificate(family, samp, pts, gen),
+                "segment_ht": check_segment_ht(family, samp, pts, gen),
+                "sampled": drive_sampled(family, eng, train, pts),
+                "bank": drive_bank(family, eng, train, pts, workdir),
+            }
+            torch.cuda.empty_cache()
+        out["full"] = drive_full(train, pts)
+        out["facade"] = drive_facade(workdir)
+    return out
+
+
 def main() -> int:
     # -- phase 1: the card ---------------------------------------------
     if not torch.cuda.is_available():
@@ -1973,7 +2592,7 @@ def main() -> int:
     # -- phase 2: build --------------------------------------------------
     build = {"nvcc": nvcc_version(), "seconds": {}, "ptxas": {}}
     log(f"nvcc: {build['nvcc']}")
-    secs = common.build([*SOURCES.values(), SEGMENT_SOURCE])
+    secs = common.build([*SOURCES.values(), SEGMENT_SOURCE, CERT_SOURCE])
     for name, s in secs.items():
         log(f"build {name}: {s:.2f} s")
         build["seconds"][name] = s
@@ -2110,6 +2729,50 @@ def main() -> int:
     rows[-1]["launches_by_path"] = seg_by_path
     perf["phase7_seconds"] = time.perf_counter() - t7
     log(f"phase 7: {perf['phase7_seconds']:.1f} s")
+
+    # -- phase 8: the rest of the solver ladder ------------------------
+    t8 = time.perf_counter()
+    ladder = perf["ladder"] = drive_ladder(engines, train, pts)
+    for row, family in zip(rows, engines):
+        lad = ladder[family]
+        row["launches_by_path"]["sampled"] = lad["sampled"]["launches"][
+            SOURCES[family]]
+        row["launches_by_path"]["bank"] = lad["bank"]["launches"][
+            SOURCES[family]]
+    for family in engines:
+        lad = ladder[family]
+        seg_by_path[family]["sampled"] = lad["sampled"]["launches"][
+            SEGMENT_SOURCE]
+        seg_by_path[family]["bank"] = lad["bank"]["launches"][SEGMENT_SOURCE]
+        seg_by_path[family]["bank_build"] = lad["bank"]["build_launches"][
+            SEGMENT_SOURCE]
+    # the certificate kernel's row: NCF's (d = 64) times at T = 1024, MF's
+    # beside them; launches of both models' sampled rungs (three a call)
+    cert = ladder["ncf"]["certificate"]
+    rows.append({
+        "name": CERT_SOURCE,
+        "route": "cuda",
+        "source": f"fia_tpu_torch/influence/kernels/csrc/{CERT_SOURCE}.cu",
+        "replaces": CERT_REPLACES,
+        "launches": sum(ladder[f]["sampled"]["launches"][CERT_SOURCE]
+                        for f in engines),
+        "max_abs_err": max(ladder[f]["certificate"]["max_abs_err"]
+                           for f in engines),
+        "max_err_of_max_abs": max(ladder[f]["certificate"][
+            "max_err_of_max_abs"] for f in engines),
+        "launches_per_call": kcert.LAUNCHES_PER_CALL,
+        "ms": cert["ms"], "plain_ms": cert["plain_ms"],
+        "bound_ms": cert["bound_ms"], "bound_by": cert["bound_by"],
+        "library_ms": None,
+        "shape": cert["shape"],
+        "mf": ladder["mf"]["certificate"],
+        "ptxas": build["ptxas"][CERT_SOURCE],
+        "launches_by_path": {
+            path: {f: ladder[f][path]["launches"][CERT_SOURCE]
+                   for f in engines} for path in ("sampled", "bank")},
+    })
+    perf["phase8_seconds"] = time.perf_counter() - t8
+    log(f"phase 8: {perf['phase8_seconds']:.1f} s")
 
     log("perf " + json.dumps(perf, sort_keys=True))
     log(card)

@@ -9,8 +9,7 @@ wrote under a ``--train_dir`` loads in the other's.
 What differs: ``--backend`` selects the torch device — none (the
 default) runs on the CUDA device and raises without one, ``cpu`` runs
 on the CPU; ``--mesh`` raises ``NotImplementedError`` naming ROADMAP
-Queue A.13, and ``--solver precomputed|sampled`` raise in the engine
-naming A.9. Fresh weights come from a ``torch.Generator`` seeded with
+Queue A.13. Fresh weights come from a ``torch.Generator`` seeded with
 ``--seed``, which cannot reproduce ``jax.random``'s draws: a run that
 trains from scratch starts elsewhere than the reference's (ROADMAP
 Queue C), while one that loads the reference's checkpoint starts where
@@ -173,13 +172,12 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 def engine_kwargs(args) -> dict:
     """Solver/impl engine kwargs shared by every driver; the solver name
     routes through the one ladder-aware resolution path
-    (``reliability/policy.resolve_solver``). ``--sampled_cap`` and
-    ``--sampled_tol`` tune the sampled rung alone, which the port's
-    engine does not run yet (ROADMAP Queue A.9), so they are not passed.
+    (``reliability/policy.resolve_solver``); ``--sampled_cap`` and
+    ``--sampled_tol`` pass when set.
     """
     from fia_tpu_torch.reliability.policy import resolve_solver
 
-    return dict(
+    kw = dict(
         damping=args.damping,
         solver=resolve_solver(args.solver),
         pad_policy=args.pad_policy,
@@ -191,6 +189,11 @@ def engine_kwargs(args) -> dict:
         shard_tables=getattr(args, "model_parallel", 1) > 1,
         device=args.backend,
     )
+    if getattr(args, "sampled_cap", None) is not None:
+        kw["sampled_cap"] = args.sampled_cap
+    if getattr(args, "sampled_tol", None) is not None:
+        kw["sampled_tol"] = args.sampled_tol
+    return kw
 
 
 def mesh_for(args):

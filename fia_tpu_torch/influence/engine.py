@@ -1,15 +1,20 @@
 """The FIA influence engine (port of ``fia_tpu/influence/engine.py``:
-``InfluenceResult``, the constructor's options its two query programs
-read, the flat program (``_flat_prelude``, ``_flat_fn``'s single-device
-branch, ``_query_pad``/``_s_pad_for``, ``_dispatch_flat``/
+``InfluenceResult``, ``_concat_results``, the constructor's options its
+query programs read, the flat program (``_flat_prelude``, ``_flat_fn``'s
+single-device branch, ``_query_pad``/``_s_pad_for``, ``_dispatch_flat``/
 ``_finalize_flat``, ``_assemble_packed``), its geometry API
 (``flat_geometry``, ``precompile_flat``, ``compiled_geometries``,
-``_flat_exec``), ``query_many`` with its
-journal helpers, the padded per-query program
-(``_query_one``, ``_batched_packed``, the single-device
-``_query_padded``), the dispatch choice (``_flat_eligible``,
-``_query_batch_impl``), the NaN solver ladder (``_nan_ladder``),
-``query_batch``, ``get_influence_on_test_loss`` and ``related_indices``).
+``_flat_exec``), ``query_many`` with its journal helpers, the padded
+per-query program (``_query_one``, ``_batched_packed``, the
+single-device ``_query_padded``), the dispatch choice
+(``_flat_eligible``, ``_query_batch_impl``), the NaN solver ladder
+(``_nan_ladder``), the factor-bank rung (``block_hessians``, the bank
+load/unload methods, ``_bank_fn``, ``_query_bank_hits``,
+``_merge_stream``, ``_query_precomputed``), the certified sampled rung
+(``_sampled_fn``, ``_query_sampled``, ``_dispatch_sampled``,
+``_sampled_fallback``, ``approx_sibling``, ``_result_take``),
+``query_batch``, ``get_influence_on_test_loss`` with its iHVP disk cache,
+and ``related_indices``).
 
 For a test interaction (u*, i*) the engine computes the block-restricted
 inverse-HVP and scores every related training row's influence on the
@@ -30,7 +35,11 @@ from resident CSR postings:
 
   on the card each ``(t_pad, s_pad)`` geometry runs as one captured CUDA
   graph, and every stage's bits depend only on the query's own rows, so
-  any batch split gives the same bits as one dispatch;
+  any batch split gives the same bits as one dispatch. Two rungs of the
+  solver ladder run the same stages: ``precomputed`` takes each banked
+  query's iHVP from its factor in place of stages 3-4 (a captured graph
+  too), and ``sampled`` weights the Hessian's rows by a per-query sample
+  and adds a certificate (``kernels/certificate.py``), eagerly;
 
 - padded (every other configuration: cg, lissa, schulz,
   ``impl="padded"``, ``hessian_mode="autodiff"``, ``group_queries``,
@@ -48,6 +57,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import math
+import os
 import sys
 import time
 
@@ -60,14 +70,19 @@ from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import kernels as K
+from fia_tpu_torch.influence import sampled as sampled_mod
 from fia_tpu_torch.influence import solvers, spectral
+from fia_tpu_torch.influence.kernels import certificate as Kcert
 from fia_tpu_torch.influence.kernels import common as Kc
 from fia_tpu_torch.influence.kernels import segment as Kseg
-from fia_tpu_torch.reliability import policy, taxonomy
+from fia_tpu_torch.reliability import inject, policy, sites, taxonomy
 from fia_tpu_torch.utils import compilemon
 
 #: the flat program's cumulative prefixes (``_flat_fn(stage=...)``)
 STAGES = ("grads", "hessian", "solve", "scores")
+#: the flat program's modes: the direct solve, the sampled rung's
+#: weighted Hessian with its certificate, the factor bank's iHVPs
+MODES = ("direct", "sampled", "bank")
 #: queries a piece of the flat program's query-axis stages (the test
 #: vector and the batched LU): each runs in pieces of exactly this many,
 #: the last padded by repeating its final query, because on the card
@@ -83,16 +98,23 @@ class InfluenceResult:
     ``related_mask`` views are built on first access. Dense
     (``group_queries`` over several pads): the (T, P) views themselves.
     ``iterations`` is the iterative solver's loop count (CG, Schulz),
-    else ``None``.
+    else ``None``. Certified-approximate payloads (``solver="sampled"``):
+    ``err_bound`` is a (T,) per-query bound on the largest per-row score
+    error (0 for exactly solved queries), and ``approx`` marks a result
+    holding at least one subsampled answer; ``None``/``False`` on every
+    exact path.
     """
 
     def __init__(self, scores=None, related_idx=None, related_mask=None,
                  counts=None, ihvp=None, test_grad=None, packed=None,
-                 test_points=None, index=None, pad=None, iterations=None):
+                 test_points=None, index=None, pad=None, iterations=None,
+                 err_bound=None, approx=False):
         self.counts = counts
         self.ihvp = ihvp
         self.test_grad = test_grad
         self.iterations = iterations
+        self.err_bound = None if err_bound is None else np.asarray(err_bound)
+        self.approx = bool(approx)
         self._scores = scores
         self._related_idx = related_idx
         self._related_mask = related_mask
@@ -147,6 +169,59 @@ class InfluenceResult:
         return self.related_idx[t, : self.counts[t]]
 
 
+def _concat_results(parts: list[InfluenceResult]) -> InfluenceResult:
+    """Stitch the results of chunks of one batch back into one, in query
+    order: packed scores concatenate (each query's rows are contiguous),
+    dense views share a width. Error bounds stitch like every per-query
+    array; a part without one is exact (bound 0)."""
+    counts = np.concatenate([p.counts for p in parts])
+    ihvp = np.concatenate([p.ihvp for p in parts])
+    test_grad = np.concatenate([p.test_grad for p in parts])
+    err = None
+    if any(p.err_bound is not None for p in parts):
+        err = np.concatenate([
+            p.err_bound if p.err_bound is not None
+            else np.zeros(len(p.counts), np.float32)
+            for p in parts
+        ])
+    approx = any(p.approx for p in parts)
+    if parts[0]._packed is not None:
+        return InfluenceResult(
+            counts=counts, ihvp=ihvp, test_grad=test_grad,
+            packed=np.concatenate([p._packed for p in parts]),
+            test_points=np.concatenate([p._test_points for p in parts]),
+            index=parts[0]._index, pad=max(p._pad for p in parts),
+            err_bound=err, approx=approx,
+        )
+    return InfluenceResult(
+        np.concatenate([p.scores for p in parts]),
+        np.concatenate([p.related_idx for p in parts]),
+        np.concatenate([p.related_mask for p in parts]),
+        counts, ihvp, test_grad, err_bound=err, approx=approx,
+    )
+
+
+def _padded_rowsum(x: torch.Tensor) -> torch.Tensor:
+    """(T,) row sums of (T, d), each row padded to a multiple of 8
+    entries: on the card the row sum's vectorised loads start where a row
+    starts, and a row not 32-byte aligned (MF's d = 2k + 2) sums in
+    another order, so a query's sum would follow its batch position."""
+    return torch.sum(torch.nn.functional.pad(x, (0, -x.shape[1] % 8)), dim=1)
+
+
+def _bank_solve(F: torch.Tensor, kind: torch.Tensor, v: torch.Tensor
+                ) -> torch.Tensor:
+    """(T, d) iHVPs from bank factors ``F`` (T, d, d): the Cholesky solve
+    L Lᵀ x = v where ``kind`` is 0 (F = L), the matvec F v where it is 1
+    (F = H⁻¹). Triangular solves, not ``cholesky_solve``, whose info
+    check waits on the card."""
+    y = torch.linalg.solve_triangular(F, v[..., None], upper=False)
+    chol = torch.linalg.solve_triangular(F.transpose(-2, -1), y,
+                                         upper=True)[..., 0]
+    mv = torch.einsum("tij,tj->ti", F, v)
+    return torch.where((kind == 1)[:, None], mv, chol)
+
+
 def _in_pieces(fn, *xs):
     """``fn`` over the leading axis of ``xs`` in pieces of exactly
     ``QUERY_PIECE`` (the last padded by repeating its final entry), the
@@ -190,12 +265,13 @@ class _FlatGraph:
     Each replay adds the kernel launches the graph holds to the kernel
     modules' counts (the wrappers count nothing while capturing)."""
 
-    def __init__(self, fn, args, t_pad: int, device):
-        self.tx = torch.zeros((t_pad, 2), dtype=torch.int32, device=device)
+    def __init__(self, fn, args, t_pad: int, device, width: int = 2):
+        self.tx = torch.zeros((t_pad, width), dtype=torch.int32,
+                              device=device)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            fn(*args, self.tx)  # the query (0, 0) everywhere: any valid ids
+            fn(*args, self.tx)  # the query (0, 0) (bank row 0): valid ids
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
@@ -227,9 +303,14 @@ class InfluenceEngine:
       train: the training RatingDataset.
       damping: Hessian damping λ, added after accumulation.
       solver: ``direct`` (materialise + LU), ``cg`` (matrix-free
-        conjugate gradients), ``lissa`` (the Neumann-series recursion)
-        or ``schulz`` (Newton–Schulz inversion of the materialised
-        block).
+        conjugate gradients), ``lissa`` (the Neumann-series recursion),
+        ``schulz`` (Newton–Schulz inversion of the materialised block),
+        ``precomputed`` (the factor bank: banked pairs answer from their
+        published factors, every other query through a config-identical
+        engine at the next rung) or ``sampled`` (the certified rung: each
+        query's Hessian over at most ``sampled_cap`` of its related rows,
+        every answer stamped with an error bound, a query over
+        ``sampled_tol`` recomputed one rung down).
       cg_maxiter, cg_tol: CG's (and Schulz's) iteration cap and
         tolerance.
       lissa_scale, lissa_depth: LiSSA's scale (a floor, see
@@ -260,6 +341,12 @@ class InfluenceEngine:
         chunk, the reference's ``body_onehot``). Only ``auto`` on the
         card is the same bits under any batch split; on the CPU
         ``auto`` and ``scan`` are.
+      cache_dir: where the factor bank's default path hangs
+        (``<cache_dir>/factor/<model_name>-bank.npz``) and where
+        :meth:`get_influence_on_test_loss` caches iHVPs as npz files keyed
+        like the reference.
+      sampled_cap, sampled_tol: the sampled rung's per-query sample cap
+        (rows) and error-bound tolerance.
       device: ``None`` (the CUDA device; raises without one), ``"cuda"``
         or ``"cpu"``.
     """
@@ -290,6 +377,8 @@ class InfluenceEngine:
         kernel: str = "auto",
         lissa_tune: str = "spectral",
         flat_accum: str = "auto",
+        sampled_cap: int = sampled_mod.DEFAULT_CAP,
+        sampled_tol: float = float("inf"),
         device=None,
     ):
         if solver not in policy.BLOCK_SOLVERS:
@@ -309,22 +398,22 @@ class InfluenceEngine:
                 f"{type(model).__name__} defines no closed-form block_hessian"
             )
         for unported, item in (
-            (solver in ("precomputed", "sampled"),
-             f"solver={solver!r}: ROADMAP Queue A.9"),
             (mesh is not None, "mesh: ROADMAP Queue A.13"),
             (shard_tables, "shard_tables: ROADMAP Queue A.13"),
             (row_features == "on", "row_features='on': ROADMAP Queue A.6b"),
-            (cache_dir is not None, "cache_dir: ROADMAP Queue A.10"),
         ):
             if unported:
                 raise NotImplementedError(f"not ported yet — {item}")
         self.device = resolve_device(device)
         self.model = model
+        self.kernel = kernel
         self._kernel_variant = K.resolve_variant(kernel, model, self.device)
         self.params = {
             k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
             for k, v in params.items()
         }
+        self._params_np = None  # host copies, made on first need
+        self._train_host = (np.asarray(train.x), np.asarray(train.y))
         self.index = InteractionIndex(train.x, model.num_users, model.num_items)
         self.train_x = torch.as_tensor(train.x).to(self.device)  # int32
         self.train_y = torch.as_tensor(train.y).to(self.device)
@@ -338,6 +427,7 @@ class InfluenceEngine:
         self.lissa_scale = float(lissa_scale)
         self.lissa_depth = int(lissa_depth)
         self.lissa_tune = lissa_tune
+        self.cache_dir = cache_dir
         self.model_name = model_name
         self.pad_bucket = int(pad_bucket)
         self.hessian_mode = hessian_mode
@@ -363,9 +453,61 @@ class InfluenceEngine:
         # program closures on the CPU; and the keys precompile_flat armed
         self._programs: dict = {}
         self._aot: set = set()
+        # the factor bank (solver='precomputed'): hot (u, i) pairs answer
+        # from factorized block inverses published offline
+        # (cli/factor.py -> influence/factor.py); a missing entry, a stale
+        # one, a damaged artifact or an ineligible config falls through
+        # to a config-identical delegate at the next rung
+        self._bank = None
+        self._bank_lookup: dict | None = None
+        self._bank_device = None  # (factor (N, d, d), kind (N,)) on device
+        self._bank_load_attempted = False
+        self._bank_dropped_stale = 0
+        self._bank_hits = 0
+        self._bank_misses = 0
+        self._bank_delegate: InfluenceEngine | None = None
+        # the certified sampled rung: Hessians over <= sampled_cap rows a
+        # query, answers stamped with a bound; a query over sampled_tol
+        # escalates one rung through a config-identical delegate
+        self.sampled_cap = max(1, int(sampled_cap))
+        self.sampled_tol = float(sampled_tol)
+        self._sampled_delegate: InfluenceEngine | None = None
+        self._approx_sibling: InfluenceEngine | None = None
+        self._sampled_queries = 0
+        self._sampled_escalations: dict[str, int] = {}
+        self._params_fp = None
 
     def active_kernel_variant(self) -> str:
         return self._kernel_variant
+
+    @property
+    def _params_host(self) -> dict:
+        """Host (numpy float32) copies of the params, fetched once: the
+        factor bank's dependency digests read them."""
+        if self._params_np is None:
+            self._params_np = {k: v.detach().cpu().numpy()
+                               for k, v in self.params.items()}
+        return self._params_np
+
+    def _sibling(self, solver: str, **over) -> "InfluenceEngine":
+        """A config-identical engine at another rung, with no disk cache,
+        sharing this engine's device params."""
+        kw = dict(
+            damping=self.damping, solver=solver, cg_maxiter=self.cg_maxiter,
+            cg_tol=self.cg_tol, lissa_scale=self.lissa_scale,
+            lissa_depth=self.lissa_depth, cache_dir=None,
+            model_name=self.model_name, pad_bucket=self.pad_bucket,
+            hessian_mode=self.hessian_mode,
+            group_queries=self.group_queries, pad_policy=self.pad_policy,
+            impl=self.impl, flat_chunk=self.flat_chunk,
+            query_bucket=self.query_bucket, kernel=self.kernel,
+            lissa_tune=self.lissa_tune, flat_accum=self.flat_accum,
+            sampled_cap=self.sampled_cap, sampled_tol=self.sampled_tol,
+            device=self.device,
+        )
+        kw.update(over)
+        return InfluenceEngine(self.model, self.params,
+                               RatingDataset(*self._train_host), **kw)
 
     # -- flat segment-sum query path --------------------------------------
     @staticmethod
@@ -410,21 +552,41 @@ class InfluenceEngine:
 
         return prelude
 
-    def _flat_fn(self, s_pad: int, stage: str = "scores"):
+    def _flat_fn(self, s_pad: int, stage: str = "scores",
+                 mode: str = "direct"):
         """All queries' related rows on one flat (S,) axis; per-query
         Hessians accumulated by segment reduction.
 
-        Returns ``fn(params, train_x, train_y, postings, tx)``. ``stage``
-        truncates the program to a cumulative prefix: "grads" returns
-        ``(g, e)``, "hessian" the damped ``H`` (T, d, d), "solve"
+        Returns ``fn(params, train_x, train_y, postings, tx, *extra)``.
+        ``stage`` truncates the program to a cumulative prefix: "grads"
+        returns ``(g, e)``, "hessian" the damped ``H`` (T, d, d), "solve"
         ``(ihvp, v)``, "scores" (the default, the full program)
         ``(scores, ihvp, v)``. "segments" and "operands" return the
         inputs of the Hessian sums ``(g, t, wv, abe, off)`` and of the
         score stage ``(tx, t, rel_x, e, wv, B)``, for holding and timing
         each kernel alone at the path's shapes.
+
+        ``mode``: ``direct``; ``sampled`` (the sampled rung, ``extra`` =
+        ``(ws, m)``: the (S,) sample weights and (T,) sample sizes of
+        :func:`~fia_tpu_torch.influence.sampled.sample_weights`), the
+        same stages with the Hessian sums over ``wv * ws`` and
+        ``ab * ws * e`` (so ``ws == 1`` leaves every operand's bits), then
+        the certificate; the full program returns ``(scores, ihvp, v,
+        err_bound)``, and stage "certificate" returns the certificate
+        kernel's operands ``(g, t, ihvp, Cx, wv, ws, abe, e, off, m)``;
+        ``bank`` (``extra`` = the device bank ``(factor, kind)``, ``tx``
+        (T, 3) with each query's bank row in its third column): no
+        Hessian, each iHVP from its factor (:func:`_bank_solve`), then
+        the same score stage.
         """
-        if stage not in STAGES + ("segments", "operands"):
+        if stage not in STAGES + ("segments", "operands", "certificate"):
             raise ValueError(f"unknown stage {stage!r}")
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        if (stage == "certificate" and mode != "sampled"
+                or mode == "bank" and stage in ("grads", "hessian",
+                                                "segments")):
+            raise ValueError(f"mode {mode!r} has no stage {stage!r}")
         model = self.model
         variant = self._kernel_variant
         damping = self.damping
@@ -432,44 +594,70 @@ class InfluenceEngine:
         chunk = math.gcd(s_pad, self.flat_chunk)
         accum = self.flat_accum
 
-        def fn(params, train_x, train_y, postings, tx):
+        def fn(params, train_x, train_y, postings, tx, *extra):
             T = tx.shape[0]
             u, i, counts, t, row, wv, ut, it = prelude(tx, postings)
+            qx = tx if tx.shape[1] == 2 else tx[:, :2].contiguous()
             rel_x = train_x[row]
             rel_y = train_y[row]
-            g = K.row_grads(model, params, ut, it, rel_x)
             e = model.row_predict(params, rel_x) - rel_y
-            ab = wv * (rel_x[:, 0] == ut) * (rel_x[:, 1] == it)
-            if stage == "grads":
-                return g, e
-
-            # H_t = (2/n_t)(Σ_{s∈t} w g gᵀ + (Σ a b e) C) + diag(reg + λ)
-            off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
-            off.clamp_(max=s_pad)
-            if stage == "segments":
-                return g, t, wv, ab * e, off
-            if accum == "auto":
-                HH, sum_abe = Kseg.segment_sums(g, t, wv, ab * e, off, chunk)
-            else:
-                HH, sum_abe = Kseg.segment_sums_reference(
-                    g, t, wv, ab * e, T, chunk, onehot=accum == "onehot")
             n_t = torch.clamp(counts.to(torch.float32), min=1.0)
-            C = model.block_cross_const(params)
             rdiag = model.block_reg_diag(params)
-            H = (2.0 / n_t)[:, None, None] * (
-                HH + sum_abe[:, None, None] * C[None]
-            ) + torch.diag(rdiag + damping)[None]
-            if stage == "hessian":
-                return H
 
-            v = _in_pieces(torch.func.vmap(
-                lambda uu, ii, xj: G.block_prediction_grad(
-                    model, params, uu, ii, xj[None, :]
-                )
-            ), u, i, tx)
-            ihvp = _in_pieces(solvers.solve_direct, H, v)
+            def test_vector():
+                return _in_pieces(torch.func.vmap(
+                    lambda uu, ii, xj: G.block_prediction_grad(
+                        model, params, uu, ii, xj[None, :]
+                    )
+                ), u, i, qx)
+
+            if mode == "bank":
+                bfac, bknd = extra
+                brow = tx[:, 2].long()
+                v = test_vector()
+                ihvp = _in_pieces(_bank_solve, bfac[brow], bknd[brow], v)
+            else:
+                g = K.row_grads(model, params, ut, it, rel_x)
+                ab = wv * (rel_x[:, 0] == ut) * (rel_x[:, 1] == it)
+                if stage == "grads":
+                    return g, e
+
+                # H_t = (2/n_t)(Σ_{s∈t} w g gᵀ + (Σ a b e) C) + diag(reg + λ)
+                off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+                off.clamp_(max=s_pad)
+                abe = ab * e
+                if mode == "sampled":
+                    # the rung's one difference from the direct program:
+                    # sample weights on both Hessian terms (off-sample rows
+                    # carry 0), so E[H_m] = H and ws == 1 is bitwise direct
+                    ws, msz = extra
+                    hw, habe = wv * ws, ab * ws * e
+                else:
+                    hw, habe = wv, abe
+                if stage == "segments":
+                    return g, t, hw, habe, off
+                if accum == "auto":
+                    HH, sum_abe = Kseg.segment_sums(g, t, hw, habe, off, chunk)
+                else:
+                    HH, sum_abe = Kseg.segment_sums_reference(
+                        g, t, hw, habe, T, chunk, onehot=accum == "onehot")
+                C = model.block_cross_const(params)
+                H = (2.0 / n_t)[:, None, None] * (
+                    HH + sum_abe[:, None, None] * C[None]
+                ) + torch.diag(rdiag + damping)[None]
+                if stage == "hessian":
+                    return H
+
+                v = test_vector()
+                ihvp = _in_pieces(solvers.solve_direct, H, v)
             if stage == "solve":
                 return ihvp, v
+            if mode == "sampled":
+                # C x of every query, in pieces of 64: a (T, d)(d, d)
+                # product's cuBLAS kernel is chosen by T
+                Cx = _in_pieces(lambda x: x @ C.T, ihvp)
+                if stage == "certificate":
+                    return g, t, ihvp, Cx, wv, ws, abe, e, off, msz
 
             # score_s = ∇_block L(z_s) · ihvp_t / n_t, with the per-example
             # loss gradient 2 e g + wd·θ̃ (θ̃ = decayed block dims)
@@ -478,19 +666,31 @@ class InfluenceEngine:
                     model.extract_block(params, uu, ii)
                 )
             )(u, i)
-            # (T,); each row padded to a multiple of 8 entries: on the card
-            # the row sum's vectorised loads start where a row starts, and
-            # a row not 32-byte aligned (MF's d = 2k + 2) sums in another
-            # order, so a query's reg_dot would follow its batch position
-            prod = theta * rdiag[None] * ihvp
-            reg_dot = torch.sum(
-                torch.nn.functional.pad(prod, (0, -prod.shape[1] % 8)), dim=1)
+            reg_dot = _padded_rowsum(theta * rdiag[None] * ihvp)
             B = Kc.query_matrix(ihvp, reg_dot, n_t)
             if stage == "operands":
-                return tx, t, rel_x, e, wv, B
-            scores = K.fused_scores(model, variant, params, tx, t, rel_x,
+                return qx, t, rel_x, e, wv, B
+            scores = K.fused_scores(model, variant, params, qx, t, rel_x,
                                     e, wv, B)
-            return scores, ihvp, v
+            if mode != "sampled":
+                return scores, ihvp, v
+
+            # the certificate: the sample deviation of the per-row Hessian
+            # action on the solved vector, pushed through the inverse by
+            # λ_min(H) and through the score form (influence/sampled.py)
+            sigma, gmax, wmax = Kcert.segment_certificate(
+                g, t, ihvp, Cx, wv, ws, abe, e, off, msz)
+            # eigvalsh in pieces of 64 (its batched library path may
+            # change bits with the batch); its info check waits on the
+            # card once a piece, which keeps this program out of capture
+            lam = torch.clamp(_in_pieces(
+                lambda h: torch.linalg.eigvalsh(h)[:, 0], H), min=damping)
+            err_ihvp = sampled_mod.ihvp_error_bound(sigma, msz, counts, lam)
+            regnorm = torch.sqrt(_padded_rowsum(
+                torch.square(theta * rdiag[None])))
+            err = sampled_mod.score_error_bound(gmax, wmax, regnorm,
+                                                err_ihvp, n_t)
+            return scores, ihvp, v, err
 
         return fn
 
@@ -517,13 +717,17 @@ class InfluenceEngine:
         return (self._query_pad(int(test_points.shape[0])),
                 self._s_pad_for(int(counts.sum())))
 
-    def _flat_key(self, t_pad: int, s_pad: int):
-        """A flat program's cache key: its geometry, the score-kernel
-        variant, the Hessian form, and the addresses of the tensors it
-        reads (a captured graph reads them by address)."""
+    def _flat_key(self, t_pad: int, s_pad: int, mode: str = "direct"):
+        """A flat program's cache key: its mode and geometry, the
+        score-kernel variant, the Hessian form, and the addresses of the
+        tensors it reads (a captured graph reads them by address; a bank
+        program its factors too)."""
         tensors = (*self.params.values(), self.train_x, self.train_y,
                    *self._postings)
-        return ("flat", t_pad, s_pad, self._kernel_variant, self.flat_accum,
+        if mode == "bank":
+            tensors += self._bank_device
+        return ("flat" if mode == "direct" else mode, t_pad, s_pad,
+                self._kernel_variant, self.flat_accum,
                 tuple(x.data_ptr() for x in tensors))
 
     def precompile_flat(self, geometries) -> dict:
@@ -560,57 +764,79 @@ class InfluenceEngine:
                           if k not in self._aot),
         }
 
-    def _build_flat(self, t_pad: int, s_pad: int):
-        """One geometry's program as ``run(tx) -> (scores, ihvp, v)``: on
-        the card a captured CUDA graph (raising with the cause if the
-        program cannot be captured), on the CPU the program closure.
-        Each build is counted by :mod:`fia_tpu_torch.utils.compilemon`."""
-        fn = self._flat_fn(s_pad)
+    def _build_flat(self, t_pad: int, s_pad: int, mode: str = "direct"):
+        """One geometry's program as ``run(tx) -> (scores, ihvp, v)``
+        (``mode`` "direct" or "bank"): on the card a captured CUDA graph
+        (raising with the cause if the program cannot be captured), on
+        the CPU the program closure. Each build is counted by
+        :mod:`fia_tpu_torch.utils.compilemon`."""
+        fn = self._flat_fn(s_pad, mode=mode)
         args = (self.params, self.train_x, self.train_y, self._postings)
+        width = 2
+        if mode == "bank":
+            inner = fn
+            args += self._bank_device
+            width = 3
+
+            def fn(params, train_x, train_y, postings, bfac, bknd, tx):
+                return inner(params, train_x, train_y, postings, tx, bfac,
+                             bknd)
         compilemon.record()
         if self.device.type != "cuda":
             return lambda tx: fn(*args, tx)
         try:
-            return _FlatGraph(fn, args, t_pad, self.device)
+            return _FlatGraph(fn, args, t_pad, self.device, width)
         except Exception as e:
             raise RuntimeError(
-                f"the flat program at (t_pad, s_pad) = ({t_pad}, {s_pad}) "
-                f"could not be captured as a CUDA graph: {e}") from e
+                f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
+                f"{s_pad}) could not be captured as a CUDA graph: {e}") from e
 
-    def _flat_exec(self, t_pad: int, s_pad: int):
+    def _flat_exec(self, t_pad: int, s_pad: int, mode: str = "direct"):
         """The program for one dispatch geometry: the one
         :meth:`precompile_flat` or an earlier dispatch built, else built
         now (captured on its first dispatch, as ``jit`` compiles on its
         first call)."""
-        key = self._flat_key(t_pad, s_pad)
+        key = self._flat_key(t_pad, s_pad, mode)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = self._build_flat(t_pad, s_pad)
+            prog = self._programs[key] = self._build_flat(t_pad, s_pad, mode)
         return prog
 
-    def _flat_inputs(self, test_points: np.ndarray):
-        """``(counts, tx, s_pad)`` of one flat dispatch: host-side
-        related counts, the (t_pad, 2) int32 query block on the device
-        (padded by duplicating the trailing pair), and the flat pad."""
-        test_points = np.asarray(test_points)
-        counts = self.index.counts_batch(test_points)
-        tx_np = np.ascontiguousarray(np.asarray(test_points, np.int64))
+    def _pad_queries(self, tx_np: np.ndarray) -> np.ndarray:
+        """The (T, w) query block padded to ``_query_pad(T)`` rows by
+        duplicating the trailing row. Pad rows take flat positions AFTER
+        the real total (their segment offsets start at off[T]), so real
+        scores are untouched and ``_assemble_packed`` slices them away."""
         T = tx_np.shape[0]
         t_pad = self._query_pad(T)
         if t_pad > T:
-            # Pad rows take flat positions AFTER the real total (their
-            # segment offsets start at off[T]), so real scores are
-            # untouched and _assemble_packed slices them away; pad rows
-            # past s_pad are simply truncated.
             tx_np = np.concatenate(
-                [tx_np, np.repeat(tx_np[-1:], t_pad - T, axis=0)]
-            )
-        tx = torch.as_tensor(tx_np.astype(np.int32))
+                [tx_np, np.repeat(tx_np[-1:], t_pad - T, axis=0)])
+        return tx_np
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device. On the card a pageable
+        upload would wait for the card to drain its queue, and with it
+        for every batch query_many keeps in flight; a pinned one is
+        queued like a kernel."""
+        x = torch.as_tensor(a)
         if self.device.type == "cuda":
-            # a pageable upload would wait for the card to drain its
-            # queue, and with it for every batch query_many keeps in
-            # flight; a pinned one is queued like a kernel
-            tx = tx.pin_memory().to(self.device, non_blocking=True)
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x
+
+    def _flat_inputs(self, test_points: np.ndarray, bank_rows=None):
+        """``(counts, tx, s_pad)`` of one flat dispatch: host-side
+        related counts, the (t_pad, 2) int32 query block on the device
+        (padded by duplicating the trailing pair; (t_pad, 3) with each
+        query's bank row for the bank program), and the flat pad (pad
+        rows past s_pad are truncated)."""
+        test_points = np.asarray(test_points)
+        counts = self.index.counts_batch(test_points)
+        tx_np = np.ascontiguousarray(np.asarray(test_points, np.int64))
+        if bank_rows is not None:
+            tx_np = np.concatenate(
+                [tx_np, np.asarray(bank_rows, np.int64)[:, None]], axis=1)
+        tx = self._upload(self._pad_queries(tx_np).astype(np.int32))
         return counts, tx, self._s_pad_for(int(counts.sum()))
 
     def _dispatch_flat(self, test_points: np.ndarray, pad_to: int | None):
@@ -637,9 +863,11 @@ class InfluenceEngine:
         packed, ihvp, v = (o.cpu().numpy() for o in out)
         T = int(np.asarray(counts).shape[0])
         total = int(counts.sum())
+        # the payload seam every rung shares (the fetched iHVP host buffer)
+        ihvp = inject.corrupt(sites.ENGINE_SOLVE, ihvp[:T])
         return InfluenceResult(
             counts=counts,
-            ihvp=ihvp[:T],
+            ihvp=ihvp,
             test_grad=v[:T],
             packed=packed[:total],
             test_points=np.asarray(test_points),
@@ -653,10 +881,15 @@ class InfluenceEngine:
         return self._finalize_flat(self._dispatch_flat(test_points, pad_to))
 
     def _flat_eligible(self) -> bool:
+        return self.solver == "direct" and self._gn_hooks()
+
+    def _gn_hooks(self) -> bool:
+        """The flat program's conditions other than the solver: the flat
+        path, the bank's hit program and the sampled program all build
+        on them."""
         return (
-            self.solver == "direct"
-            and not self.group_queries
-            # the flat path builds the Hessian from the Gauss-Newton
+            not self.group_queries
+            # the flat program builds the Hessian from the Gauss-Newton
             # hooks: an explicit 'autodiff' request is honoured
             and self.hessian_mode != "autodiff"
             # 'dataset' promises one geometry and a uniform output pad
@@ -665,6 +898,371 @@ class InfluenceEngine:
             and self.model.block_cross_const is not None
             and self.model.block_reg_diag is not None
         )
+
+    # -- precomputed factor-bank rung ----------------------------------------
+    def block_hessians(self, pairs: np.ndarray,
+                       batch_queries: int = 512) -> np.ndarray:
+        """Damped block Hessians for explicit (u, i) pairs, (N, d, d) host
+        numpy: the factor bank's input. The flat program's ``hessian``
+        stage, one dispatch a ``batch_queries`` chunk, where the model's
+        Gauss-Newton hooks allow (its bits are the flat path's Hessian's);
+        else a vmapped materialisation over the padded related sets."""
+        pairs = np.asarray(pairs, np.int64)
+        if pairs.ndim == 1:
+            pairs = pairs[None, :]
+        gn_ok = (self.model.block_cross_const is not None
+                 and self.model.block_reg_diag is not None
+                 and self.hessian_mode != "autodiff")
+        step = max(int(batch_queries), 1)
+        out = [
+            self._block_hessians_flat(pairs[s0:s0 + step]) if gn_ok
+            else self._block_hessians_padded(pairs[s0:s0 + step])
+            for s0 in range(0, len(pairs), step)
+        ]
+        return out[0] if len(out) == 1 else np.concatenate(out)
+
+    def _block_hessians_flat(self, chunk: np.ndarray) -> np.ndarray:
+        counts, tx, s_pad = self._flat_inputs(chunk)
+        H = self._flat_fn(s_pad, "hessian")(
+            self.params, self.train_x, self.train_y, self._postings, tx)
+        return H[: len(chunk)].cpu().numpy()
+
+    def _block_hessians_padded(self, chunk: np.ndarray) -> np.ndarray:
+        idx, mask, _ = self.index.related_padded(chunk,
+                                                 bucket=self.pad_bucket)
+        model, damping, params = self.model, self.damping, self.params
+        d = int(model.block_size)
+        dev = self.device
+        u = torch.as_tensor(chunk[:, 0]).to(dev)
+        i = torch.as_tensor(chunk[:, 1]).to(dev)
+        ridx = torch.as_tensor(idx, dtype=torch.int64).to(dev)
+        rel_x, rel_y = self.train_x[ridx], self.train_y[ridx]
+        w = torch.as_tensor(mask).to(dev).to(torch.float32)
+        if self._analytic_hessian:
+            H = torch.func.vmap(
+                lambda uu, ii, xx, yy, ww: model.block_hessian(
+                    params, uu, ii, xx, yy, ww)
+            )(u, i, rel_x, rel_y, w)
+            H = H + damping * torch.eye(d, dtype=torch.float32, device=dev)
+        else:
+            H = torch.func.vmap(
+                lambda uu, ii, xx, yy, ww: HV.materialize_block_hessian(
+                    model, params, uu, ii, xx, yy, ww, damping)
+            )(u, i, rel_x, rel_y, w)
+        return H.cpu().numpy()
+
+    def factor_bank_path(self) -> str | None:
+        """Default on-disk bank location (None without a cache_dir)."""
+        if self.cache_dir is None:
+            return None
+        from fia_tpu_torch.influence import factor as fbank
+
+        return fbank.default_bank_path(self.cache_dir, self.model_name)
+
+    def load_factor_bank(self, path: str | None = None) -> int:
+        """Load (or reload) the factor bank onto the device.
+
+        A verified load: artifact checksum and config/train fingerprint
+        first (a corrupt bank is quarantined as ``*.corrupt``), then each
+        entry's ``dep_crc`` against the live params; stale entries are
+        dropped before the bank ever serves. An integrity failure or a
+        classified fault degrades to "no bank" (every query falls through
+        the ladder); unclassified errors surface. Returns the number of
+        servable entries."""
+        from fia_tpu_torch.influence import factor as fbank
+        from fia_tpu_torch.reliability import artifacts
+
+        self._bank_load_attempted = True
+        self._bank = None
+        self._bank_lookup = None
+        self._bank_device = None
+        if path is None:
+            path = self.factor_bank_path()
+        if path is None or not os.path.exists(path):
+            return 0
+        try:
+            inject.fire(sites.ENGINE_FACTOR_LOAD)
+            bank, dropped = fbank.load_bank(path, self)
+        except artifacts.ArtifactIntegrityError as e:
+            _diag(f"factor bank rejected ({e.reason}); queries fall "
+                  "through the solver ladder")
+            return 0
+        except Exception as e:
+            if taxonomy.classify(e) is None:
+                raise
+            _diag("factor bank load failed transiently; serving without "
+                  "the bank")
+            return 0
+        self._bank_dropped_stale = int(dropped)
+        if len(bank) == 0:
+            return 0
+        self._bank = bank
+        self._bank_lookup = bank.lookup()
+        self._place_bank()
+        return len(bank)
+
+    def _place_bank(self) -> None:
+        """The loaded bank's factors and kinds on the device."""
+        if self._bank is None:
+            self._bank_device = None
+            return
+        self._bank_device = (
+            torch.as_tensor(self._bank.factor).to(self.device),
+            torch.as_tensor(self._bank.kind.astype(np.int32)).to(self.device),
+        )
+
+    def ensure_factor_bank(self) -> int:
+        """Load the bank once, lazily; returns the servable entry count."""
+        if not self._bank_load_attempted:
+            self.load_factor_bank()
+        return 0 if self._bank is None else len(self._bank)
+
+    def unload_factor_bank(self) -> None:
+        """Forget any loaded bank and reset the bank counters: the next
+        :meth:`ensure_factor_bank` re-attempts the verified load, and the
+        miss delegate restarts its solver ladder."""
+        self._bank = None
+        self._bank_lookup = None
+        self._bank_device = None
+        self._bank_load_attempted = False
+        self._bank_hits = 0
+        self._bank_misses = 0
+        self._bank_dropped_stale = 0
+        if self._bank_delegate is not None:
+            self._bank_delegate.solver = (
+                policy.next_solver("precomputed") or "direct")
+
+    def bank_contains(self, u: int, i: int) -> bool:
+        return bool(self._bank_lookup) and (int(u), int(i)) in self._bank_lookup
+
+    def bank_stats(self) -> dict:
+        """The engine's bank counters."""
+        return {
+            "entries": 0 if self._bank is None else len(self._bank),
+            "hits": int(self._bank_hits),
+            "misses": int(self._bank_misses),
+            "dropped_stale": int(self._bank_dropped_stale),
+        }
+
+    def _miss_delegate(self) -> "InfluenceEngine":
+        """Bank misses serve from a private engine at the next rung,
+        config-identical except solver and cache_dir, so a miss is
+        bitwise a bank-less engine at that rung."""
+        if self._bank_delegate is None:
+            self._bank_delegate = self._sibling(
+                policy.next_solver("precomputed") or "direct")
+        return self._bank_delegate
+
+    def _bank_serving_eligible(self) -> bool:
+        """The hit program is the flat prelude plus a bank gather: it
+        needs the flat path's Gauss-Newton hooks, and a loaded bank."""
+        return self._bank_device is not None and self._gn_hooks()
+
+    def _query_bank_hits(self, points: np.ndarray, rows: np.ndarray,
+                         pad_to: int | None) -> InfluenceResult:
+        """One bank-hit dispatch (every point has a bank row): the flat
+        program with each iHVP from the query's factor, one captured graph
+        a geometry on the card. On a classified device fault the points
+        re-route through the miss delegate."""
+        try:
+            inject.fire(sites.ENGINE_DISPATCH_FLAT)
+            counts, tx, s_pad = self._flat_inputs(points, bank_rows=rows)
+            pad = bucketed_pad(counts.max() if counts.size else 1,
+                               self.pad_bucket, pad_to)
+            out = self._flat_exec(tx.shape[0], s_pad, "bank")(tx)
+            return self._assemble_packed(points, counts, out, pad)
+        except Exception as e:
+            if taxonomy.classify(e) is None:
+                raise
+            self._bank_hits -= len(points)
+            self._bank_misses += len(points)
+            return self._miss_delegate().query_batch(points, pad_to=pad_to)
+
+    def _merge_stream(self, test_points, hits, misses,
+                      pad_to: int | None) -> InfluenceResult:
+        """Stitch two sub-results back into stream order as one packed
+        result (``hits``/``misses`` are (positions, result)); per-query
+        bounds of a sampled sub-result come along, exact ones are 0."""
+        counts = self.index.counts_batch(test_points)
+        T = len(test_points)
+        d = int(self.model.block_size)
+        ihvp = np.zeros((T, d), np.float32)
+        tg = np.zeros((T, d), np.float32)
+        off = np.concatenate([[0], np.cumsum(counts.astype(np.int64))])
+        packed = np.zeros(int(off[-1]), np.float32)
+        approx = any(res.approx for _, res in (hits, misses))
+        err = np.zeros(T, np.float32) if approx else None
+        for idxs, res in (hits, misses):
+            for r, tpos in enumerate(idxs):
+                packed[off[tpos]: off[tpos + 1]] = res.scores_of(r)
+                ihvp[tpos] = res.ihvp[r]
+                tg[tpos] = res.test_grad[r]
+                if err is not None and res.err_bound is not None:
+                    err[tpos] = res.err_bound[r]
+        pad = bucketed_pad(counts.max() if counts.size else 1,
+                           self.pad_bucket, pad_to)
+        return InfluenceResult(
+            counts=counts, ihvp=ihvp, test_grad=tg, packed=packed,
+            test_points=np.asarray(test_points), index=self.index, pad=pad,
+            err_bound=err, approx=approx,
+        )
+
+    def _query_precomputed(self, test_points: np.ndarray,
+                           pad_to: int | None) -> InfluenceResult:
+        """The ``precomputed`` rung: bank hits in one dispatch, every
+        other query through the delegate at the next rung."""
+        self.ensure_factor_bank()
+        T = test_points.shape[0]
+        if not self._bank_serving_eligible():
+            self._bank_misses += T
+            return self._miss_delegate().query_batch(test_points,
+                                                     pad_to=pad_to)
+        lut = self._bank_lookup
+        rows = np.fromiter((lut.get((int(u), int(i)), -1)
+                            for u, i in test_points), np.int64, count=T)
+        hit = rows >= 0
+        nh = int(np.count_nonzero(hit))
+        self._bank_hits += nh
+        self._bank_misses += T - nh
+        if nh == T:
+            return self._query_bank_hits(test_points, rows, pad_to)
+        if nh == 0:
+            return self._miss_delegate().query_batch(test_points,
+                                                     pad_to=pad_to)
+        hi, mi = np.flatnonzero(hit), np.flatnonzero(~hit)
+        res_h = self._query_bank_hits(test_points[hi], rows[hi], pad_to)
+        res_m = self._miss_delegate().query_batch(test_points[mi],
+                                                  pad_to=pad_to)
+        return self._merge_stream(test_points, (hi, res_h), (mi, res_m),
+                                  pad_to)
+
+    # -- certified sampled rung ------------------------------------------------
+    def _sampled_fn(self, s_pad: int, stage: str = "scores"):
+        """The sampled rung's program (the flat program in ``sampled``
+        mode): ``fn(params, train_x, train_y, postings, tx, ws, m) ->
+        (scores, ihvp, v, err_bound)``. Run eagerly: its eigvalsh waits on
+        the card once a 64-query piece."""
+        return self._flat_fn(s_pad, stage, mode="sampled")
+
+    def _count_escalations(self, reason: str, n: int) -> None:
+        self._sampled_escalations[reason] = (
+            self._sampled_escalations.get(reason, 0) + int(n))
+
+    def sampled_stats(self) -> dict:
+        """The sampled rung's counters: queries answered by the sampled
+        program, and queries escalated one rung, by reason
+        (``ineligible``, ``tolerance``, or a fault kind). The reference
+        counts these in its metrics registry (``engine.sampled_queries``,
+        ``engine.sampled_escalations``); here they wait for the ``obs``
+        port (ROADMAP Queue A.10) and live on the engine."""
+        return {"queries": int(self._sampled_queries),
+                "escalations": dict(self._sampled_escalations)}
+
+    def _sampled_fallback(self) -> "InfluenceEngine":
+        """Escalation target of the sampled rung: a config-identical
+        engine one rung down (``sampled → lissa``), kept across batches."""
+        if self._sampled_delegate is None:
+            self._sampled_delegate = self._sibling(
+                policy.next_solver("sampled") or "direct")
+        return self._sampled_delegate
+
+    def approx_sibling(self) -> "InfluenceEngine":
+        """A config-identical engine at the ``sampled`` rung with no disk
+        cache (serving answers ``bank_preferred`` misses from it under
+        brownout, so a certified approximate answer is never written
+        under, or read from, the exact solver's cache keys). Built once;
+        an engine already on the sampled rung is its own sibling."""
+        if self.solver == "sampled":
+            return self
+        if self._approx_sibling is None:
+            self._approx_sibling = self._sibling("sampled")
+        return self._approx_sibling
+
+    def _result_take(self, res: InfluenceResult, idxs: np.ndarray,
+                     test_points: np.ndarray) -> InfluenceResult:
+        """A packed result restricted to the query positions ``idxs``,
+        in stream order."""
+        off = res._offsets
+        packed = (np.concatenate([res._packed[off[t]: off[t + 1]]
+                                  for t in idxs])
+                  if len(idxs) else np.zeros(0, np.float32))
+        return InfluenceResult(
+            counts=res.counts[idxs], ihvp=res.ihvp[idxs],
+            test_grad=res.test_grad[idxs], packed=packed,
+            test_points=np.asarray(test_points)[idxs], index=self.index,
+            pad=res._pad,
+            err_bound=None if res.err_bound is None else res.err_bound[idxs],
+            approx=res.approx,
+        )
+
+    def _query_sampled(self, test_points: np.ndarray,
+                       pad_to: int | None) -> InfluenceResult:
+        """The ``sampled`` rung: one subsampled dispatch for the batch;
+        a query whose bound exceeds ``sampled_tol`` is recomputed one rung
+        down and merged back in its place."""
+        T = test_points.shape[0]
+        # the sampled program is the flat program with weighted Hessian
+        # sums: it needs the flat path's conditions
+        if not self._gn_hooks():
+            self._count_escalations("ineligible", T)
+            return self._sampled_fallback().query_batch(test_points,
+                                                        pad_to=pad_to)
+        try:
+            res = self._dispatch_sampled(test_points, pad_to)
+        except Exception as e:
+            cls = taxonomy.classify(e)
+            if cls is None:
+                raise
+            # a classified device fault degrades the whole batch (the
+            # device-state rebuild waits for ROADMAP Queue A.10)
+            self._count_escalations(cls, T)
+            return self._sampled_fallback().query_batch(test_points,
+                                                        pad_to=pad_to)
+        self._sampled_queries += T
+        err = res.err_bound
+        over = np.flatnonzero(err > self.sampled_tol)
+        if len(over) == 0:
+            return res
+        self._count_escalations("tolerance", len(over))
+        res_e = self._sampled_fallback().query_batch(test_points[over],
+                                                     pad_to=pad_to)
+        keep = np.flatnonzero(err <= self.sampled_tol)
+        if len(keep) == 0:
+            return res_e
+        sub = self._result_take(res, keep, test_points)
+        return self._merge_stream(test_points, (keep, sub), (over, res_e),
+                                  pad_to)
+
+    def _sampled_inputs(self, test_points: np.ndarray):
+        """``(counts, tx, ws, m, s_pad)`` of one sampled dispatch: the
+        flat query block, the host-drawn sample weights of every row of
+        the padded query block (so the flat pad covers the pad queries'
+        rows), and the sample sizes, on the device."""
+        counts = self.index.counts_batch(test_points)
+        tx_np = self._pad_queries(
+            np.ascontiguousarray(np.asarray(test_points, np.int64)))
+        pcounts = (self.index.counts_batch(tx_np)
+                   if len(tx_np) > len(test_points) else counts)
+        s_pad = self._s_pad_for(int(pcounts.sum()))
+        # a Philox sample keyed on each (u, i) pair: the same pair serves
+        # the same answer and bound in any batch
+        ws, m = sampled_mod.sample_weights(tx_np, pcounts, s_pad,
+                                           self.sampled_cap)
+        return (counts, self._upload(tx_np.astype(np.int32)),
+                self._upload(ws), self._upload(m), s_pad)
+
+    def _dispatch_sampled(self, test_points: np.ndarray,
+                          pad_to: int | None) -> InfluenceResult:
+        inject.fire(sites.ENGINE_SAMPLED_SOLVE)
+        counts, tx, ws, m, s_pad = self._sampled_inputs(test_points)
+        pad = bucketed_pad(counts.max() if counts.size else 1,
+                           self.pad_bucket, pad_to)
+        *out, err = self._sampled_fn(s_pad)(
+            self.params, self.train_x, self.train_y, self._postings, tx, ws, m)
+        res = self._assemble_packed(test_points, counts, out, pad)
+        res.err_bound = err.cpu().numpy()[: len(test_points)]
+        res.approx = True
+        return res
 
     # -- padded per-query path -------------------------------------------
     def _solve_blocks(self, params, u, i, rel_x, rel_y, w, v):
@@ -832,6 +1430,10 @@ class InfluenceEngine:
         test_points = np.asarray(test_points)
         if test_points.ndim == 1:
             test_points = test_points[None, :]
+        if self.solver == "precomputed":
+            return self._query_precomputed(test_points, pad_to)
+        if self.solver == "sampled":
+            return self._query_sampled(test_points, pad_to)
         if self.impl in ("auto", "flat") and self._flat_eligible():
             return self._query_flat(test_points, pad_to)
         if self.impl == "flat":
@@ -990,13 +1592,16 @@ class InfluenceEngine:
         }
 
     def _journal_payload(self, res: InfluenceResult) -> dict:
-        """JSON-packable form of one batch result (exact round-trip;
-        the reference's fields less the sampled rung's, ROADMAP A.9)."""
+        """JSON-packable form of one batch result (exact round-trip; the
+        reference's fields)."""
         base = {
             "counts": np.asarray(res.counts),
             "ihvp": np.asarray(res.ihvp),
             "test_grad": np.asarray(res.test_grad),
         }
+        if res.err_bound is not None:
+            base["err_bound"] = np.asarray(res.err_bound)
+            base["approx"] = np.asarray(res.approx)
         if res._packed is not None:
             base.update(
                 fmt="packed",
@@ -1014,28 +1619,113 @@ class InfluenceEngine:
         return base
 
     def _result_from_journal(self, p: dict) -> InfluenceResult:
+        err = p["err_bound"] if "err_bound" in p else None
+        approx = bool(np.asarray(p["approx"])) if "approx" in p else False
         if p["fmt"] == "packed":
             return InfluenceResult(
                 counts=p["counts"], ihvp=p["ihvp"],
                 test_grad=p["test_grad"], packed=p["packed"],
                 test_points=p["test_points"], index=self.index,
-                pad=int(p["pad"]),
+                pad=int(p["pad"]), err_bound=err, approx=approx,
             )
         return InfluenceResult(
             p["scores"], p["related_idx"], p["related_mask"],
-            p["counts"], p["ihvp"], p["test_grad"],
+            p["counts"], p["ihvp"], p["test_grad"], err_bound=err,
+            approx=approx,
         )
 
     def get_influence_on_test_loss(self, test_indices, test_ds: RatingDataset,
                                    force_refresh: bool = True,
                                    test_description=None) -> np.ndarray:
         """The reference's signature: the scores of the related training
-        rows of ``test_ds.x[test_indices[0]]`` (one index at a time)."""
+        rows of ``test_ds.x[test_indices[0]]`` (one index at a time).
+
+        With a ``cache_dir`` the iHVP and scores are cached as an npz
+        keyed like the reference (``<model>-<solver>-normal_loss-test-
+        <desc>.npz``), published through the artifact integrity layer. A
+        cached file serves when ``force_refresh`` is off, it verifies,
+        and its params fingerprint matches the engine's; a corrupt file
+        is quarantined and recomputed, then republished."""
         if len(test_indices) != 1:
             raise ValueError(
                 f"one test index at a time, got {len(test_indices)}")
-        point = np.asarray(test_ds.x[int(test_indices[0])])
-        return self.query_batch(point[None, :]).scores_of(0)
+        t = int(test_indices[0])
+        point = np.asarray(test_ds.x[t])
+        cache = None
+        if self.cache_dir is not None:
+            desc = test_description if test_description is not None else [t]
+            cache = os.path.join(
+                self.cache_dir,
+                f"{self.model_name}-{self.solver}-normal_loss-test-{desc}.npz")
+        stale = False
+        if cache is not None and not force_refresh and os.path.exists(cache):
+            from fia_tpu_torch.reliability import artifacts
+
+            try:
+                hit = artifacts.load_npz(cache, require_manifest=False)
+                if "scores" in hit and "params_fp" in hit and (
+                        self._fingerprint_matches(hit["params_fp"])):
+                    return hit["scores"]
+            except artifacts.ArtifactIntegrityError:
+                pass
+            stale = True
+        res = self.query_batch(point[None, :])
+        if cache is not None and (force_refresh or stale
+                                  or not os.path.exists(cache)):
+            from fia_tpu_torch.reliability import artifacts
+
+            artifacts.publish_npz(
+                cache,
+                dict(inverse_hvp=res.ihvp[0], scores=res.scores_of(0),
+                     params_fp=self._params_fingerprint()),
+                fingerprint={"model_key": self.model_name,
+                             "solver": self.solver},
+                site=sites.ENGINE_CACHE_PUBLISH,
+            )
+        return res.scores_of(0)
+
+    def _params_fingerprint(self) -> np.ndarray:
+        """The iHVP cache's identity: each param's sum and L2 norm (in
+        sorted-name order, the reference's leaf order), the train set's
+        row count and position-weighted x/y checksums (float64 on the
+        host, compared exactly: a leave-one-out subset must not serve the
+        full set's scores), and the solve configuration."""
+        if self._params_fp is None:
+            stats = torch.stack([
+                s for k in sorted(self.params)
+                for s in (torch.sum(self.params[k]),
+                          torch.linalg.norm(self.params[k].reshape(-1)))
+            ])
+            hx, hy = self._train_host
+            n = hx.shape[0]
+            pos = ((np.arange(n) % 997) + 1).astype(np.float64)
+            tstats = [
+                float(n),
+                float(np.sum(hx[:, 0].astype(np.float64) * pos)),
+                float(np.sum(hx[:, 1].astype(np.float64) * pos)),
+                float(np.sum(hy.astype(np.float64) * pos)),
+            ]
+            cfg = [self.damping, self.cg_tol, float(self.cg_maxiter),
+                   self.lissa_scale, float(self.lissa_depth)]
+            self._params_fp = np.concatenate([
+                stats.cpu().numpy().astype(np.float64),
+                np.asarray(tstats + cfg, np.float64),
+            ])
+        return self._params_fp
+
+    # train stats + solve cfg at the fingerprint's tail (the exact part)
+    _FP_EXACT_TAIL = 9
+
+    def _fingerprint_matches(self, stored) -> bool:
+        """Params stats within reduction noise (allclose); train checksums
+        and solve config exactly."""
+        fp = self._params_fingerprint()
+        stored = np.asarray(stored)
+        if stored.shape != fp.shape:
+            return False
+        k = fp.shape[0] - self._FP_EXACT_TAIL
+        return bool(np.allclose(stored[:k], fp[:k])
+                    and np.array_equal(stored[k:], fp[k:]))
 
     def related_indices(self, test_point) -> np.ndarray:
         u, i = int(test_point[0]), int(test_point[1])

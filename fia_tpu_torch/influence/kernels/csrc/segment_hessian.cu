@@ -23,8 +23,8 @@
 // Hessian is the same bits under any batch split. The plain version with
 // piece = P (kernels/segment.py) does the same operations in the same
 // order; entry (i, j), i <= j, is sum (wv g_i) g_j and (j, i) its mirror,
-// which is the plain version's own (j, i) whenever wv is 0 or 1 (every row
-// the flat path makes), so the two agree bit for bit.
+// as the plain version mirrors its upper triangle, so the two agree bit for
+// bit under any weights (the sampled rung's n/m too).
 //
 // No tensor cores: the product is float32 with TF32 off (the port keeps
 // float32 throughout), and the order above needs a separate rounding for

@@ -18,8 +18,9 @@ piece order, ((p0 + p1) + p2) + …. The rule is a function of d alone,
 so a segment's bits depend on neither the batch nor where the segment
 sits on the flat axis. The plain version with ``piece=piece_rows(d)``
 does the same operations in the same order, and the kernel is held to
-it bit for bit (wv is 0 or 1 on every row the flat path makes, which
-makes both halves of the block the same sums).
+it bit for bit: both compute the upper triangle, entry (i, j), i <= j,
+as Σ (wv g_i) g_j, and mirror it (under the sampled rung's weights n/m
+the lower sums Σ (wv g_j) g_i would round otherwise).
 
 On the CPU, :func:`segment_sums` (and so the engine's
 ``flat_accum="auto"``) keeps the row-order scatter form, the reference's
@@ -116,6 +117,12 @@ def _pieced(g, wv, abe, off, piece: int):
         live = torch.nonzero(n > k).squeeze(1)
         HH[live] += acc[first[live] + k]
         sabe[live] += sa[first[live] + k]
+    # the kernel's definition: entry (i, j), i <= j, is Σ (wv g_i) g_j and
+    # (j, i) its mirror. The lower entries summed above are Σ (wv g_j) g_i,
+    # the same bits only where wv is 0 or 1, not under the sampled rung's
+    # weights n/m
+    lo = torch.tril_indices(d, d, -1, device=dev)
+    HH[:, lo[0], lo[1]] = HH[:, lo[1], lo[0]]
     return HH, sabe
 
 

@@ -165,10 +165,17 @@ class RetryPolicy:
 QUERY_SOLVER_FALLBACK = {"precomputed": "sampled", "sampled": "lissa",
                          "lissa": "cg", "schulz": "direct",
                          "cg": "direct"}
+#: the full-parameter engine's ladder (CG's best-iterate freeze cannot
+#: diverge)
+FULL_SOLVER_FALLBACK = {"lissa": "cg"}
 
 #: solver names the block engine accepts, ladder-ordered robust-last
 BLOCK_SOLVERS = ("precomputed", "sampled", "lissa", "schulz", "cg",
                  "direct")
+#: solver names the full-parameter engine accepts: it has no block bank
+#: and no subsampled block estimator, so ``precomputed`` or ``sampled``
+#: requested there walks the ladder down to ``lissa`` (resolve_solver)
+FULL_SOLVERS = ("lissa", "cg")
 
 
 def next_solver(current: str, fallback: dict[str, str] = QUERY_SOLVER_FALLBACK

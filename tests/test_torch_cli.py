@@ -203,7 +203,7 @@ def test_rq2_json_line_matches_and_checkpoints_cross(tmp_path, capsys,
 
 
 def test_without_a_card_the_drivers_raise(tmp_path, no_jax_env):
-    for driver in ("rq1", "rq2"):
+    for driver in ("rq1", "rq2", "factor"):
         out = _port(driver, SMALL + ["--train_dir", str(tmp_path)], no_jax_env,
                     check=False)
         assert out.returncode != 0 and "CUDA" in out.stderr
@@ -214,13 +214,57 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A.13"):
         port_rq2.main(SMALL + ["--backend", "cpu", "--mesh", "2",
                                "--train_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # the sampled rung is ported (test_rq2_runs_the_sampled_rung): with
+    # --mesh it still raises
+    with pytest.raises(NotImplementedError, match="A.13"):
         port_rq2.main(SMALL + ["--backend", "cpu", "--solver", "sampled",
-                               "--num_steps_train", "5", "--batch_size",
-                               "300", "--train_dir", str(tmp_path)])
+                               "--mesh", "2", "--num_steps_train", "5",
+                               "--batch_size", "300", "--train_dir",
+                               str(tmp_path)])
     with pytest.raises(SystemExit, match="out of range"):
         common.load_splits(common.base_parser("t").parse_args(
             SMALL + ["--test_indices", "50"]))
+
+
+def test_factor_driver_publishes_a_bank(tmp_path, no_jax_env):
+    """``python -m fia_tpu_torch.cli.factor`` with no JAX: trains, builds
+    and publishes a bank that a ``precomputed`` engine over the same
+    ``--train_dir`` loads whole; ``--verify`` waits for serving."""
+    from fia_tpu_torch.influence import factor as fbank
+
+    flags = SMALL + ["--model", "MF", "--backend", "cpu", "--batch_size",
+                     "300", "--num_steps_train", "20", "--bank_entries",
+                     "32", "--bank_top_users", "8", "--bank_top_items", "8",
+                     "--train_dir", str(tmp_path)]
+    out = _port("factor", flags, no_jax_env)
+    summary = json.loads(out.stdout.strip().splitlines()[-1])
+    assert summary["entries"] == 32 and summary["block_d"] == 10
+    assert summary["cholesky"] + summary["inverse"] == 32
+    from fia_tpu_torch.cli import factor as port_factor
+
+    args = port_factor.add_factor_flags(common.base_parser("t")).parse_args(
+        flags)
+    splits = common.load_splits(args)
+    model, params = common.build_model(args, splits)
+    _, state, _ = common.train_or_load(args, model, params, splits,
+                                       verbose=False)
+    name = common.model_name_for(args, splits=splits)
+    assert summary["path"] == fbank.default_bank_path(str(tmp_path), name)
+    eng = InfluenceEngine(model, state.params, splits["train"],
+                          solver="precomputed", cache_dir=str(tmp_path),
+                          model_name=name, damping=1e-3, device="cpu")
+    assert eng.ensure_factor_bank() == 32
+    assert eng.bank_stats()["dropped_stale"] == 0
+    with pytest.raises(NotImplementedError, match="A.11"):
+        port_factor.main(flags + ["--verify"])
+
+
+def test_rq2_runs_the_sampled_rung(tmp_path, capsys):
+    port_rq2.main(SMALL + ["--backend", "cpu", "--solver", "sampled",
+                           "--sampled_cap", "8", "--num_steps_train", "5",
+                           "--batch_size", "300", "--num_test", "4",
+                           "--train_dir", str(tmp_path)])
+    assert "Inverse HVP + scoring for 4 queries" in capsys.readouterr().out
 
 
 def test_rq1_resume_and_deadline(tmp_path):

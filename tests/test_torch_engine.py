@@ -190,11 +190,15 @@ def test_stage_prefixes_match_reference(case, stage):
         np.testing.assert_allclose(a, b, rtol=rt, atol=ATOL)
 
 
+# the precomputed and sampled rungs and cache_dir are ported: their
+# cases now pair them with an option that is not, which still raises
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [
-    {"solver": "precomputed"}, {"solver": "sampled"}, {"mesh": object()},
+    {"solver": "precomputed", "mesh": object()},
+    {"solver": "sampled", "shard_tables": True}, {"mesh": object()},
     {"shard_tables": True}, {"row_features": "on"},
-    {"impl": "padded", "mesh": object()}, {"cache_dir": "unused"},
+    {"impl": "padded", "mesh": object()},
+    {"cache_dir": "unused", "row_features": "on"},
 ])
 def test_unported_options_raise(kw, family):
     shape, x, y, _ = _kernels_setup()
@@ -202,6 +206,23 @@ def test_unported_options_raise(kw, family):
     params = model.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("kw", [
+    {"solver": "precomputed"}, {"solver": "sampled"},
+    {"cache_dir": "unused"},
+    {"solver": "sampled", "sampled_cap": 8, "sampled_tol": 0.5},
+])
+def test_ported_rungs_construct(kw, family):
+    shape, x, y, _ = _kernels_setup()
+    model = FAMILIES[family][0](*shape, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    eng = InfluenceEngine(model, params, RatingDataset(x, y), device="cpu",
+                          **kw)
+    assert eng.solver == kw.get("solver", "direct")
+    assert eng.sampled_cap == kw.get("sampled_cap", 64)
+    assert eng.sampled_tol == kw.get("sampled_tol", float("inf"))
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

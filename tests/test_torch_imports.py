@@ -50,6 +50,15 @@ TRAIN_MODULES = ("fia_tpu_torch.train.trainer",
 # the program-build counter
 DISPATCH_MODULES = ("fia_tpu_torch.influence.kernels.segment",
                     "fia_tpu_torch.utils.compilemon")
+# the rest of the solver ladder and the facade: the sampled rung and its
+# certificate kernel's wrapper, the factor bank, the full-parameter
+# engine, FIAModel and the bank builder
+LADDER_MODULES = ("fia_tpu_torch.influence.sampled",
+                  "fia_tpu_torch.influence.kernels.certificate",
+                  "fia_tpu_torch.influence.factor",
+                  "fia_tpu_torch.influence.full",
+                  "fia_tpu_torch.api",
+                  "fia_tpu_torch.cli.factor")
 
 
 def _forbidden(name: str) -> bool:
@@ -88,6 +97,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(PADDED_MODULES) <= set(names)
     assert set(TRAIN_MODULES) <= set(names)
     assert set(DISPATCH_MODULES) <= set(names)
+    assert set(LADDER_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -120,7 +130,7 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
 
 
 @pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
-                         + TRAIN_MODULES + DISPATCH_MODULES)
+                         + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""
@@ -187,6 +197,32 @@ def test_trainer_and_drivers_default_to_cuda(monkeypatch):
     args = common.base_parser("t").parse_args(["--backend", "cpu"])
     assert common.apply_backend(args).type == "cpu"
     assert Trainer(model, TrainConfig(1, 1), device="cpu").device.type == "cpu"
+
+
+def test_ladder_entry_points_default_to_cuda(monkeypatch):
+    """The full-parameter engine and the facade run on the card unless
+    asked for the CPU, and raise without one; so do the new rungs."""
+    from fia_tpu_torch.api import FIAModel
+    from fia_tpu_torch.influence.full import FullInfluenceEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = MF(4, 3, 2, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    train = RatingDataset(np.asarray([[0, 0], [1, 2], [3, 1]]),
+                          np.asarray([1.0, 2.0, 3.0]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FullInfluenceEngine(model, params, train)
+    assert FullInfluenceEngine(model, params, train,
+                               device="cpu").device.type == "cpu"
+    for solver in ("precomputed", "sampled"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            InfluenceEngine(model, params, train, solver=solver)
+    kw = dict(model="MF", num_users=4, num_items=3, embedding_size=2,
+              weight_decay=1e-3, batch_size=1,
+              data_sets={"train": train, "test": train})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FIAModel(**kw)
+    assert FIAModel(**kw, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch):

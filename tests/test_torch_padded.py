@@ -298,8 +298,11 @@ class _NoHessianMF(MF):
     ({"hessian_mode": "bogus"}, ValueError),
     ({"pad_policy": "bogus"}, ValueError),
     ({"solver": "bogus"}, ValueError),
-    ({"solver": "precomputed"}, NotImplementedError),
-    ({"solver": "sampled"}, NotImplementedError),
+    # the two rungs are ported (test_torch_engine.py::
+    # test_ported_rungs_construct); paired with an unported option they
+    # still raise
+    ({"solver": "precomputed", "mesh": object()}, NotImplementedError),
+    ({"solver": "sampled", "row_features": "on"}, NotImplementedError),
 ])
 def test_constructor_errors(kw, err):
     _, x, y, _ = _kernels_setup()

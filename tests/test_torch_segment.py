@@ -18,7 +18,11 @@ rows from a segment's start, each in row order, the partials added in
 piece order) meets the same float64 bar with pieces short enough that
 the long segments span many, equals the row-order form bit for bit when
 one piece covers every segment, and gives a segment the same bits alone
-and at another offset in another batch. The CUDA kernel itself is held
+and at another offset in another batch. Under the sampled rung's
+Horvitz-Thompson weights n/m (m < n, and m = 1) both forms meet the
+float64 bar, the pieced form's block is its upper triangle mirrored
+(the kernel's definition), and a segment keeps its bits in any batch.
+The CUDA kernel itself is held
 against the pieced form on the card by ``chip_smoke.py``; here the
 wrapper must take the plain version for CPU tensors and count no
 launch.
@@ -287,6 +291,97 @@ def test_pieced_form_is_split_invariant(piece):
                                                   piece=piece, off=off2)
             assert torch.equal(many[0][at], one[0][0])
             assert torch.equal(many[1][at], one[1][0])
+
+
+def _ht_weights(counts, S, cap, seed=0):
+    """The sampled rung's Hessian weights on the rows of ``counts``-row
+    segments: min(n, cap) rows a segment at the Horvitz-Thompson weight
+    n/m (non-integral for most n, m; n at m = 1), the rest 0
+    (``influence/sampled.py:sample_weights``)."""
+    from fia_tpu_torch.influence.sampled import sample_weights
+
+    counts = np.asarray(counts, np.int64)
+    pairs = np.random.default_rng(seed).integers(0, 10**6, (len(counts), 2))
+    ws, _ = sample_weights(pairs, counts, max(S, int(counts.sum())), cap)
+    return torch.as_tensor(ws[:S])
+
+
+HT_CASES = {"m < n": 13, "m = 1": 1}
+
+
+@pytest.mark.parametrize("piece", PIECES)
+@pytest.mark.parametrize("cap", sorted(HT_CASES.values()),
+                         ids=sorted(HT_CASES, key=HT_CASES.get))
+@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("d", [6, 34])
+def test_pieced_form_ht_weights(case, d, cap, piece):
+    """Under the sampled rung's weights n/m both forms meet the float64
+    bar, and the pieced form is the kernel's definition: the upper
+    triangle summed, the lower its mirror (Σ (wv g_j) g_i would round
+    otherwise), so its block is exactly symmetric."""
+    counts, S = CASES[case]
+    g, t, wv, abe, off = _synthetic(counts, S, d)
+    w = wv * _ht_weights(counts, S, cap)
+    # weights other than 0 and 1 (n/m; n itself at m = 1)
+    assert bool(((w != 0) & (w != 1)).any())
+    T = len(counts)
+    want, want_s = _exact(g, w, abe, off)
+    scale = np.abs(want).max()
+    pieced = segment.segment_sums_reference(g, t, w, abe, T, 64, piece=piece,
+                                            off=off)
+    scatter = segment.segment_sums_reference(g, t, w, abe, T, 64)
+    for HH, sabe in (pieced, scatter):
+        np.testing.assert_allclose(HH.numpy(), want, rtol=RTOL,
+                                   atol=ATOL_REL * scale)
+        np.testing.assert_allclose(
+            sabe.numpy(), want_s, rtol=RTOL,
+            atol=ATOL_REL * max(np.abs(want_s).max(), 1.0))
+    assert torch.equal(pieced[0], pieced[0].transpose(1, 2))
+    iu = torch.triu_indices(d, d)
+    one = segment.segment_sums_reference(g, t, w, abe, T, 64,
+                                         piece=S + 1, off=off)
+    # one piece covering every segment: the row-order form's upper half
+    assert torch.equal(one[0][:, iu[0], iu[1]], scatter[0][:, iu[0], iu[1]])
+
+
+@pytest.mark.parametrize("cap", sorted(HT_CASES.values()))
+def test_pieced_form_ht_weights_split_invariant(cap):
+    """A segment's weighted sums are the same bits alone and at another
+    offset in another batch (its sample keyed on its pair, not its
+    place)."""
+    d, piece = 10, 64
+    g1, t1, wv1, abe1, off1 = _synthetic([700], 700, d, seed=1)
+    w1 = wv1 * _ht_weights([700], 700, cap, seed=9)
+    one = segment.segment_sums_reference(g1, t1, w1, abe1, 1, 2048,
+                                         piece=piece, off=off1)
+    counts = np.random.default_rng(3).integers(0, 90, 30)
+    counts[17] = 700
+    g2, t2, wv2, abe2, off2 = _synthetic(counts, int(counts.sum()), d, seed=3)
+    w2 = wv2 * _ht_weights(counts, int(counts.sum()), cap, seed=4)
+    a, b = int(off2[17]), int(off2[18])
+    g2[a:b], w2[a:b], abe2[a:b] = g1, w1, abe1
+    many = segment.segment_sums_reference(g2, t2, w2, abe2, 30, 64,
+                                          piece=piece, off=off2)
+    assert torch.equal(many[0][17], one[0][0])
+    assert torch.equal(many[1][17], one[1][0])
+
+
+@pytest.mark.cuda
+def test_kernel_matches_pieced_form_ht_weights_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the segment_hessian kernel has no "
+                    "CPU form (chip_smoke.py holds it on the card)")
+    d = 34
+    P = segment.piece_rows(d)
+    counts = [0, 1, 37, 5, 300, P - 1, P, P + 1, 3 * P + 5]
+    S = 1400 + 5 * P
+    g, t, wv, abe, off = _synthetic(counts, S, d)
+    w = wv * _ht_weights(counts, S, 13)
+    got = segment.segment_sums(*(a.cuda() for a in (g, t, w, abe, off)), 0)
+    want = segment.segment_sums_reference(g, t, w, abe, 9, 64, piece=P,
+                                          off=off)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 def test_piece_rows_depends_on_d_only():
