@@ -334,6 +334,11 @@ CERT_REPLACES = "fia_tpu/influence/sampled.py:103"
 CERT_RTOL, CERT_ATOL_REL = 1e-5, 1e-6
 SAMPLED_CAP = 64
 FIDELITY_SHARE = 0.99
+# the sampled rung on phase 4's small input, card against the CPU on the
+# same samples: scores at CPU_RTOL / CPU_ATOL, bounds at the rtol that
+# tests/test_torch_sampled.py holds the port's bound to against the
+# reference's (BOUND_RTOL): another Hessian order, another eigensolver
+SAMPLED_BOUND_RTOL = 1e-4
 SAMPLED_SPLITS = (1024, 256, 100, 23)
 ESCALATE_T, ESCALATE_DEPTH = 64, 200
 BANK_ENTRIES, BANK_T, BANK_RHO = 1024, 256, 0.999
@@ -2047,7 +2052,7 @@ def certificate_operands(samp, pts, T):
     e, off, m)`` of a T-query sampled dispatch, from the sampled
     program's "certificate" prefix."""
     _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T])
-    return samp._sampled_fn(s_pad, "certificate")(
+    return samp._flat_fn(s_pad, "certificate", mode="sampled")(
         samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws, m)
 
 
@@ -2122,16 +2127,20 @@ def cert_launch_twice(ops):
 
 def certificate_bound_ms(ops) -> tuple[float, str]:
     """Least time an H100 could take for the certificate of ``ops``: every
-    input read once (g, the five row vectors, ihvp and Cx, off, m), three
-    (T,) outputs written; per row in a segment ~10 d operations (two dots
-    and h, its masked sum), per sampled row ~8 d more (a dot, h and the
-    squared deviation)."""
+    input the function needs read once (g and the four row vectors the
+    kernel reads, over the rows inside segments only: pad rows past
+    off[-1] belong to no query; ihvp and Cx, off, m), three (T,) outputs
+    written; per row in a segment ~10 d operations (two dots and h, its
+    masked sum), per sampled row ~8 d more (a dot, h and the squared
+    deviation)."""
     g, t, ihvp, cx, wv, ws, abe, e, off, m = ops
     d = g.shape[1]
     T = off.numel() - 1
-    rows = int(off[-1] - off[0])
-    sampled = int((ws[:rows] > 0).sum())
-    nb = nbytes(g, wv, ws, abe, e, ihvp, cx, off, m) + 3 * T * 4
+    lo, hi = int(off[0]), int(off[-1])
+    rows = hi - lo
+    sampled = int((ws[lo:hi] > 0).sum())
+    nb = nbytes(*(x[lo:hi] for x in (g, wv, ws, abe, e)), ihvp, cx, off,
+                m) + 3 * T * 4
     return bound(nb, rows * d * 10 + sampled * d * 8)
 
 
@@ -2196,7 +2205,8 @@ def check_segment_ht(family: str, samp, pts, gen) -> dict:
     cases = []
     for T in BATCHES:
         _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T])
-        cases.append((f"main path T={T}", samp._sampled_fn(s_pad, "segments")(
+        cases.append((f"main path T={T}", samp._flat_fn(
+            s_pad, "segments", mode="sampled")(
             samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws,
             m)))
     P = kseg.piece_rows(d)
@@ -2259,6 +2269,38 @@ def wall_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
+def sampled_small(family: str, model) -> dict:
+    """The sampled rung at cap SAMPLED_CAP on phase 4's small input (about
+    half its queries have more related rows than the cap, so their
+    Hessians are HT-weighted samples): the card against the port's CPU
+    path on the same samples, scores at phase 4's card-vs-CPU bar and
+    bounds within SAMPLED_BOUND_RTOL."""
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+    tm = type(model)(60, 40, 8, 1e-3)
+    tp = tm.init_params(torch.Generator().manual_seed(0))
+    tq = tiny["test"].x.astype(np.int64)
+    kw = dict(damping=1e-3, solver="sampled", sampled_cap=SAMPLED_CAP)
+    on_card = InfluenceEngine(tm, tp, tiny["train"], **kw).query_batch(tq)
+    on_cpu = InfluenceEngine(tm, tp, tiny["train"], device="cpu", **kw
+                             ).query_batch(tq)
+    sampled = int((on_cpu.counts > SAMPLED_CAP).sum())
+    check(sampled > 0 and bool((on_cpu.err_bound > 0).any()),
+          f"{family} sampled, small input: no query was sampled")
+    parity = compare_results(on_card, on_cpu, f"{family} sampled card vs "
+                             "CPU (small)", CPU_RTOL, CPU_ATOL, CPU_RHO_MIN)
+    a, b = on_card.err_bound.astype(np.float64), on_cpu.err_bound
+    check(np.array_equal(a == 0, b == 0), f"{family} sampled card vs CPU "
+          "(small): exact (bound 0) queries differ")
+    rel = float(np.max(np.abs(a - b) / np.where(b > 0, b, 1.0)))
+    check(rel <= SAMPLED_BOUND_RTOL, f"{family} sampled card vs CPU (small): "
+          f"bounds differ by {rel:.3e} relative, want <= "
+          f"{SAMPLED_BOUND_RTOL}")
+    log(f"{family} sampled cap={SAMPLED_CAP}, small input ({sampled} of "
+        f"{len(tq)} queries sampled): card vs CPU {parity}; bounds within "
+        f"{rel:.3e} relative")
+    return {**parity, "sampled_queries": sampled, "bound_max_rel_err": rel}
+
+
 def drive_sampled(family: str, eng, train, pts) -> dict:
     """8c: the sampled rung at cap SAMPLED_CAP, tol inf."""
     samp = ladder_engine(eng, train, solver="sampled",
@@ -2283,10 +2325,17 @@ def drive_sampled(family: str, eng, train, pts) -> dict:
     check(share >= FIDELITY_SHARE, f"{family} sampled: |sampled - direct| "
           f"<= err_bound + 1e-6 on {share:.4f} of {T} queries, want >= "
           f"{FIDELITY_SHARE}")
+    # at these random weights λ_min sits at the damping floor, so the
+    # bound is loose and the gate above says little: print a query's
+    # typical largest |score| beside it
+    typical = float(np.median([np.abs(dr.scores_of(t)).max(initial=0.0)
+                               for t in range(T)]))
     log(f"{family} sampled cap={SAMPLED_CAP}: |sampled - direct| within the "
         f"bound on {share:.4f} of {T} queries; bound median "
         f"{float(np.median(r.err_bound)):.3e}, max "
-        f"{float(r.err_bound.max()):.3e}; launches {launches}")
+        f"{float(r.err_bound.max()):.3e} (a query's largest |score|: "
+        f"median {typical:.3e}); launches {launches}")
+    small = sampled_small(family, eng.model)
     # at a cap above every count the rung is the direct path, bound 0
     T0 = BATCHES[0]
     full = ladder_engine(eng, train, solver="sampled", sampled_cap=10 ** 6)
@@ -2356,6 +2405,7 @@ def drive_sampled(family: str, eng, train, pts) -> dict:
     log(f"{family} sample_weights on the host, T={T}: {sw_ms:.2f} ms")
     return {"launches": launches, "fidelity_share": share,
             "bound_median": float(np.median(r.err_bound)),
+            "typical_max_abs_score": typical, "small_card_vs_cpu": small,
             "escalated": int(len(over)), "times": times,
             "sample_weights_host_ms": sw_ms}
 
@@ -2448,7 +2498,21 @@ def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
         f"{worst_rel:.3e} of the query's largest |score|); misses bitwise "
         f"direct; a hit alone "
         f"the same bits as in the batch; launches {bank_launches}")
-    times = {}
+    # the mixed batch timed at the default sampled_cap (a miss then takes
+    # the sampled rung, eigvalsh and all) and at cap 1e6, beside direct
+    dflt = ladder_engine(eng, train, solver="precomputed", cache_dir=workdir,
+                         model_name=name)
+    check(dflt.sampled_cap == sampled_mod.DEFAULT_CAP
+          and dflt.ensure_factor_bank() == len(bank),
+          f"{family} bank at the default cap: {dflt.bank_stats()}")
+    mixed_ms = {"default_cap": wall_ms(lambda: dflt.query_batch(mixed)),
+                "cap_1e6": wall_ms(lambda: pre.query_batch(mixed)),
+                "direct": wall_ms(lambda: eng.query_batch(mixed))}
+    log(f"{family} bank mixed T={len(mixed)} (half misses): "
+        f"{mixed_ms['default_cap']:.2f} ms at the default cap "
+        f"{sampled_mod.DEFAULT_CAP}, {mixed_ms['cap_1e6']:.2f} ms at cap "
+        f"1e6, direct {mixed_ms['direct']:.2f} ms")
+    times = {"mixed": mixed_ms}
     hot = bank.pairs.astype(np.int64)
     for T in BATCHES:
         q = hot[:T]

@@ -11,7 +11,7 @@ single-device ``_query_padded``), the dispatch choice
 (``_nan_ladder``), the factor-bank rung (``block_hessians``, the bank
 load/unload methods, ``_bank_fn``, ``_query_bank_hits``,
 ``_merge_stream``, ``_query_precomputed``), the certified sampled rung
-(``_sampled_fn``, ``_query_sampled``, ``_dispatch_sampled``,
+(``_flat_fn``'s sampled mode, ``_query_sampled``, ``_dispatch_sampled``,
 ``_sampled_fallback``, ``approx_sibling``, ``_result_take``),
 ``query_batch``, ``get_influence_on_test_loss`` with its iHVP disk cache,
 and ``related_indices``).
@@ -55,6 +55,7 @@ Options of the reference that the port does not run yet raise
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import math
 import os
@@ -449,6 +450,16 @@ class InfluenceEngine:
         cap = 1 << max(0, cap_elems.bit_length() - 1) if cap_elems else 1
         self.flat_chunk = max(1, min(self.flat_chunk, cap))
         self.query_bucket = max(0, int(query_bucket))
+        # the certified sampled rung: Hessians over <= sampled_cap rows a
+        # query, answers stamped with a bound; a query over sampled_tol
+        # escalates one rung through a config-identical delegate
+        self.sampled_cap = max(1, int(sampled_cap))
+        self.sampled_tol = float(sampled_tol)
+        self._init_state()
+
+    def _init_state(self) -> None:
+        """The engine's own mutable state: compiled programs, the factor
+        bank, delegates and counters (a sibling starts with fresh ones)."""
         # flat programs by _flat_key: CUDA graphs on the card, the
         # program closures on the CPU; and the keys precompile_flat armed
         self._programs: dict = {}
@@ -466,11 +477,6 @@ class InfluenceEngine:
         self._bank_hits = 0
         self._bank_misses = 0
         self._bank_delegate: InfluenceEngine | None = None
-        # the certified sampled rung: Hessians over <= sampled_cap rows a
-        # query, answers stamped with a bound; a query over sampled_tol
-        # escalates one rung through a config-identical delegate
-        self.sampled_cap = max(1, int(sampled_cap))
-        self.sampled_tol = float(sampled_tol)
         self._sampled_delegate: InfluenceEngine | None = None
         self._approx_sibling: InfluenceEngine | None = None
         self._sampled_queries = 0
@@ -489,25 +495,16 @@ class InfluenceEngine:
                                for k, v in self.params.items()}
         return self._params_np
 
-    def _sibling(self, solver: str, **over) -> "InfluenceEngine":
+    def _sibling(self, solver: str) -> "InfluenceEngine":
         """A config-identical engine at another rung, with no disk cache,
-        sharing this engine's device params."""
-        kw = dict(
-            damping=self.damping, solver=solver, cg_maxiter=self.cg_maxiter,
-            cg_tol=self.cg_tol, lissa_scale=self.lissa_scale,
-            lissa_depth=self.lissa_depth, cache_dir=None,
-            model_name=self.model_name, pad_bucket=self.pad_bucket,
-            hessian_mode=self.hessian_mode,
-            group_queries=self.group_queries, pad_policy=self.pad_policy,
-            impl=self.impl, flat_chunk=self.flat_chunk,
-            query_bucket=self.query_bucket, kernel=self.kernel,
-            lissa_tune=self.lissa_tune, flat_accum=self.flat_accum,
-            sampled_cap=self.sampled_cap, sampled_tol=self.sampled_tol,
-            device=self.device,
-        )
-        kw.update(over)
-        return InfluenceEngine(self.model, self.params,
-                               RatingDataset(*self._train_host), **kw)
+        sharing this engine's device params and train tensors, index and
+        postings; its programs, bank and counters are its own."""
+        sib = copy.copy(self)
+        sib.solver = solver
+        sib.cache_dir = None
+        sib.params = dict(self.params)
+        sib._init_state()
+        return sib
 
     # -- flat segment-sum query path --------------------------------------
     @staticmethod
@@ -1137,13 +1134,6 @@ class InfluenceEngine:
                                   pad_to)
 
     # -- certified sampled rung ------------------------------------------------
-    def _sampled_fn(self, s_pad: int, stage: str = "scores"):
-        """The sampled rung's program (the flat program in ``sampled``
-        mode): ``fn(params, train_x, train_y, postings, tx, ws, m) ->
-        (scores, ihvp, v, err_bound)``. Run eagerly: its eigvalsh waits on
-        the card once a 64-query piece."""
-        return self._flat_fn(s_pad, stage, mode="sampled")
-
     def _count_escalations(self, reason: str, n: int) -> None:
         self._sampled_escalations[reason] = (
             self._sampled_escalations.get(reason, 0) + int(n))
@@ -1257,7 +1247,9 @@ class InfluenceEngine:
         counts, tx, ws, m, s_pad = self._sampled_inputs(test_points)
         pad = bucketed_pad(counts.max() if counts.size else 1,
                            self.pad_bucket, pad_to)
-        *out, err = self._sampled_fn(s_pad)(
+        # run eagerly, never captured: eigvalsh waits on the card once a
+        # 64-query piece
+        *out, err = self._flat_fn(s_pad, mode="sampled")(
             self.params, self.train_x, self.train_y, self._postings, tx, ws, m)
         res = self._assemble_packed(test_points, counts, out, pad)
         res.err_bound = err.cpu().numpy()[: len(test_points)]

@@ -260,6 +260,27 @@ class TestApproxSibling:
             assert _same_bytes(got.scores_of(t), direct.scores_of(t))
         assert np.array_equal(got.err_bound, direct.err_bound)
 
+    def test_sibling_shares_index_and_device_data(self, workload, tmp_path):
+        """A sibling reuses its parent's index, postings and device train
+        tensors; its programs, bank and counters are its own."""
+        model, params, x, y, pts, *_ = workload
+        eng = _engine(model, params, x, y, solver="precomputed",
+                      cache_dir=str(tmp_path), sampled_cap=CAP)
+        sib = eng.approx_sibling()
+        miss = eng._miss_delegate()
+        for other in (sib, miss):
+            assert other.index is eng.index
+            assert other._postings is eng._postings
+            assert other.train_x is eng.train_x
+            assert other.train_y is eng.train_y
+            assert other.params is not eng.params
+            assert all(other.params[k] is v for k, v in eng.params.items())
+            assert other._programs is not eng._programs
+            assert other._bank_delegate is None
+        sib.query_batch(pts[:2])
+        assert sib.sampled_stats()["queries"] == 2
+        assert eng.sampled_stats()["queries"] == 0
+
 
 # -- the certificate's plain version against the reference's -------------
 def _cert_inputs(seed=0, T=5, d=6, nan_row=None):
