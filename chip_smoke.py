@@ -7,7 +7,8 @@ Phases, each of which makes the script exit non-zero when it fails:
   1. require a CUDA device; print the card's name and power limit;
   2. build every CUDA kernel of the paths from the sources in the
      checkout (``mf_scores``, ``ncf_scores``, ``segment_hessian``,
-     ``segment_certificate``; one ``nvcc`` each, all started together);
+     ``segment_certificate``, ``block_eigmin``; one ``nvcc`` each, all
+     started together);
      print ``nvcc --version`` and
      each kernel instantiation's ``ptxas`` registers and spills;
   3. hold ``segment_hessian`` (two launches: the pieces, their
@@ -109,7 +110,7 @@ Phases, each of which makes the script exit non-zero when it fails:
      7d) go into the ``kernels`` line under ``launches_by_path``.
   8. the rest of the solver ladder at ML-1M shape, first MF, then NCF,
      under ``ladder`` in the ``perf`` line:
-     a. ``segment_certificate`` (three launches a call) against its
+     a. ``segment_certificate`` (two launches a call) against its
         plain version on the card (rtol 1e-5 plus 1e-6 of the output's
         largest entry, NaN and infinity where it is), on the sampled
         program's operands at T = 256 and 1024 and on synthetic
@@ -118,12 +119,30 @@ Phases, each of which makes the script exit non-zero when it fails:
         last segment; an infinite row that is not sampled, which must
         make its segment's σ̂ NaN); two launches the same bits; its ms
         by graph replay beside its bytes bound and the plain version;
+     g. ``block_eigmin`` (the sampled certificate's λ_min) on the
+        sampled program's H at T = 256 and 1024, and (once) on
+        synthetic blocks: diagonal, repeated eigenvalues, indefinite,
+        λ_min at the damping floor, and d = 18, 130, 514, 1,024. Each
+        block's λ_min bit for bit its plain version (run on the card)
+        and within ``EIG_C`` · d · eps · ‖H‖_F of float64 ``eigvalsh``
+        (the largest c seen, and each case's λ_min range beside its
+        bar, are printed); two launches the same bits; a block the same
+        bits in a batch of 1 and in the whole batch; ms by graph replay
+        beside its bound, the plain version and
+        ``torch.linalg.eigvalsh`` in pieces of 64 (the library call it
+        replaced, which the port no longer calls), at d = 514 and 1,024
+        too, with the device-memory scratch a 1024-query batch takes;
      b. ``segment_hessian`` under the sampled rung's weights n/m, on
         the sampled program's operands and on synthetic segments (m < n,
         m = 1): bit for bit the plain pieced form, and within the
         float64 bar;
-     c. the sampled rung (``solver="sampled"``, cap 64): each of its
-        kernels launched; |sampled − direct| <= err_bound + 1e-6 on at
+     c. the sampled rung (``solver="sampled"``, cap 64; one captured
+        CUDA graph a geometry): each of its kernels launched; a replayed
+        graph bitwise the eager program; no host wait while a dispatch
+        is queued (``torch.cuda.set_sync_debug_mode("error")``); on phase
+        4's small input the card against the CPU path, each query's
+        largest score error within ``CPU_RTOL`` of its largest |score|;
+        |sampled − direct| <= err_bound + 1e-6 on at
         least 99% of 1024 queries; at cap 1e6 bitwise the direct path
         with every bound 0; ``query_many`` at 1024, 256, 100 and 23 a
         batch bitwise one dispatch, scores and bounds; at a tolerance
@@ -131,11 +150,14 @@ Phases, each of which makes the script exit non-zero when it fails:
         lissa rung's (depth 200), each in its place; wall ms and
         scores/s (median of 5) beside direct, busy share and device ms
         by kernel, host waits a dispatch, ``sample_weights``' host ms;
+        each captured geometry's graph pool beside the eager program's
+        peak memory on the same batch;
      d. the factor bank: 1024 hot pairs built (time, Cholesky and
         inverse kinds, MB), published, loaded with nothing stale; on
         256 queries, half bank pairs, hits at Spearman >= 0.999 against
         direct, misses bitwise direct, a hit alone the same bits as in
-        the batch; all-hit batches of 256 and 1024 beside direct; a
+        the batch; all-hit batches of 256 and 1024 beside direct (and
+        the graph pools of the engines' sampled miss delegates); a
         user's row moved, ``refresh_bank`` drops exactly the entries it
         touches; the library calls' times (``cholesky_ex``, ``eigh``,
         the bank solve, ``eigvalsh`` in pieces of 64);
@@ -144,8 +166,9 @@ Phases, each of which makes the script exit non-zero when it fails:
         small input the card against the CPU at rtol 1e-4;
      f. ``FIAModel`` on phase 4's small input, trained 60 steps on the
         card: its influence bitwise the engine's.
-     The ``kernels`` line gains the ``segment_certificate`` row, and
-     each row's ``launches_by_path`` the sampled and bank paths.
+     The ``kernels`` line gains the ``segment_certificate`` and
+     ``block_eigmin`` rows, and each row's ``launches_by_path`` the
+     sampled and bank paths.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -206,6 +229,7 @@ from fia_tpu_torch.influence.engine import (STAGES, InfluenceEngine,
 from fia_tpu_torch.influence.full import FullInfluenceEngine
 from fia_tpu_torch.influence.kernels import certificate as kcert
 from fia_tpu_torch.influence.kernels import common
+from fia_tpu_torch.influence.kernels import eigmin as keig
 from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
 from fia_tpu_torch.influence.kernels import segment as kseg
@@ -340,9 +364,20 @@ FIDELITY_SHARE = 0.99
 # reference's (BOUND_RTOL): another Hessian order, another eigensolver
 SAMPLED_BOUND_RTOL = 1e-4
 SAMPLED_SPLITS = (1024, 256, 100, 23)
+# 8g, the certificate's λ_min kernel: each block bit for bit its plain
+# version and within EIG_C · d · eps · ‖H‖_F of float64 eigvalsh (eps the
+# float32 unit roundoff; the plain Jacobi measured within 0.1 of that on
+# the CPU against float64, tests/test_torch_eigmin.py, and the kernel
+# within 0.046 on the card); synthetic blocks of EIG_T each, EIG_WIDE_T at
+# the device-memory widths EIG_WIDE_D
+EIGMIN_SOURCE = "block_eigmin"
+EIGMIN_REPLACES = "fia_tpu/influence/engine.py:2504"
+EIG_C = 0.25
+EIG_T, EIG_WIDE_T, EIG_WIDE_D = 64, 2, (514, 1024)
 ESCALATE_T, ESCALATE_DEPTH = 64, 200
 BANK_ENTRIES, BANK_T, BANK_RHO = 1024, 256, 0.999
 FULL_MAXITER, FULL_RTOL, FULL_SMALL_DAMPING = 100, 1e-4, 1.0
+EPS32 = float(np.finfo(np.float32).eps)
 FACADE_STEPS = 60
 # the card (phase 7 names it once)
 CARD = "cuda"
@@ -2196,6 +2231,186 @@ def check_certificate(family: str, samp, pts, gen) -> dict:
     return out
 
 
+def lower_float64(H: torch.Tensor) -> np.ndarray:
+    """H's lower triangles mirrored, in float64 on the host (what
+    eigvalsh reads)."""
+    L = np.tril(H.double().cpu().numpy())
+    return L + np.swapaxes(np.tril(L, -1), 1, 2)
+
+
+def eigmin_hold(H: torch.Tensor, what: str, alone=None) -> dict:
+    """8g on one batch of blocks: the kernel's λ_min bit for bit its
+    plain version on the card (the same rotations in the same order),
+    and within EIG_C · d · eps · ‖H‖_F of float64 eigvalsh; two
+    launches the same bits; the blocks ``alone`` (default the first and
+    last) the same bits in a batch of 1. Returns the largest c seen
+    against float64, the ranges of λ_min and of the bar, and the first
+    launch's ms (events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = keig.block_eigmin(H)
+    end.record()
+    again = keig.block_eigmin(H)
+    torch.cuda.synchronize()
+    check(bits_equal(got, again), f"{what}: two launches differ")
+    T, d = H.shape[0], H.shape[-1]
+    for j in sorted({0, T - 1} if alone is None else set(alone)):
+        one = keig.block_eigmin(H[j: j + 1].contiguous())
+        check(bits_equal(one, got[j: j + 1]), f"{what}: block {j} alone "
+              f"differs from block {j} in the batch of {T}")
+    plain = keig.block_eigmin_reference(H)
+    check(bits_equal(got, plain), f"{what}: not bit for bit the plain "
+          "version")
+    exact = np.linalg.eigvalsh(lower_float64(H))[:, 0]
+    g = got.double().cpu().numpy()
+    diff = np.abs(g - plain.double().cpu().numpy())
+    unit = d * EPS32 * np.linalg.norm(
+        H.double().reshape(T, -1).cpu().numpy(), axis=1)
+    c_exact = float(np.max(np.abs(g - exact) / unit, initial=0.0))
+    check(c_exact <= EIG_C, f"{what}: beyond {EIG_C} d eps ||H||_F of "
+          f"float64 eigvalsh (c = {c_exact:.3e})")
+    return {"T": T, "d": d, "c_float64": c_exact,
+            "first_launch_ms": start.elapsed_time(end),
+            "max_abs_err": float(np.max(diff, initial=0.0,
+                                        where=~np.isnan(diff))),
+            "lambda_min_range": [float(np.min(g)), float(np.max(g))],
+            "bar_range": [float(EIG_C * unit.min()),
+                          float(EIG_C * unit.max())]}
+
+
+def eigmin_line(r: dict) -> str:
+    """One case of :func:`eigmin_hold` for the log."""
+    return (f"bit for bit the plain version; c = {r['c_float64']:.3e} "
+            f"against float64 (bar c = {EIG_C}); λ_min in "
+            f"[{r['lambda_min_range'][0]:.3e}, {r['lambda_min_range'][1]:.3e}]"
+            f", bar in [{r['bar_range'][0]:.3e}, {r['bar_range'][1]:.3e}]")
+
+
+def sampled_hessians(samp, pts, T: int) -> torch.Tensor:
+    """The damped H (T, d, d) of a T-query sampled dispatch, from the
+    sampled program's "hessian" prefix."""
+    _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T])
+    return samp._flat_fn(s_pad, "hessian", mode="sampled")(
+        samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws, m)
+
+
+def eigmin_bound_ms(H: torch.Tensor) -> tuple[float, str]:
+    """Least time an H100 could take for λ_min of ``H``: the lower
+    triangles read once (all the function reads) and T floats written,
+    against one tridiagonalisation's 4 d³ / 3 flops a block."""
+    T, d = H.shape[0], H.shape[-1]
+    return bound(4 * T * d * (d + 1) // 2 + 4 * T, T * 4.0 * d ** 3 / 3.0)
+
+
+def check_eigmin(family: str, samp, pts) -> dict:
+    """8g on the main path: ``block_eigmin`` on the sampled program's H
+    at every batch size (:func:`eigmin_hold`; at the largest, blocks 0,
+    1, T/2 and T - 1 alone), then its ms by graph replay at each, and at
+    the largest beside its bound, the plain version and the library call
+    it replaced (``eigvalsh`` in pieces of 64, events)."""
+    out = {"cases": {}, "ms": {}}
+    for T in BATCHES:
+        H = sampled_hessians(samp, pts, T)
+        r = eigmin_hold(H, f"block_eigmin {family} main path T={T}",
+                        alone=(0, 1, T // 2, T - 1))
+        out["cases"][str(T)] = r
+        out["ms"][str(T)] = graph_ms(lambda: keig.block_eigmin(H), iters=20)
+        log(f"block_eigmin {family} [main path T={T}] d={r['d']}: two "
+            f"launches the same bits, a block alone its bits in the batch; "
+            f"{eigmin_line(r)}; {out['ms'][str(T)]:.4f} ms (graph replay)")
+    ms = out["ms"][str(T)]
+    b_ms, b_by = eigmin_bound_ms(H)
+    out.update({
+        "plain_ms": time_ms(lambda: keig.block_eigmin_reference(H), iters=1,
+                            warmup=1),
+        "library_ms": time_ms(lambda: _in_pieces(
+            lambda h: torch.linalg.eigvalsh(h)[:, 0], H), iters=1, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+        "sweeps": keig.sweeps(H.shape[-1]),
+        "max_abs_err": max(r["max_abs_err"] for r in out["cases"].values()),
+        "c_max": max(r["c_float64"] for r in out["cases"].values()),
+        "shape": {"T": T, "d": H.shape[-1]}})
+    log(f"block_eigmin {family} T={T}: {ms:.4f} ms (graph replay), plain "
+        f"{out['plain_ms']:.2f} ms, eigvalsh in pieces of 64 "
+        f"{out['library_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.2f}% of bound")
+    return out
+
+
+def synthetic_blocks(kind: str, d: int, T: int, gen: torch.Generator
+                     ) -> torch.Tensor:
+    """(T, d, d) float32 blocks on the card: ``diagonal``; ``repeated``
+    (eigenvalues 1, 2, 5, each d/3 times); ``indefinite`` ((W + Wᵀ)/2);
+    ``floor`` (λ_min at DAMPING, the rest in [0.5, 2]); ``random`` (a
+    Gauss-Newton sum of 64 rows plus DAMPING, as the sampled H)."""
+    if kind == "diagonal":
+        return torch.diag_embed(torch.randn(T, d, generator=gen)).to(CARD)
+    if kind == "indefinite":
+        W = torch.randn(T, d, d, generator=gen)
+        return ((W + W.transpose(1, 2)) / 2).to(CARD)
+    if kind == "random":
+        G = torch.randn(T, 64, d, generator=gen, dtype=torch.float64) * 0.3
+        H = G.transpose(1, 2) @ G * (2 / 64) + DAMPING * torch.eye(
+            d, dtype=torch.float64)
+        return H.float().to(CARD)
+    Q = torch.linalg.qr(torch.randn(T, d, d, generator=gen,
+                                    dtype=torch.float64))[0]
+    if kind == "repeated":
+        lam = torch.tensor([1.0, 2.0, 5.0],
+                           dtype=torch.float64).repeat_interleave(
+            -(-d // 3))[:d]
+    else:  # floor
+        lam = torch.cat([torch.tensor([DAMPING], dtype=torch.float64),
+                         0.5 + 1.5 * torch.rand(d - 1, generator=gen,
+                                                dtype=torch.float64)])
+    return ((Q * lam) @ Q.transpose(1, 2)).float().to(CARD)
+
+
+def check_eigmin_synthetic() -> dict:
+    """8g on synthetic blocks (:func:`synthetic_blocks`), each kind at a
+    main-path width, random blocks at d = 18 and 130 (shared memory) and
+    at EIG_WIDE_D (device memory); the device-memory path's ms beside
+    ``eigvalsh`` in pieces of 64 on the same blocks, and the scratch a
+    batch of BATCHES[-1] blocks takes there."""
+    gen = torch.Generator().manual_seed(9)
+    cases = [("diagonal", 34, EIG_T), ("repeated", 64, EIG_T),
+             ("indefinite", 64, EIG_T), ("floor", 34, EIG_T),
+             ("random", 18, EIG_T), ("random", 130, EIG_T)]
+    cases += [("random", d, EIG_WIDE_T) for d in EIG_WIDE_D]
+    out = {}
+    for kind, d, T in cases:
+        H = synthetic_blocks(kind, d, T, gen)
+        name = f"{kind} d={d}"
+        r = out[name] = eigmin_hold(H, f"block_eigmin [{name}]",
+                                    alone=(0,) if d in EIG_WIDE_D else None)
+        if kind == "diagonal":
+            check(bits_equal(keig.block_eigmin(H),
+                             torch.diagonal(H, dim1=1, dim2=2).amin(1)),
+                  "block_eigmin: a diagonal block's λ_min is not its "
+                  "smallest diagonal entry")
+        if kind == "indefinite":
+            check(bool((keig.block_eigmin(H) < 0).all()),
+                  "block_eigmin: an indefinite block's λ_min is not < 0")
+        wide = ""
+        if d in EIG_WIDE_D:
+            n = keig.padded_size(d)
+            r.update({
+                "ms": r["first_launch_ms"],
+                "library_ms": time_ms(lambda: _in_pieces(
+                    lambda h: torch.linalg.eigvalsh(h)[:, 0], H), iters=1,
+                    warmup=1),
+                "scratch_mb_at_T": {str(BATCHES[-1]):
+                                    BATCHES[-1] * n * n * 4 / 2 ** 20}})
+            wide = (f"; {r['ms']:.1f} ms, eigvalsh in pieces of 64 "
+                    f"{r['library_ms']:.1f} ms ({r['ms'] / r['library_ms']:.1f}"
+                    f"x); scratch at T={BATCHES[-1]} "
+                    f"{r['scratch_mb_at_T'][str(BATCHES[-1])]:.0f} MiB")
+        log(f"block_eigmin [{name}] T={T}: two launches the same bits, a "
+            f"block alone its bits in the batch; {eigmin_line(r)}{wide}")
+    return out
+
+
 def check_segment_ht(family: str, samp, pts, gen) -> dict:
     """8b: ``segment_hessian`` on the sampled program's operands (weights
     wv·n/m) at every batch size, and on synthetic segments with weights
@@ -2232,14 +2447,15 @@ def check_segment_ht(family: str, samp, pts, gen) -> dict:
 
 
 def reset_counts() -> None:
-    for m in (*KERNEL_MODULES.values(), kseg, kcert):
+    for m in (*KERNEL_MODULES.values(), kseg, kcert, keig):
         m.launches = 0
 
 
 def launch_counts() -> dict:
     return {name: m.launches for name, m in
             (*((SOURCES[f], m) for f, m in KERNEL_MODULES.items()),
-             (SEGMENT_SOURCE, kseg), (CERT_SOURCE, kcert))}
+             (SEGMENT_SOURCE, kseg), (CERT_SOURCE, kcert),
+             (EIGMIN_SOURCE, keig))}
 
 
 def host_waits(fn) -> int:
@@ -2288,6 +2504,16 @@ def sampled_small(family: str, model) -> dict:
           f"{family} sampled, small input: no query was sampled")
     parity = compare_results(on_card, on_cpu, f"{family} sampled card vs "
                              "CPU (small)", CPU_RTOL, CPU_ATOL, CPU_RHO_MIN)
+    # each query's largest score error as a share of its largest |score|
+    share = max((float(np.max(np.abs(on_card.scores_of(t)
+                                     - on_cpu.scores_of(t))))
+                 / float(np.max(np.abs(on_cpu.scores_of(t))))
+                 for t in range(len(tq))
+                 if on_cpu.counts[t] and np.any(on_cpu.scores_of(t))),
+                default=0.0)
+    check(share <= CPU_RTOL, f"{family} sampled card vs CPU (small): a "
+          f"query's largest score error is {share:.3e} of its largest "
+          f"|score|, want <= {CPU_RTOL}")
     a, b = on_card.err_bound.astype(np.float64), on_cpu.err_bound
     check(np.array_equal(a == 0, b == 0), f"{family} sampled card vs CPU "
           "(small): exact (bound 0) queries differ")
@@ -2296,9 +2522,11 @@ def sampled_small(family: str, model) -> dict:
           f"bounds differ by {rel:.3e} relative, want <= "
           f"{SAMPLED_BOUND_RTOL}")
     log(f"{family} sampled cap={SAMPLED_CAP}, small input ({sampled} of "
-        f"{len(tq)} queries sampled): card vs CPU {parity}; bounds within "
+        f"{len(tq)} queries sampled): card vs CPU {parity}; scores within "
+        f"{share:.3e} of each query's largest |score|; bounds within "
         f"{rel:.3e} relative")
-    return {**parity, "sampled_queries": sampled, "bound_max_rel_err": rel}
+    return {**parity, "sampled_queries": sampled, "bound_max_rel_err": rel,
+            "max_err_of_query_max_abs": share}
 
 
 def drive_sampled(family: str, eng, train, pts) -> dict:
@@ -2308,9 +2536,68 @@ def drive_sampled(family: str, eng, train, pts) -> dict:
     reset_counts()
     res = {T: samp.query_batch(pts[:T]) for T in BATCHES}
     launches = launch_counts()
-    for name in (SOURCES[family], SEGMENT_SOURCE, CERT_SOURCE):
+    for name in (SOURCES[family], SEGMENT_SOURCE, CERT_SOURCE,
+                 EIGMIN_SOURCE):
         check(launches[name] > 0, f"the {family} sampled rung never "
               f"launched {name}")
+    # a replayed graph is the eager program, bit for bit
+    T0 = BATCHES[0]
+    _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T0])
+    eager = [o.cpu().numpy() for o in samp._flat_fn(s_pad, mode="sampled")(
+        samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws, m)]
+    r0, total0 = res[T0], int(res[T0].counts.sum())
+    check(r0._packed.tobytes() == eager[0][:total0].tobytes()
+          and r0.ihvp.tobytes() == eager[1][:T0].tobytes()
+          and r0.test_grad.tobytes() == eager[2][:T0].tobytes()
+          and r0.err_bound.tobytes() == eager[3][:T0].tobytes(),
+          f"{family} sampled: a replayed graph differs from the eager "
+          "program")
+    # no host wait while a dispatch is queued (the geometries are warm)
+    enqueue = samp._enqueue_sampled
+
+    def checked(points):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return enqueue(points)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    samp._enqueue_sampled = checked
+    try:
+        for T in BATCHES:
+            got = samp.query_batch(pts[:T])
+            check(got._packed.tobytes() == res[T]._packed.tobytes()
+                  and got.err_bound.tobytes() == res[T].err_bound.tobytes(),
+                  f"{family} sampled T={T}: a dispatch under sync debug "
+                  "mode differs")
+    finally:
+        del samp._enqueue_sampled
+    check(not samp.sampled_stats()["escalations"], f"{family} sampled: "
+          f"escalations {samp.sampled_stats()['escalations']}")
+    log(f"{family} sampled: a replayed graph bitwise the eager program "
+        f"(T={T0}); no host wait while a dispatch is queued "
+        f"(set_sync_debug_mode('error'), T={BATCHES}); captured geometries "
+        f"{len(samp.compiled_geometries()['jit'])}")
+    # memory: each sampled geometry's graph pool (held for the engine's
+    # life) beside the eager program's peak on the same batch (what the
+    # uncaptured program took at once, then gave back to the allocator)
+    eager_peak_mb = {}
+    for T in BATCHES:
+        _, tx, ws, m, s_pad = samp._sampled_inputs(pts[:T])
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs = samp._flat_fn(s_pad, mode="sampled")(
+            samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws, m)
+        torch.cuda.synchronize()
+        eager_peak_mb[str(T)] = (torch.cuda.max_memory_allocated()
+                                 - base) / 2 ** 20
+        del outs
+    graphs = graph_inventory(samp)
+    log(f"{family} sampled graphs: pools {graphs['pool_mb']} MiB "
+        f"({sum(graphs['pool_mb']):.1f} in all) for {graphs['geometries']} "
+        f"geometries; the eager program's peak "
+        f"{ {k: round(v, 1) for k, v in eager_peak_mb.items()} } MiB")
     direct = {T: eng.query_batch(pts[:T]) for T in BATCHES}
     T = BATCHES[-1]
     r, dr = res[T], direct[T]
@@ -2404,10 +2691,13 @@ def drive_sampled(family: str, eng, train, pts) -> dict:
     sw_ms = (time.perf_counter() - t0) * 1e3
     log(f"{family} sample_weights on the host, T={T}: {sw_ms:.2f} ms")
     return {"launches": launches, "fidelity_share": share,
+            "replay_vs_eager": "bitwise equal",
+            "host_waits_while_queued": 0,
             "bound_median": float(np.median(r.err_bound)),
             "typical_max_abs_score": typical, "small_card_vs_cpu": small,
             "escalated": int(len(over)), "times": times,
-            "sample_weights_host_ms": sw_ms}
+            "sample_weights_host_ms": sw_ms, "graphs": graphs,
+            "eager_peak_mb": eager_peak_mb}
 
 
 def library_times(eng, H, v) -> dict:
@@ -2451,6 +2741,11 @@ def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
              "inverse": int((bank.kind == fbank.KIND_INVERSE).sum())}
     log(f"{family} bank: {len(bank)} entries built in {build_s:.2f} s "
         f"({kinds}), {bank.factor.nbytes / 1e6:.1f} MB")
+    # the hot blocks for the library calls' times, taken now: the eager
+    # Hessian of 512 hot queries (~10M rows) needs several GB, which the
+    # graphs captured below for the all-hit batches hold later
+    H_hot = builder.block_hessians(bank.pairs[:BATCHES[-1]].astype(np.int64),
+                                   batch_queries=512)
     # misses fall through the sampled rung at a cap above every count:
     # bitwise the direct path
     pre = ladder_engine(eng, train, solver="precomputed", cache_dir=workdir,
@@ -2512,7 +2807,11 @@ def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
         f"{mixed_ms['default_cap']:.2f} ms at the default cap "
         f"{sampled_mod.DEFAULT_CAP}, {mixed_ms['cap_1e6']:.2f} ms at cap "
         f"1e6, direct {mixed_ms['direct']:.2f} ms")
-    times = {"mixed": mixed_ms}
+    # the sampled graphs each precomputed engine's miss delegate holds
+    miss_graphs = {"default_cap": graph_inventory(dflt._miss_delegate()),
+                   "cap_1e6": graph_inventory(pre._miss_delegate())}
+    log(f"{family} bank miss delegates' sampled graphs: {miss_graphs}")
+    times = {"mixed": mixed_ms, "miss_delegate_graphs": miss_graphs}
     hot = bank.pairs.astype(np.int64)
     for T in BATCHES:
         q = hot[:T]
@@ -2547,8 +2846,7 @@ def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
     check(out == {"kept": int((~stale).sum()), "dropped": int(stale.sum())},
           f"{family} bank refresh {out}, want dropped {int(stale.sum())}")
     log(f"{family} bank refresh after user {u0}'s row moved: {out}")
-    H = builder.block_hessians(hot[:BATCHES[-1]], batch_queries=512)
-    Hd = torch.as_tensor(H).to(CARD)
+    Hd = torch.as_tensor(H_hot).to(CARD)
     v = torch.randn(Hd.shape[0], Hd.shape[1], device=CARD)
     lib = library_times(eng, Hd, v)
     log(f"{family} library calls at T={Hd.shape[0]}: {lib}")
@@ -2633,11 +2931,13 @@ def drive_ladder(engines, train, pts) -> dict:
                                  sampled_cap=SAMPLED_CAP)
             out[family] = {
                 "certificate": check_certificate(family, samp, pts, gen),
+                "eigmin": check_eigmin(family, samp, pts),
                 "segment_ht": check_segment_ht(family, samp, pts, gen),
                 "sampled": drive_sampled(family, eng, train, pts),
                 "bank": drive_bank(family, eng, train, pts, workdir),
             }
             torch.cuda.empty_cache()
+        out["eigmin_synthetic"] = check_eigmin_synthetic()
         out["full"] = drive_full(train, pts)
         out["facade"] = drive_facade(workdir)
     return out
@@ -2656,7 +2956,8 @@ def main() -> int:
     # -- phase 2: build --------------------------------------------------
     build = {"nvcc": nvcc_version(), "seconds": {}, "ptxas": {}}
     log(f"nvcc: {build['nvcc']}")
-    secs = common.build([*SOURCES.values(), SEGMENT_SOURCE, CERT_SOURCE])
+    secs = common.build([*SOURCES.values(), SEGMENT_SOURCE, CERT_SOURCE,
+                         EIGMIN_SOURCE])
     for name, s in secs.items():
         log(f"build {name}: {s:.2f} s")
         build["seconds"][name] = s
@@ -2833,6 +3134,31 @@ def main() -> int:
         "ptxas": build["ptxas"][CERT_SOURCE],
         "launches_by_path": {
             path: {f: ladder[f][path]["launches"][CERT_SOURCE]
+                   for f in engines} for path in ("sampled", "bank")},
+    })
+    # the λ_min kernel's row: NCF's (d = 64) times at T = 1024, MF's
+    # beside them; launches of both models' sampled rungs (one a call)
+    eig = ladder["ncf"]["eigmin"]
+    rows.append({
+        "name": EIGMIN_SOURCE,
+        "route": "cuda",
+        "source": f"fia_tpu_torch/influence/kernels/csrc/{EIGMIN_SOURCE}.cu",
+        "replaces": EIGMIN_REPLACES,
+        "launches": sum(ladder[f]["sampled"]["launches"][EIGMIN_SOURCE]
+                        for f in engines),
+        "max_abs_err": max(ladder[f]["eigmin"]["max_abs_err"]
+                           for f in engines),
+        "c_max": max(ladder[f]["eigmin"]["c_max"] for f in engines),
+        "launches_per_call": keig.LAUNCHES_PER_CALL,
+        "ms": eig["ms"][str(BATCHES[-1])], "plain_ms": eig["plain_ms"],
+        "bound_ms": eig["bound_ms"], "bound_by": eig["bound_by"],
+        "library_ms": eig["library_ms"],
+        "shape": eig["shape"],
+        "mf": ladder["mf"]["eigmin"],
+        "synthetic": ladder["eigmin_synthetic"],
+        "ptxas": build["ptxas"][EIGMIN_SOURCE],
+        "launches_by_path": {
+            path: {f: ladder[f][path]["launches"][EIGMIN_SOURCE]
                    for f in engines} for path in ("sampled", "bank")},
     })
     perf["phase8_seconds"] = time.perf_counter() - t8

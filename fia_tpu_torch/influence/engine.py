@@ -37,9 +37,10 @@ from resident CSR postings:
   graph, and every stage's bits depend only on the query's own rows, so
   any batch split gives the same bits as one dispatch. Two rungs of the
   solver ladder run the same stages: ``precomputed`` takes each banked
-  query's iHVP from its factor in place of stages 3-4 (a captured graph
-  too), and ``sampled`` weights the Hessian's rows by a per-query sample
-  and adds a certificate (``kernels/certificate.py``), eagerly;
+  query's iHVP from its factor in place of stages 3-4, and ``sampled``
+  weights the Hessian's rows by a per-query sample and adds a
+  certificate (``kernels/certificate.py``, ``kernels/eigmin.py``), each
+  a captured graph a geometry too;
 
 - padded (every other configuration: cg, lissa, schulz,
   ``impl="padded"``, ``hessian_mode="autodiff"``, ``group_queries``,
@@ -75,6 +76,7 @@ from fia_tpu_torch.influence import sampled as sampled_mod
 from fia_tpu_torch.influence import solvers, spectral
 from fia_tpu_torch.influence.kernels import certificate as Kcert
 from fia_tpu_torch.influence.kernels import common as Kc
+from fia_tpu_torch.influence.kernels import eigmin as Keig
 from fia_tpu_torch.influence.kernels import segment as Kseg
 from fia_tpu_torch.reliability import inject, policy, sites, taxonomy
 from fia_tpu_torch.utils import compilemon
@@ -239,6 +241,17 @@ def _in_pieces(fn, *xs):
     return torch.cat(outs)[:n]
 
 
+def _to_host(outs) -> list[np.ndarray]:
+    """Float32 device tensors as host arrays, in one transfer (one host
+    wait, where a fetch each would wait once a tensor)."""
+    flat = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
+    parts, at = [], 0
+    for o in outs:
+        parts.append(flat[at: at + o.numel()].reshape(tuple(o.shape)))
+        at += o.numel()
+    return parts
+
+
 @contextlib.contextmanager
 def capturing(graph):
     """``torch.cuda.graph(graph)`` with Python's cyclic collector paused.
@@ -258,21 +271,26 @@ def capturing(graph):
 class _FlatGraph:
     """One flat program geometry captured as a CUDA graph.
 
-    The capture runs the program once eagerly on a side stream (kernel
-    builds, library handles), then records it on a static (t_pad, 2)
-    query block. A call copies the query block in, replays the graph and
-    copies the outputs out, all on the current stream, so the host never
-    waits and a later replay cannot overwrite outputs still in flight.
-    Each replay adds the kernel launches the graph holds to the kernel
-    modules' counts (the wrappers count nothing while capturing)."""
+    ``inputs`` gives the shape and dtype of each per-dispatch input the
+    program takes after ``args``: the (t_pad, 2) query block (3 wide for
+    the bank program), and for the sampled program the (s_pad,) sample
+    weights and (t_pad,) sample sizes too. The capture runs the program
+    once eagerly on a side stream (kernel builds, library handles), on
+    zeroed static inputs (the query (0, 0), bank row 0, no row sampled:
+    valid everywhere), then records it on the same static inputs. A call
+    copies each input in, replays the graph and copies the outputs out,
+    all on the current stream, so the host never waits and a later
+    replay cannot overwrite outputs still in flight. Each replay adds
+    the kernel launches the graph holds to the kernel modules' counts
+    (the wrappers count nothing while capturing)."""
 
-    def __init__(self, fn, args, t_pad: int, device, width: int = 2):
-        self.tx = torch.zeros((t_pad, width), dtype=torch.int32,
-                              device=device)
+    def __init__(self, fn, args, inputs, device):
+        self.inputs = tuple(torch.zeros(shape, dtype=dtype, device=device)
+                            for shape, dtype in inputs)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
-            fn(*args, self.tx)  # the query (0, 0) (bank row 0): valid ids
+            fn(*args, *self.inputs)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
@@ -281,14 +299,15 @@ class _FlatGraph:
         self.graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         with capturing(self.graph):
-            self.out = fn(*args, self.tx)
+            self.out = fn(*args, *self.inputs)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.launches = tuple(b - a for a, b in zip(captured,
                                                     K.captured_counts()))
 
-    def __call__(self, tx):
-        self.tx.copy_(tx, non_blocking=True)
+    def __call__(self, *inputs):
+        for static, x in zip(self.inputs, inputs, strict=True):
+            static.copy_(x, non_blocking=True)
         self.graph.replay()
         K.count_replay(self.launches)
         return tuple(o.clone() for o in self.out)
@@ -674,14 +693,12 @@ class InfluenceEngine:
 
             # the certificate: the sample deviation of the per-row Hessian
             # action on the solved vector, pushed through the inverse by
-            # λ_min(H) and through the score form (influence/sampled.py)
+            # λ_min(H) and through the score form (influence/sampled.py);
+            # λ_min by the Jacobi kernel, a block a matrix, from H's lower
+            # triangle as eigvalsh reads it: split invariant, no host wait
             sigma, gmax, wmax = Kcert.segment_certificate(
                 g, t, ihvp, Cx, wv, ws, abe, e, off, msz)
-            # eigvalsh in pieces of 64 (its batched library path may
-            # change bits with the batch); its info check waits on the
-            # card once a piece, which keeps this program out of capture
-            lam = torch.clamp(_in_pieces(
-                lambda h: torch.linalg.eigvalsh(h)[:, 0], H), min=damping)
+            lam = torch.clamp(Keig.block_eigmin(H), min=damping)
             err_ihvp = sampled_mod.ihvp_error_bound(sigma, msz, counts, lam)
             regnorm = torch.sqrt(_padded_rowsum(
                 torch.square(theta * rdiag[None])))
@@ -762,27 +779,30 @@ class InfluenceEngine:
         }
 
     def _build_flat(self, t_pad: int, s_pad: int, mode: str = "direct"):
-        """One geometry's program as ``run(tx) -> (scores, ihvp, v)``
-        (``mode`` "direct" or "bank"): on the card a captured CUDA graph
-        (raising with the cause if the program cannot be captured), on
-        the CPU the program closure. Each build is counted by
-        :mod:`fia_tpu_torch.utils.compilemon`."""
+        """One geometry's program: ``run(tx) -> (scores, ihvp, v)``
+        (``mode`` "direct" or "bank"), ``run(tx, ws, m) -> (scores,
+        ihvp, v, err_bound)`` ("sampled"). On the card a captured CUDA
+        graph (raising with the cause if the program cannot be
+        captured), on the CPU the program closure. Each build is counted
+        by :mod:`fia_tpu_torch.utils.compilemon`."""
         fn = self._flat_fn(s_pad, mode=mode)
         args = (self.params, self.train_x, self.train_y, self._postings)
-        width = 2
+        inputs = [((t_pad, 2), torch.int32)]
         if mode == "bank":
             inner = fn
             args += self._bank_device
-            width = 3
+            inputs = [((t_pad, 3), torch.int32)]
 
             def fn(params, train_x, train_y, postings, bfac, bknd, tx):
                 return inner(params, train_x, train_y, postings, tx, bfac,
                              bknd)
+        elif mode == "sampled":
+            inputs += [((s_pad,), torch.float32), ((t_pad,), torch.int32)]
         compilemon.record()
         if self.device.type != "cuda":
-            return lambda tx: fn(*args, tx)
+            return lambda *xs: fn(*args, *xs)
         try:
-            return _FlatGraph(fn, args, t_pad, self.device, width)
+            return _FlatGraph(fn, args, inputs, self.device)
         except Exception as e:
             raise RuntimeError(
                 f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
@@ -853,11 +873,13 @@ class InfluenceEngine:
 
     def _assemble_packed(self, test_points, counts, out, pad: int,
                          iterations: int | None = None) -> InfluenceResult:
-        """Fetch the packed outputs ``(packed, ihvp, v)`` to the host and
-        wrap them as a packed result. Query-axis pad rows slice away
-        here; their flat rows already sit past the real total in the
-        packed scores."""
-        packed, ihvp, v = (o.cpu().numpy() for o in out)
+        """Fetch a dispatch's outputs ``(packed, ihvp, v)``, and the
+        sampled program's ``err_bound`` after them, to the host in one
+        transfer (:func:`_to_host`: the dispatch's one read) and wrap
+        them as a packed result. Query-axis pad rows slice away here;
+        their flat rows already sit past the real total in the packed
+        scores."""
+        packed, ihvp, v, *err = _to_host(out)
         T = int(np.asarray(counts).shape[0])
         total = int(counts.sum())
         # the payload seam every rung shares (the fetched iHVP host buffer)
@@ -871,6 +893,8 @@ class InfluenceEngine:
             index=self.index,
             pad=pad,
             iterations=iterations,
+            err_bound=err[0][:T] if err else None,
+            approx=bool(err),
         )
 
     def _query_flat(self, test_points: np.ndarray,
@@ -1241,20 +1265,23 @@ class InfluenceEngine:
         return (counts, self._upload(tx_np.astype(np.int32)),
                 self._upload(ws), self._upload(m), s_pad)
 
-    def _dispatch_sampled(self, test_points: np.ndarray,
-                          pad_to: int | None) -> InfluenceResult:
+    def _enqueue_sampled(self, test_points: np.ndarray):
+        """Queue one sampled dispatch: ``(counts, (scores, ihvp, v,
+        err_bound))`` on the device. The program of the dispatch's
+        ``(t_pad, s_pad)`` geometry (a captured CUDA graph on the card,
+        as the reference jit-compiles ``_sampled_fn`` once a geometry)
+        replays on the current stream; the host never waits here."""
         inject.fire(sites.ENGINE_SAMPLED_SOLVE)
         counts, tx, ws, m, s_pad = self._sampled_inputs(test_points)
+        return counts, self._flat_exec(tx.shape[0], s_pad, "sampled")(
+            tx, ws, m)
+
+    def _dispatch_sampled(self, test_points: np.ndarray,
+                          pad_to: int | None) -> InfluenceResult:
+        counts, out = self._enqueue_sampled(test_points)
         pad = bucketed_pad(counts.max() if counts.size else 1,
                            self.pad_bucket, pad_to)
-        # run eagerly, never captured: eigvalsh waits on the card once a
-        # 64-query piece
-        *out, err = self._flat_fn(s_pad, mode="sampled")(
-            self.params, self.train_x, self.train_y, self._postings, tx, ws, m)
-        res = self._assemble_packed(test_points, counts, out, pad)
-        res.err_bound = err.cpu().numpy()[: len(test_points)]
-        res.approx = True
-        return res
+        return self._assemble_packed(test_points, counts, out, pad)
 
     # -- padded per-query path -------------------------------------------
     def _solve_blocks(self, params, u, i, rel_x, rel_y, w, v):

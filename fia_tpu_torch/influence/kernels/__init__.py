@@ -23,13 +23,14 @@ from __future__ import annotations
 import torch
 
 from fia_tpu_torch.influence.kernels import certificate as _certificate
+from fia_tpu_torch.influence.kernels import eigmin as _eigmin
 from fia_tpu_torch.influence.kernels import mf as _mf
 from fia_tpu_torch.influence.kernels import ncf as _ncf
 from fia_tpu_torch.influence.kernels import segment as _segment
 
 VARIANTS = ("cuda", "torch")
 #: every module holding a hand-written kernel, with its launch counts
-KERNEL_MODULES = (_mf, _ncf, _segment, _certificate)
+KERNEL_MODULES = (_mf, _ncf, _segment, _certificate, _eigmin)
 
 #: kernel_family -> the module of its CUDA kernel and plain version
 _CUDA_FAMILIES = {"mf": _mf, "ncf": _ncf}

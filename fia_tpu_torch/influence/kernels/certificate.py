@@ -19,9 +19,9 @@ as the reference's multiply by the 0/1 mask does; the engine's NaN ladder
 then handles the payload.
 
 The kernel's order depends only on a segment's own rows: pieces of
-:data:`CERT_PIECE_ROWS` rows from the segment's start, each walked in row
-order by one warp, the partials added in piece order; so a query's bound
-is the same bits in any batch. The plain version (the CPU path, and the
+:data:`CERT_PIECE_ROWS` rows from the segment's start, one block each,
+combined in piece order by a second launch; so a query's bound is the
+same bits in any batch. The plain version (the CPU path, and the
 kernel's reference on the card) does the same arithmetic in another
 order: each dot a column loop (elementwise, the same bits on any device),
 the segment sums a row-order scatter on the CPU (on CUDA ``index_add_``
@@ -48,17 +48,20 @@ from fia_tpu_torch.influence.kernels import common
 from fia_tpu_torch.influence.kernels import segment as Kseg
 
 #: launches of the CUDA kernels by :func:`segment_certificate` in this
-#: process (three a call: the sums, the deviations, σ̂), and launches
-#: recorded into CUDA graphs (:func:`common.count_launch`)
+#: process (two a call: the pieces, then each segment's combination), and
+#: launches recorded into CUDA graphs (:func:`common.count_launch`)
 launches = 0
 captured = 0
-LAUNCHES_PER_CALL = 3
+LAUNCHES_PER_CALL = 2
 
 #: rows of a piece: a constant, so a segment's order follows its own rows
-CERT_PIECE_ROWS = 128
+CERT_PIECE_ROWS = 256
 MAX_D = 1024
+#: a piece slot's scalars: M2 about the piece's mean, sampled count,
+#: gmax, wmax
+SLOT_STATS = 4
 
-_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_longlong, ctypes.c_int,
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_longlong,
                                       ctypes.c_void_p]
 
@@ -143,7 +146,7 @@ def _check(g, ihvp, Cx, wv, ws, abe, e, off, m) -> None:
 
 def segment_certificate(g, t, ihvp, Cx, wv, ws, abe, e, off, m):
     """``(sigma, gmax, wmax)`` of every segment. CUDA tensors launch the
-    kernel's three passes on the current stream, which read ``off`` (or
+    kernel's two passes on the current stream, which read ``off`` (or
     raise); CPU tensors take the plain version over ``t``."""
     if g.device.type == "cpu":
         return segment_certificate_reference(g, t, ihvp, Cx, wv, ws, abe, e,
@@ -159,9 +162,8 @@ def segment_certificate(g, t, ihvp, Cx, wv, ws, abe, e, off, m):
         return tuple(out)
     slots = scratch_slots(S, T)
     part = torch.empty((slots, d), dtype=torch.float32, device=g.device)
-    part_gm, part_wm, part_ss = (
-        torch.empty((slots,), dtype=torch.float32, device=g.device)
-        for _ in range(3))
+    part_s = torch.empty((slots, SLOT_STATS), dtype=torch.float32,
+                         device=g.device)
     fn = common.load_function("segment_certificate",
                               "fia_segment_certificate", _ARGTYPES)
     with torch.cuda.device(g.device):
@@ -169,8 +171,7 @@ def segment_certificate(g, t, ihvp, Cx, wv, ws, abe, e, off, m):
         rc = fn(g.data_ptr(), ihvp.data_ptr(), Cx.data_ptr(), wv.data_ptr(),
                 ws.data_ptr(), abe.data_ptr(), e.data_ptr(), off.data_ptr(),
                 m.data_ptr(), *(o.data_ptr() for o in out), part.data_ptr(),
-                part_gm.data_ptr(), part_wm.data_ptr(), part_ss.data_ptr(),
-                S, T, d, CERT_PIECE_ROWS, stream)
+                part_s.data_ptr(), S, T, d, CERT_PIECE_ROWS, stream)
     if rc != 0:
         raise RuntimeError(f"segment_certificate kernel launch failed: "
                            f"cudaError {rc}")

@@ -19,41 +19,57 @@
 //   wmax_t  = max(0, max_s wv_s)
 // A non-finite h on any row, sampled or not, makes mu_t and so sigma_t NaN,
 // as the reference's multiply by the 0/1 mask does; a NaN in the maxima
-// propagates as the reference's max does.
+// propagates as the reference's max does; an empty segment gives 0; rows
+// past the last segment belong to none.
 //
-// The order, and why a query's bits do not follow its batch. A segment's
-// rows are cut into pieces of P rows counted from the segment's own start
-// (P = the wrapper's CERT_PIECE_ROWS, a constant). One warp walks a piece
-// in row order. A row's dots are each lane's columns (lane, lane + 32, ...)
-// summed in column order, then a xor butterfly over the warp, which leaves
-// every lane the same bits; each column's partial adds the rows in row
-// order. Piece partials go to a scratch slot each and are added in piece
-// order. Every multiply and add rounds on its own (__fmul_rn / __fadd_rn:
-// no contraction into an FMA). Nothing of that order depends on T, S or
-// where the segment sits on the flat axis. No atomics: each output and
-// scratch entry has one writer.
+// Design. Two launches, no atomics: each output and scratch entry has one
+// writer.
+//  1. cert_pieces_kernel, one block a piece slot. A segment's rows are cut
+//     into pieces of P rows counted from its own start (P = the wrapper's
+//     CERT_PIECE_ROWS, a constant); piece q of segment t sits in slot
+//     floor(off[t] / P) + t + q, so the pieces of every segment make one flat
+//     list of work items, below floor(S / P) + T + 1. A block finds its
+//     segment by a block-wide search over off (__syncthreads_count, two or
+//     three steps at T <= 65,536; no host read, so the call can be captured
+//     in a CUDA graph); a slot where no piece starts exits. The longest
+//     related set (85,904 rows at ML-1M shape) spreads over 336 blocks on
+//     all 132 SMs, where one segment's 64 warps walked it before. A row has
+//     G lanes (G = 8 at d <= 64, several rows a warp; 32 above), each lane
+//     its columns lane, lane + G, ...; a row's dots g . ihvp and g . g are
+//     each lane's columns in column order, then a log2(G)-step xor butterfly
+//     within the row's lanes (every lane ends with the same bits). The 128
+//     threads make 128 / G row groups; group k walks the piece's rows k,
+//     k + 128 / G, ... in order, and the groups' column sums are added in
+//     group order. The block writes the piece's sum of mask h (d values),
+//     its sampled count c_q, its maxima, and M2_q, the sum over its sampled
+//     rows of || h - S_q / c_q ||^2: a second walk over the piece's sampled
+//     rows only, which are still in L1/L2.
+//  2. cert_combine_kernel, one block a segment: mu = (sum of the pieces'
+//     sums in piece order) / max(m, 1), each column's pieces cut into fixed
+//     chunks summed in order, then the chunks in order; then
+//       ss = sum_q (M2_q + c_q || S_q / c_q - mu ||^2)
+//     over the pieces with c_q > 0, in piece order (each piece's term a
+//     column-order dot), which is sum over sampled rows of ||h - mu||^2
+//     exactly in real arithmetic; NaN if any entry of mu is not finite.
+//     sigma = sqrt(ss / max(m - 1, 1)); the maxima over the pieces (exact in
+//     any order).
+// Every multiply and add rounds on its own (__fmul_rn / __fadd_rn: no
+// contraction into an FMA). The order of every sum depends only on the
+// segment's own rows (pieces from its start, rows and groups within a
+// piece, chunks a function of its piece count), never on T, S or where the
+// segment sits, so a query's bound is the same bits in any batch. The plain
+// version (kernels/certificate.py) takes the reference's two-pass order:
+// kernel against plain is a tolerance comparison.
 //
-// Design. Three launches.
-//  1. cert_sums_kernel, grid (segment, 8): the 64 warps of a segment take
-//     its pieces in turn (piece q to warp q mod 64); a warp holds ihvp_t
-//     and Cx_t for its columns in registers, walks the piece's rows (each
-//     row read once, coalesced), and writes the piece's sum of mask h and
-//     its maxima to slot floor(off[t] / P) + t + q.
-//  2. cert_dev_kernel, same grid: each warp adds the segment's partials in
-//     piece order into mu for its columns; warp 0 of block 0 writes gmax
-//     and wmax. When mu is finite the unsampled rows add exact zeros to ss,
-//     so a warp walks only the sampled rows of its pieces (a ballot over 32
-//     rows' ws at a time, the set rows in row order): the pass reads g for
-//     m_t rows, not n_t. A non-finite mu writes NaN partials.
-//  3. cert_sigma_kernel, a thread a segment: ss in piece order, sigma.
-//
-// Bound on an H100. Each input read once: g (S d floats), the five (S,)
-// row vectors, ihvp and Cx (T d), off and m; three (T,) outputs. At ML-1M
-// shape, k = 16, T = 1024 (about 348,000 rows, d = 34 / 64): 53 / 95 MB,
-// 16 / 28 us at 3.35 TB/s; about 6 S d flops, far below the float32 rate:
-// bound by bytes. What holds it above that: each row is one warp-wide step
-// with two five-step butterflies (gx and g.g) and only one or two columns a
-// lane at d <= 64, so the walk issues many instructions a byte.
+// Bound on an H100. Each input read once: g (S d floats) and the four row
+// vectors over the rows inside segments, ihvp and Cx (T d), off and m;
+// three (T,) outputs. At ML-1M shape, k = 16, T = 1024 (348,499 rows, d =
+// 34 / 64): 53 / 95 MB, 16 / 28 us at 3.35 TB/s; about 10 S d flops, far
+// below the float32 rate: bound by bytes. The first walk reads each row once,
+// coalesced, with ceil(d / 8) loads a lane and a three-step butterfly a row
+// at d <= 64 (the earlier, warp-a-row design spent a 32-lane row step and
+// two five-step butterflies on every row, and one segment's 64 warps on its
+// 671 pieces).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,10 +77,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kYBlocks = 8;  // blocks a segment: 64 warps share its pieces
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 128;
+constexpr int kMaxD = 1024;
+constexpr int kStats = 4;  // a slot's scalars: M2, sampled count, gmax, wmax
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
 
@@ -73,15 +88,7 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a != a || b != b) ? nan_f() : fmaxf(a, b);
 }
 
-// xor butterfly: lane L adds its partner's value to its own at each step;
-// float addition commutes exactly, so every lane ends with the same bits
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int k = 16; k >= 1; k >>= 1)
-    v = __fadd_rn(v, __shfl_xor_sync(kFull, v, k));
-  return v;
-}
-
+// rows [r0, r1) of segment t: off clamped to S
 __device__ __forceinline__ void segment_rows(const int64_t* off, int64_t t,
                                              int64_t S, int64_t* r0,
                                              int64_t* r1) {
@@ -93,239 +100,307 @@ __device__ __forceinline__ void segment_rows(const int64_t* off, int64_t t,
   *r1 = b;
 }
 
-// the lane's columns of row `r` of g, and its partials of g . x and g . g
-template <int NC>
-__device__ __forceinline__ void row_dots(const float* __restrict__ g,
-                                         int64_t r, int d, int lane,
-                                         const float (&x)[NC], float (&gv)[NC],
-                                         float* gx, float* gg) {
-  const float* gr = g + r * d;
-  float px = 0.f, pg = 0.f;
+// slot of segment t's piece 0
+__device__ __forceinline__ int64_t first_slot(const int64_t* off, int64_t t,
+                                              int64_t S, int64_t P) {
+  int64_t a = off[t];
+  a = a < S ? a : S;
+  return a / P + t;
+}
+
+// sum over the G lanes of a row group (every lane the same bits)
+template <int G>
+__device__ __forceinline__ float group_sum(float v, unsigned mask) {
 #pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const int c = lane + 32 * k;
-    gv[k] = c < d ? gr[c] : 0.f;
-    if (c < d) {
-      px = __fadd_rn(px, __fmul_rn(gv[k], x[k]));
-      pg = __fadd_rn(pg, __fmul_rn(gv[k], gv[k]));
+  for (int k = G / 2; k >= 1; k >>= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(mask, v, k));
+  return v;
+}
+
+template <int G, int NC>
+__global__ void __launch_bounds__(kThreads)
+cert_pieces_kernel(const float* __restrict__ g, const float* __restrict__ ihvp,
+                   const float* __restrict__ cx, const float* __restrict__ wv,
+                   const float* __restrict__ ws, const float* __restrict__ abe,
+                   const float* __restrict__ e, const int64_t* __restrict__ off,
+                   float* __restrict__ part, float* __restrict__ part_s,
+                   int64_t S, int T, int d, int64_t P) {
+  constexpr int NG = kThreads / G;  // row groups
+  constexpr int kRedD = G == 8 ? 64 : kMaxD;  // the widest d of this G
+  __shared__ float red[NG * kRedD];
+  __shared__ float mean[kMaxD];
+  __shared__ float gred[3][NG];
+  const int tid = threadIdx.x;
+  const int64_t j = blockIdx.x;
+
+  // -- the slot's segment: the last t with first_slot(t) <= j --------------
+  int64_t lo = -1, hi = T;
+  while (hi - lo > 1) {
+    const int64_t span = hi - lo - 1;
+    const bool each = span <= kThreads;
+    const int64_t n = each ? span : kThreads;
+    const int64_t m = lo + 1 + (each ? tid : tid * span / kThreads);
+    const int c = __syncthreads_count(tid < n && first_slot(off, m, S, P) <= j);
+    if (c == 0) {
+      hi = lo + 1;
+    } else {
+      const int64_t k = c - 1;
+      const int64_t below = lo + 1 + (each ? k : k * span / kThreads);
+      if (c < n) hi = lo + 1 + (each ? c : c * span / kThreads);
+      lo = below;
     }
   }
-  *gx = px;
-  *gg = pg;
-}
-
-template <int NC>
-__device__ __forceinline__ void query_cols(const float* __restrict__ a,
-                                           int64_t t, int d, int lane,
-                                           float (&out)[NC]) {
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const int c = lane + 32 * k;
-    out[k] = c < d ? a[t * d + c] : 0.f;
-  }
-}
-
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-cert_sums_kernel(const float* __restrict__ g, const float* __restrict__ ihvp,
-                 const float* __restrict__ cx, const float* __restrict__ wv,
-                 const float* __restrict__ ws, const float* __restrict__ abe,
-                 const float* __restrict__ e, const int64_t* __restrict__ off,
-                 float* __restrict__ part, float* __restrict__ part_gm,
-                 float* __restrict__ part_wm, int64_t S, int d, int64_t P) {
-  const int64_t t = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lo < 0) return;
+  const int64_t t = lo;
   int64_t r0, r1;
   segment_rows(off, t, S, &r0, &r1);
-  const int64_t np = (r1 - r0 + P - 1) / P;
-  int64_t q = static_cast<int64_t>(blockIdx.y) * kWarps + warp;
-  if (q >= np) return;  // the whole warp: q is the same in every lane
-  const int64_t stride = static_cast<int64_t>(gridDim.y) * kWarps;
-  const int64_t base = r0 / P + t;
-  float x[NC], c[NC];
-  query_cols<NC>(ihvp, t, d, lane, x);
-  query_cols<NC>(cx, t, d, lane, c);
-  for (; q < np; q += stride) {
-    const int64_t p0 = r0 + q * P;
-    const int64_t p1 = p0 + P < r1 ? p0 + P : r1;
-    float acc[NC];
+  const int64_t q = j - first_slot(off, t, S, P);
+  const int64_t p0 = r0 + q * P;
+  if (p0 >= r1) return;  // no piece starts in this slot
+  const int64_t p1 = p0 + P < r1 ? p0 + P : r1;
+
+  const int grp = tid / G, sub = tid % G;
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : (((1u << G) - 1u) << ((tid & 31) / G * G));
+  float x[NC], c[NC], acc[NC];
 #pragma unroll
-    for (int k = 0; k < NC; ++k) acc[k] = 0.f;
-    float gm = 0.f, wm = 0.f;
-    for (int64_t r = p0; r < p1; ++r) {
-      float gv[NC], px, pg;
-      row_dots<NC>(g, r, d, lane, x, gv, &px, &pg);
-      const float gx = warp_sum(px), gg = warp_sum(pg);
-      const float w = wv[r], ab = abe[r];
-      const float mask = ws[r] > 0.f ? 1.f : 0.f;
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        if (lane + 32 * k < d) {
-          const float h = __fadd_rn(__fmul_rn(__fmul_rn(w, gv[k]), gx),
-                                    __fmul_rn(ab, c[k]));
-          acc[k] = __fadd_rn(acc[k], __fmul_rn(h, mask));
-        }
-      }
-      gm = nanmax(gm, __fmul_rn(__fmul_rn(__fmul_rn(w, 2.f), fabsf(e[r])),
-                                __fsqrt_rn(gg)));
-      wm = nanmax(wm, w);
-    }
-    const int64_t slot = base + q;
+  for (int k = 0; k < NC; ++k) {
+    const int col = sub + G * k;
+    x[k] = col < d ? ihvp[t * d + col] : 0.f;
+    c[k] = col < d ? cx[t * d + col] : 0.f;
+    acc[k] = 0.f;
+  }
+
+  // -- walk 1: every row, in order within the group ------------------------
+  float gm = 0.f, wm = 0.f;
+  for (int64_t r = p0 + grp; r < p1; r += NG) {
+    const float* gr = g + r * d;
+    float gv[NC], px = 0.f, pg = 0.f;
 #pragma unroll
     for (int k = 0; k < NC; ++k) {
-      const int col = lane + 32 * k;
-      if (col < d) part[slot * d + col] = acc[k];
-    }
-    if (lane == 0) {
-      part_gm[slot] = gm;
-      part_wm[slot] = wm;
-    }
-  }
-}
-
-template <int NC>
-__global__ void __launch_bounds__(kThreads)
-cert_dev_kernel(const float* __restrict__ g, const float* __restrict__ ihvp,
-                const float* __restrict__ cx, const float* __restrict__ wv,
-                const float* __restrict__ ws, const float* __restrict__ abe,
-                const int64_t* __restrict__ off, const int* __restrict__ m,
-                const float* __restrict__ part,
-                const float* __restrict__ part_gm,
-                const float* __restrict__ part_wm, float* __restrict__ part_ss,
-                float* __restrict__ gmax, float* __restrict__ wmax, int64_t S,
-                int d, int64_t P) {
-  const int64_t t = blockIdx.x;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  int64_t r0, r1;
-  segment_rows(off, t, S, &r0, &r1);
-  const int64_t np = (r1 - r0 + P - 1) / P;
-  const int64_t base = r0 / P + t;
-  if (blockIdx.y == 0 && warp == 0) {
-    // max is exact in any order: lanes take pieces in turn
-    float a = 0.f, b = 0.f;
-    for (int64_t q = lane; q < np; q += 32) {
-      a = nanmax(a, part_gm[base + q]);
-      b = nanmax(b, part_wm[base + q]);
-    }
-#pragma unroll
-    for (int k = 16; k >= 1; k >>= 1) {
-      a = nanmax(a, __shfl_xor_sync(kFull, a, k));
-      b = nanmax(b, __shfl_xor_sync(kFull, b, k));
-    }
-    if (lane == 0) {
-      gmax[t] = a;
-      wmax[t] = b;
-    }
-  }
-  int64_t q = static_cast<int64_t>(blockIdx.y) * kWarps + warp;
-  if (q >= np) return;
-  const int64_t stride = static_cast<int64_t>(gridDim.y) * kWarps;
-  const float cnt = fmaxf(static_cast<float>(m[t]), 1.f);
-  float mu[NC], x[NC], c[NC];
-  bool finite = true;
-#pragma unroll
-  for (int k = 0; k < NC; ++k) {
-    const int col = lane + 32 * k;
-    float s = 0.f;
-    if (col < d) {
-      for (int64_t j = 0; j < np; ++j)
-        s = __fadd_rn(s, part[(base + j) * d + col]);
-      s = __fdiv_rn(s, cnt);
-      finite = finite && isfinite(s);
-    }
-    mu[k] = s;
-  }
-  finite = __all_sync(kFull, finite);
-  query_cols<NC>(ihvp, t, d, lane, x);
-  query_cols<NC>(cx, t, d, lane, c);
-  for (; q < np; q += stride) {
-    const int64_t p0 = r0 + q * P;
-    const int64_t p1 = p0 + P < r1 ? p0 + P : r1;
-    float acc = finite ? 0.f : nan_f();
-    for (int64_t c0 = p0; finite && c0 < p1; c0 += 32) {
-      const int64_t r = c0 + lane;
-      unsigned bits = __ballot_sync(kFull, r < p1 && ws[r] > 0.f);
-      while (bits) {  // the sampled rows of these 32, in row order
-        const int64_t rr = c0 + (__ffs(bits) - 1);
-        bits &= bits - 1;
-        float gv[NC], px, pg;
-        row_dots<NC>(g, rr, d, lane, x, gv, &px, &pg);
-        const float gx = warp_sum(px);
-        const float w = wv[rr], ab = abe[rr];
-        float psq = 0.f;
-#pragma unroll
-        for (int k = 0; k < NC; ++k) {
-          if (lane + 32 * k < d) {
-            const float h = __fadd_rn(__fmul_rn(__fmul_rn(w, gv[k]), gx),
-                                      __fmul_rn(ab, c[k]));
-            const float dv = __fsub_rn(h, mu[k]);  // times mask 1: exact
-            psq = __fadd_rn(psq, __fmul_rn(dv, dv));
-          }
-        }
-        acc = __fadd_rn(acc, warp_sum(psq));
+      const int col = sub + G * k;
+      gv[k] = col < d ? gr[col] : 0.f;
+      if (col < d) {
+        px = __fadd_rn(px, __fmul_rn(gv[k], x[k]));
+        pg = __fadd_rn(pg, __fmul_rn(gv[k], gv[k]));
       }
     }
-    if (lane == 0) part_ss[base + q] = acc;
+    const float gx = group_sum<G>(px, mask), gg = group_sum<G>(pg, mask);
+    const float w = wv[r], ab = abe[r];
+    const float msk = ws[r] > 0.f ? 1.f : 0.f;
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      if (sub + G * k < d) {
+        const float h = __fadd_rn(__fmul_rn(__fmul_rn(w, gv[k]), gx),
+                                  __fmul_rn(ab, c[k]));
+        acc[k] = __fadd_rn(acc[k], __fmul_rn(h, msk));
+      }
+    }
+    gm = nanmax(gm, __fmul_rn(__fmul_rn(__fmul_rn(w, 2.f), fabsf(e[r])),
+                              __fsqrt_rn(gg)));
+    wm = nanmax(wm, w);
+  }
+  // the sampled count (integers: exact in any order)
+  int cnt = 0;
+  for (int64_t r0c = p0; r0c < p1; r0c += kThreads) {
+    const int64_t r = r0c + tid;
+    cnt += __syncthreads_count(r < p1 && ws[r] > 0.f);
+  }
+  // the groups' column sums in group order: S_q; its mean S_q / c_q
+#pragma unroll
+  for (int k = 0; k < NC; ++k) {
+    const int col = sub + G * k;
+    if (col < d) red[grp * d + col] = acc[k];
+  }
+  if (sub == 0) {
+    gred[0][grp] = gm;
+    gred[1][grp] = wm;
+  }
+  __syncthreads();
+  float* pq = part + j * d;
+  const float cf = static_cast<float>(cnt);
+  for (int col = tid; col < d; col += kThreads) {
+    float s = red[col];
+    for (int k = 1; k < NG; ++k) s = __fadd_rn(s, red[k * d + col]);
+    pq[col] = s;
+    mean[col] = cnt > 0 ? __fdiv_rn(s, cf) : 0.f;
+  }
+  __syncthreads();
+
+  // -- walk 2: the sampled rows only, M2_q about the piece's mean ----------
+  float m2 = 0.f;
+  if (cnt > 0) {
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int col = sub + G * k;
+      acc[k] = col < d ? mean[col] : 0.f;
+    }
+    for (int64_t r = p0 + grp; r < p1; r += NG) {
+      if (!(ws[r] > 0.f)) continue;  // the same in every lane of the group
+      const float* gr = g + r * d;
+      float gv[NC], px = 0.f;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const int col = sub + G * k;
+        gv[k] = col < d ? gr[col] : 0.f;
+        if (col < d) px = __fadd_rn(px, __fmul_rn(gv[k], x[k]));
+      }
+      const float gx = group_sum<G>(px, mask);
+      const float w = wv[r], ab = abe[r];
+      float psq = 0.f;
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        if (sub + G * k < d) {
+          const float h = __fadd_rn(__fmul_rn(__fmul_rn(w, gv[k]), gx),
+                                    __fmul_rn(ab, c[k]));
+          const float dv = __fsub_rn(h, acc[k]);
+          psq = __fadd_rn(psq, __fmul_rn(dv, dv));
+        }
+      }
+      m2 = __fadd_rn(m2, group_sum<G>(psq, mask));
+    }
+  }
+  if (sub == 0) gred[2][grp] = m2;
+  __syncthreads();
+  if (tid == 0) {
+    float a = gred[2][0], b = gred[0][0], w = gred[1][0];
+    for (int k = 1; k < NG; ++k) {
+      a = __fadd_rn(a, gred[2][k]);
+      b = nanmax(b, gred[0][k]);
+      w = nanmax(w, gred[1][k]);
+    }
+    float* st = part_s + j * kStats;
+    st[0] = a;
+    st[1] = cf;
+    st[2] = b;
+    st[3] = w;
   }
 }
 
-__global__ void cert_sigma_kernel(const int64_t* __restrict__ off,
-                                  const int* __restrict__ m,
-                                  const float* __restrict__ part_ss,
-                                  float* __restrict__ sigma, int64_t S, int T,
-                                  int64_t P) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= T) return;
+__global__ void __launch_bounds__(kThreads)
+cert_combine_kernel(const int64_t* __restrict__ off,
+                    const int* __restrict__ m, const float* __restrict__ part,
+                    const float* __restrict__ part_s,
+                    float* __restrict__ sigma, float* __restrict__ gmax,
+                    float* __restrict__ wmax, int64_t S, int d, int64_t P) {
+  __shared__ float mu[kMaxD];
+  __shared__ float chunk[kThreads];
+  __shared__ float mx[2][kThreads];
+  const int tid = threadIdx.x;
+  const int64_t t = blockIdx.x;
   int64_t r0, r1;
   segment_rows(off, t, S, &r0, &r1);
   const int64_t np = (r1 - r0 + P - 1) / P;
-  const int64_t base = r0 / P + t;
-  float ss = 0.f;
-  for (int64_t q = 0; q < np; ++q) ss = __fadd_rn(ss, part_ss[base + q]);
-  const float dof = fmaxf(__fsub_rn(static_cast<float>(m[t]), 1.f), 1.f);
-  sigma[t] = __fsqrt_rn(__fdiv_rn(ss, dof));
+  const int64_t base = first_slot(off, t, S, P);
+  const float* ps = part_s + base * kStats;
+
+  // the maxima over the pieces (exact in any order)
+  float a = 0.f, b = 0.f;
+  for (int64_t q = tid; q < np; q += kThreads) {
+    a = nanmax(a, ps[q * kStats + 2]);
+    b = nanmax(b, ps[q * kStats + 3]);
+  }
+  mx[0][tid] = a;
+  mx[1][tid] = b;
+
+  // mu: each column's pieces in R fixed chunks of L, each in piece order,
+  // then the chunks in order
+  const int dc = d < kThreads ? d : kThreads;
+  const int R = kThreads / dc;
+  const int64_t L = (np + R - 1) / R;
+  const float cnt = fmaxf(static_cast<float>(m[t]), 1.f);
+  for (int col0 = 0; col0 < d; col0 += dc) {
+    const int col = col0 + tid % dc, k = tid / dc;
+    float s = 0.f;
+    if (k < R && col < d) {
+      const int64_t q1 = (k + 1) * L < np ? (k + 1) * L : np;
+      for (int64_t q = k * L; q < q1; ++q)
+        s = __fadd_rn(s, part[(base + q) * d + col]);
+    }
+    __syncthreads();
+    if (k < R) chunk[tid] = s;
+    __syncthreads();
+    if (k == 0 && col < d) {
+      float v = chunk[tid];
+      for (int u = 1; u < R; ++u) v = __fadd_rn(v, chunk[u * dc + tid]);
+      mu[col] = __fdiv_rn(v, cnt);
+    }
+  }
+  __syncthreads();
+  bool fin = true;
+  for (int col = tid; col < d; col += kThreads) fin = fin && isfinite(mu[col]);
+  const bool finite = __syncthreads_and(fin);
+
+  // ss: the pieces' terms M2_q + c_q || S_q / c_q - mu ||^2 in chunks of
+  // pieces, each chunk in piece order, then the chunks in order
+  const int64_t L2 = (np + kThreads - 1) / kThreads;
+  float part_ss = 0.f;
+  {
+    const int64_t q0 = tid * L2;
+    const int64_t q1 = q0 + L2 < np ? q0 + L2 : np;
+    for (int64_t q = q0; q < q1; ++q) {
+      const float c = ps[q * kStats + 1];
+      if (!(c > 0.f)) continue;
+      const float* sq = part + (base + q) * d;
+      float dist = 0.f;
+      for (int col = 0; col < d; ++col) {
+        const float dv = __fsub_rn(__fdiv_rn(sq[col], c), mu[col]);
+        dist = __fadd_rn(dist, __fmul_rn(dv, dv));
+      }
+      part_ss = __fadd_rn(part_ss, __fadd_rn(ps[q * kStats], __fmul_rn(c, dist)));
+    }
+  }
+  chunk[tid] = part_ss;
+  __syncthreads();
+  if (tid == 0) {
+    float ss = chunk[0];
+    float ga = mx[0][0], wa = mx[1][0];
+    for (int k = 1; k < kThreads; ++k) {
+      ss = __fadd_rn(ss, chunk[k]);
+      ga = nanmax(ga, mx[0][k]);
+      wa = nanmax(wa, mx[1][k]);
+    }
+    const float dof = fmaxf(__fsub_rn(static_cast<float>(m[t]), 1.f), 1.f);
+    sigma[t] = finite ? __fsqrt_rn(__fdiv_rn(ss, dof)) : nan_f();
+    gmax[t] = ga;
+    wmax[t] = wa;
+  }
 }
 
-template <int NC>
+template <int G, int NC>
 cudaError_t launch(const float* g, const float* ihvp, const float* cx,
                    const float* wv, const float* ws, const float* abe,
                    const float* e, const int64_t* off, const int* m,
                    float* sigma, float* gmax, float* wmax, float* part,
-                   float* part_gm, float* part_wm, float* part_ss, int64_t S,
-                   int T, int d, int64_t P, cudaStream_t st) {
-  const dim3 grid(static_cast<unsigned>(T), kYBlocks);
-  cert_sums_kernel<NC><<<grid, kThreads, 0, st>>>(
-      g, ihvp, cx, wv, ws, abe, e, off, part, part_gm, part_wm, S, d, P);
+                   float* part_s, int64_t S, int T, int d, int64_t P,
+                   cudaStream_t st) {
+  const long long slots = S / P + T + 1;
+  if (slots > 2147483647LL) return cudaErrorInvalidConfiguration;
+  cert_pieces_kernel<G, NC><<<static_cast<unsigned>(slots), kThreads, 0, st>>>(
+      g, ihvp, cx, wv, ws, abe, e, off, part, part_s, S, T, d, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cert_dev_kernel<NC><<<grid, kThreads, 0, st>>>(
-      g, ihvp, cx, wv, ws, abe, off, m, part, part_gm, part_wm, part_ss, gmax,
-      wmax, S, d, P);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  cert_sigma_kernel<<<(T + 255) / 256, 256, 0, st>>>(off, m, part_ss, sigma,
-                                                     S, T, P);
+  cert_combine_kernel<<<static_cast<unsigned>(T), kThreads, 0, st>>>(
+      off, m, part, part_s, sigma, gmax, wmax, S, d, P);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches the three passes on `stream` and returns cudaGetLastError() (0 on
+// Launches the two passes on `stream` and returns cudaGetLastError() (0 on
 // success). The caller checks device, dtype, shape and contiguity and
-// allocates sigma, gmax, wmax (T,) and the scratch part (slots, d), part_gm,
-// part_wm, part_ss (slots,), slots = floor(S / piece) + T + 1; every output
-// entry is written. g is (S, d); ihvp, cx (T, d); wv, ws, abe, e (S,); off
+// allocates sigma, gmax, wmax (T,) and the scratch part (slots, d) and
+// part_s (slots, 4), slots = floor(S / piece) + T + 1; every output entry
+// is written. g is (S, d); ihvp, cx (T, d); wv, ws, abe, e (S,); off
 // (T + 1,) int64; m (T,) int32. d <= 1024. T == 0 launches nothing.
 extern "C" int fia_segment_certificate(
     const void* g, const void* ihvp, const void* cx, const void* wv,
     const void* ws, const void* abe, const void* e, const void* off,
     const void* m, void* sigma, void* gmax, void* wmax, void* part,
-    void* part_gm, void* part_wm, void* part_ss, long long S, int T, int d,
-    long long piece, void* stream) {
+    void* part_s, long long S, int T, int d, long long piece, void* stream) {
   if (T <= 0) return 0;
-  if (piece <= 0 || S < 0 || d <= 0 || d > 1024)
+  if (piece <= 0 || S < 0 || d <= 0 || d > kMaxD)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = (d + 31) / 32;
 #define FIA_CERT_ARGS                                                        \
   static_cast<const float*>(g), static_cast<const float*>(ihvp),             \
       static_cast<const float*>(cx), static_cast<const float*>(wv),          \
@@ -333,22 +408,27 @@ extern "C" int fia_segment_certificate(
       static_cast<const float*>(e), static_cast<const int64_t*>(off),        \
       static_cast<const int*>(m), static_cast<float*>(sigma),                \
       static_cast<float*>(gmax), static_cast<float*>(wmax),                  \
-      static_cast<float*>(part), static_cast<float*>(part_gm),               \
-      static_cast<float*>(part_wm), static_cast<float*>(part_ss), S, T, d,   \
+      static_cast<float*>(part), static_cast<float*>(part_s), S, T, d,       \
       piece, static_cast<cudaStream_t>(stream)
   cudaError_t err;
-  if (nc <= 1)
-    err = launch<1>(FIA_CERT_ARGS);
-  else if (nc <= 2)
-    err = launch<2>(FIA_CERT_ARGS);
-  else if (nc <= 4)
-    err = launch<4>(FIA_CERT_ARGS);
-  else if (nc <= 8)
-    err = launch<8>(FIA_CERT_ARGS);
-  else if (nc <= 16)
-    err = launch<16>(FIA_CERT_ARGS);
+  if (d <= 8)
+    err = launch<8, 1>(FIA_CERT_ARGS);
+  else if (d <= 16)
+    err = launch<8, 2>(FIA_CERT_ARGS);
+  else if (d <= 32)
+    err = launch<8, 4>(FIA_CERT_ARGS);
+  else if (d <= 40)
+    err = launch<8, 5>(FIA_CERT_ARGS);
+  else if (d <= 64)
+    err = launch<8, 8>(FIA_CERT_ARGS);
+  else if (d <= 128)
+    err = launch<32, 4>(FIA_CERT_ARGS);
+  else if (d <= 256)
+    err = launch<32, 8>(FIA_CERT_ARGS);
+  else if (d <= 512)
+    err = launch<32, 16>(FIA_CERT_ARGS);
   else
-    err = launch<32>(FIA_CERT_ARGS);
+    err = launch<32, 32>(FIA_CERT_ARGS);
 #undef FIA_CERT_ARGS
   return static_cast<int>(err);
 }

@@ -38,6 +38,7 @@ from fia_tpu_torch.influence.kernels import certificate as kcert
 from fia_tpu_torch.models import MF, NCF, params_from_numpy
 from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.reliability import policy as rpolicy
+from fia_tpu_torch.utils import compilemon
 
 torch.set_num_threads(2)
 
@@ -401,3 +402,119 @@ def test_rung_matches_reference(rung_case):
     np.testing.assert_allclose(res.err_bound, np.asarray(want.err_bound),
                                rtol=BOUND_RTOL, atol=1e-9)
     assert float(np.max(res.err_bound)) > 0.0
+
+
+# -- the sampled program: one build a geometry ------------------------------
+def test_sampled_program_built_once_a_geometry(workload):
+    """The sampled program is built once a ``(t_pad, s_pad)`` geometry
+    (on the card a captured CUDA graph, here the program closure),
+    counted by ``compilemon`` and listed by ``compiled_geometries``, as
+    the direct program is (``tests/test_torch_dispatch.py``)."""
+    model, params, x, y, *_ = workload
+    pts = _points(x, 23)
+    samp = _engine(model, params, x, y, solver="sampled", sampled_cap=CAP)
+    before = compilemon.count()
+    first = samp.query_batch(pts)
+    again = samp.query_batch(pts)
+    assert compilemon.count() == before + 1
+    assert _same_bytes(first._packed, again._packed)
+    assert _same_bytes(first.err_bound, again.err_bound)
+    got = samp.compiled_geometries()
+    t_pad, _ = samp.flat_geometry(pts)
+    _, _, ws, _, s_pad = samp._sampled_inputs(pts)
+    assert got["aot"] == [] and len(got["jit"]) == 1
+    assert got["jit"][0].startswith(f"('sampled', {t_pad}, {s_pad},")
+    # other splits build each new geometry once (a sampled dispatch's flat
+    # pad covers its query-pad rows too), and nothing when warm
+    samp = _engine(model, params, x, y, solver="sampled", sampled_cap=CAP,
+                   query_bucket=4)
+    geoms = set()
+    for bq in (23, 7, 3):
+        for k in range(0, len(pts), bq):
+            _, tx, _, _, sp = samp._sampled_inputs(pts[k: k + bq])
+            geoms.add((tx.shape[0], sp))
+    assert len(geoms) > 2
+    before = compilemon.count()
+    for _ in range(2):
+        for bq in (23, 7, 3):
+            samp.query_many(pts, batch_queries=bq)
+        assert compilemon.count() == before + len(geoms)
+    assert len(samp.compiled_geometries()["jit"]) == len(geoms)
+
+
+def test_sampled_program_runs_the_block_eigmin_plain_version(workload,
+                                                              monkeypatch):
+    """On the CPU the sampled program's λ_min is ``block_eigmin``'s plain
+    version, and no library eigensolver is called."""
+    from fia_tpu_torch.influence.kernels import eigmin
+
+    model, params, x, y, pts, *_ = workload
+    calls = []
+    real = eigmin.block_eigmin_reference
+
+    def spy(H, *a, **kw):
+        calls.append(tuple(H.shape))
+        return real(H, *a, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("torch.linalg.eigvalsh called")
+
+    monkeypatch.setattr(eigmin, "block_eigmin_reference", spy)
+    monkeypatch.setattr(torch.linalg, "eigvalsh", refuse)
+    samp = _engine(model, params, x, y, solver="sampled", sampled_cap=CAP)
+    res = samp.query_batch(pts)
+    d = model.block_size
+    assert calls == [(samp._query_pad(len(pts)), d, d)]
+    assert np.all(np.isfinite(res.err_bound))
+
+
+@pytest.mark.cuda
+def test_sampled_graph_replay_equals_eager_program_on_the_card(workload):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sampled program is captured as "
+                    "a CUDA graph only there")
+    model, params, x, y, *_ = workload
+    pts = _points(x, 23)
+    samp = InfluenceEngine(model, {k: v.cuda() for k, v in params.items()},
+                           RatingDataset(x, y), damping=DAMP,
+                           solver="sampled", sampled_cap=CAP)
+    _, tx, ws, m, s_pad = samp._sampled_inputs(pts)
+    eager = samp._flat_fn(s_pad, mode="sampled")(
+        samp.params, samp.train_x, samp.train_y, samp._postings, tx, ws, m)
+    res = samp.query_batch(pts)
+    total = int(res.counts.sum())
+    assert res._packed.tobytes() == eager[0][:total].cpu().numpy().tobytes()
+    assert res.err_bound.tobytes() == eager[3][: len(pts)].cpu().numpy(
+        ).tobytes()
+
+
+@pytest.mark.parametrize("piece", [1, 7, kcert.CERT_PIECE_ROWS])
+def test_certificate_slots_cover_every_piece_once(piece, monkeypatch):
+    """The certificate kernel's slot scheme, restated: slot j holds piece
+    q = j - (r0[t] // P + t) of the last segment t with r0[t] // P + t
+    <= j, when such a piece starts before the segment's end. Every piece
+    of every segment (an empty one has none) is found exactly once,
+    inside ``scratch_slots``."""
+    monkeypatch.setattr(kcert, "CERT_PIECE_ROWS", piece)
+    rng = np.random.default_rng(piece)
+    for trial in range(20):
+        counts = rng.integers(0, 4 * piece + 3, rng.integers(1, 40))
+        counts[rng.random(counts.size) < 0.2] = 0
+        S = int(counts.sum()) + int(rng.integers(0, 2 * piece))
+        if trial % 3 == 0:  # a last segment cut at the flat pad
+            S = max(0, int(counts.sum()) - int(rng.integers(0, piece + 1)))
+        off = np.minimum(np.concatenate([[0], np.cumsum(counts)]), S)
+        r0, r1 = off[:-1], off[1:]
+        first = r0 // piece + np.arange(len(counts))
+        want = {(t, q) for t in range(len(counts))
+                for q in range(-(-(r1[t] - r0[t]) // piece))}
+        found = set()
+        for j in range(kcert.scratch_slots(S, len(counts))):
+            t = int(np.searchsorted(first, j, side="right")) - 1
+            if t < 0:
+                continue
+            q = j - int(first[t])
+            if r0[t] + q * piece < r1[t]:
+                assert (t, q) not in found
+                found.add((t, q))
+        assert found == want
