@@ -119,19 +119,36 @@ Phases, each of which makes the script exit non-zero when it fails:
         last segment; an infinite row that is not sampled, which must
         make its segment's σ̂ NaN); two launches the same bits; its ms
         by graph replay beside its bytes bound and the plain version;
-     g. ``block_eigmin`` (the sampled certificate's λ_min) on the
-        sampled program's H at T = 256 and 1024, and (once) on
-        synthetic blocks: diagonal, repeated eigenvalues, indefinite,
-        λ_min at the damping floor, and d = 18, 130, 514, 1,024. Each
+     g. ``block_eigmin`` (the sampled certificate's λ_min: Householder
+        tridiagonalisation, then Sturm multisection) on the sampled
+        program's H at T = 256 and 1024, and (once) on synthetic
+        blocks: diagonal, repeated eigenvalues, indefinite, λ_min at the
+        damping floor, and d = 18, 130, and 16 blocks at each of
+        ``EIG_WIDE_D`` (256, 258, 512, 514, 1,024: one thread-block
+        cluster a block, of 2, 2, 3, 3 and 11 CTAs; the damping-floor
+        and indefinite kinds at 512 too), and 1,024 random and
+        indefinite blocks at each of ``EIG_SMALL_D`` (d = 2 … 12). Each
         block's λ_min bit for bit its plain version (run on the card)
-        and within ``EIG_C`` · d · eps · ‖H‖_F of float64 ``eigvalsh``
-        (the largest c seen, and each case's λ_min range beside its
-        bar, are printed); two launches the same bits; a block the same
-        bits in a batch of 1 and in the whole batch; ms by graph replay
-        beside its bound, the plain version and
-        ``torch.linalg.eigvalsh`` in pieces of 64 (the library call it
-        replaced, which the port no longer calls), at d = 514 and 1,024
-        too, with the device-memory scratch a 1024-query batch takes;
+        and, from d = ``EIG_REACH`` (12) up, within ``EIG_C`` · d · eps ·
+        ‖H‖_F of float64 ``eigvalsh`` (the largest c seen, and each
+        case's λ_min range beside its bar, are printed; below 12, where
+        float32 ``eigvalsh`` misses that bar too, c is printed beside
+        its c, with the least width from which the bar held); two
+        launches the same bits; a block the same bits in a batch of 1
+        and in the whole batch; a diagonal block exactly its smallest
+        diagonal entry; ms by graph replay beside its bound, the plain
+        version and ``torch.linalg.eigvalsh`` in pieces of 64 (the
+        library call it replaced, which the port no longer calls); at
+        each wide width the kernel's ms (events) required below
+        ``eigvalsh``'s on the same blocks, with its rounds, cluster size,
+        resident clusters and the device-memory scratch of a call on
+        1,024 blocks (``max_memory_allocated`` less the output, checked
+        0 there and at the main path's T = 1024);
+     h. the sampled rung at RQ2's upper widths (MF k = 256, d = 514; NCF
+        k = 128, d = 512) on 256 queries beside direct on the same
+        queries: wall ms, busy share, ``block_eigmin``'s share of the
+        device time, the graph pools; the rung's H on those queries
+        held as g holds a case;
      b. ``segment_hessian`` under the sampled rung's weights n/m, on
         the sampled program's operands and on synthetic segments (m < n,
         m = 1): bit for bit the plain pieced form, and within the
@@ -365,15 +382,22 @@ FIDELITY_SHARE = 0.99
 SAMPLED_BOUND_RTOL = 1e-4
 SAMPLED_SPLITS = (1024, 256, 100, 23)
 # 8g, the certificate's λ_min kernel: each block bit for bit its plain
-# version and within EIG_C · d · eps · ‖H‖_F of float64 eigvalsh (eps the
-# float32 unit roundoff; the plain Jacobi measured within 0.1 of that on
-# the CPU against float64, tests/test_torch_eigmin.py, and the kernel
-# within 0.046 on the card); synthetic blocks of EIG_T each, EIG_WIDE_T at
-# the device-memory widths EIG_WIDE_D
+# version and within EIG_C · d · eps · ‖H‖_F of float64 eigvalsh (eps =
+# 2^-23; the earlier Jacobi kernel within 0.046 on the card) at every width
+# from EIG_REACH up, where tests/test_torch_eigmin.py holds the plain
+# version to it on the CPU; below, at EIG_SMALL_D (MF and NCF at k = 1 have
+# d = 4), neither it nor float32 eigvalsh reaches that bar, and c is
+# printed beside eigvalsh's on EIG_SMALL_T blocks of each kind. Synthetic
+# blocks of EIG_T each, EIG_WIDE_T at each of the wide widths EIG_WIDE_D
+# (RQ2's MF k = 128 and 256, NCF k = 64, 128 and 256), the device-memory
+# scratch of a call on BATCHES[-1] blocks at each; 8h: the sampled rung at
+# WIDE_RUNG's widths on WIDE_RUNG_T queries, its H held as 8g's
 EIGMIN_SOURCE = "block_eigmin"
 EIGMIN_REPLACES = "fia_tpu/influence/engine.py:2504"
 EIG_C = 0.25
-EIG_T, EIG_WIDE_T, EIG_WIDE_D = 64, 2, (514, 1024)
+EIG_T, EIG_WIDE_T, EIG_WIDE_D = 64, 16, (256, 258, 512, 514, 1024)
+EIG_REACH, EIG_SMALL_T, EIG_SMALL_D = 12, 1024, (2, 3, 4, 5, 6, 8, 10, 12)
+WIDE_RUNG, WIDE_RUNG_T = (("mf", 256), ("ncf", 128)), 256
 ESCALATE_T, ESCALATE_DEPTH = 64, 200
 BANK_ENTRIES, BANK_T, BANK_RHO = 1024, 256, 0.999
 FULL_MAXITER, FULL_RTOL, FULL_SMALL_DAMPING = 100, 1e-4, 1.0
@@ -511,9 +535,11 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_breakdown(fn, wall_ms: float, top: int = 8) -> dict:
+def device_breakdown(fn, wall_ms: float, top: int = 8,
+                     match: str | None = None) -> dict:
     """Device time of one ``fn`` call by kernel (``torch.profiler``), and
-    the busy share of ``wall_ms``, the call's unprofiled host time."""
+    the busy share of ``wall_ms``, the call's unprofiled host time; with
+    ``match``, also the device ms of the kernels whose name holds it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -524,12 +550,16 @@ def device_breakdown(fn, wall_ms: float, top: int = 8) -> dict:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kern.sort(key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    return {
+    out = {
         "device_busy_ms": busy_ms,
         "busy_share": busy_ms / wall_ms,
         "top_kernels": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
                         for e in kern[:top]],
     }
+    if match is not None:
+        out["matched_ms"] = sum(e.self_device_time_total for e in kern
+                                if match in e.key) / 1e3
+    return out
 
 
 def boundary_rows(rel_x, tables64) -> torch.Tensor:
@@ -2238,14 +2268,15 @@ def lower_float64(H: torch.Tensor) -> np.ndarray:
     return L + np.swapaxes(np.tril(L, -1), 1, 2)
 
 
-def eigmin_hold(H: torch.Tensor, what: str, alone=None) -> dict:
+def eigmin_hold(H: torch.Tensor, what: str, alone=None,
+                gate: bool = True) -> dict:
     """8g on one batch of blocks: the kernel's λ_min bit for bit its
-    plain version on the card (the same rotations in the same order),
-    and within EIG_C · d · eps · ‖H‖_F of float64 eigvalsh; two
-    launches the same bits; the blocks ``alone`` (default the first and
-    last) the same bits in a batch of 1. Returns the largest c seen
-    against float64, the ranges of λ_min and of the bar, and the first
-    launch's ms (events)."""
+    plain version on the card (the same operations in the same order),
+    and (where ``gate``) within EIG_C · d · eps · ‖H‖_F of float64
+    eigvalsh; two launches the same bits; the blocks ``alone`` (default
+    the first and last) the same bits in a batch of 1. Returns the
+    largest c seen against float64, the ranges of λ_min and of the bar,
+    and the first launch's ms (events)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2265,12 +2296,12 @@ def eigmin_hold(H: torch.Tensor, what: str, alone=None) -> dict:
     exact = np.linalg.eigvalsh(lower_float64(H))[:, 0]
     g = got.double().cpu().numpy()
     diff = np.abs(g - plain.double().cpu().numpy())
-    unit = d * EPS32 * np.linalg.norm(
-        H.double().reshape(T, -1).cpu().numpy(), axis=1)
+    unit = eigmin_unit(H)
     c_exact = float(np.max(np.abs(g - exact) / unit, initial=0.0))
-    check(c_exact <= EIG_C, f"{what}: beyond {EIG_C} d eps ||H||_F of "
-          f"float64 eigvalsh (c = {c_exact:.3e})")
-    return {"T": T, "d": d, "c_float64": c_exact,
+    if gate:
+        check(c_exact <= EIG_C, f"{what}: beyond {EIG_C} d eps ||H||_F of "
+              f"float64 eigvalsh (c = {c_exact:.3e})")
+    return {"T": T, "d": d, "c_float64": c_exact, "gated": gate,
             "first_launch_ms": start.elapsed_time(end),
             "max_abs_err": float(np.max(diff, initial=0.0,
                                         where=~np.isnan(diff))),
@@ -2279,10 +2310,19 @@ def eigmin_hold(H: torch.Tensor, what: str, alone=None) -> dict:
                           float(EIG_C * unit.max())]}
 
 
+def eigmin_unit(H: torch.Tensor) -> np.ndarray:
+    """(T,) d · eps · ‖H‖_F of each block, float64 on the host (the
+    float64 bar's unit)."""
+    T, d = H.shape[0], H.shape[-1]
+    return d * EPS32 * np.linalg.norm(
+        H.double().reshape(T, -1).cpu().numpy(), axis=1)
+
+
 def eigmin_line(r: dict) -> str:
     """One case of :func:`eigmin_hold` for the log."""
+    bar = f"bar c = {EIG_C}" if r["gated"] else f"below {EIG_REACH}: no bar"
     return (f"bit for bit the plain version; c = {r['c_float64']:.3e} "
-            f"against float64 (bar c = {EIG_C}); λ_min in "
+            f"against float64 ({bar}); λ_min in "
             f"[{r['lambda_min_range'][0]:.3e}, {r['lambda_min_range'][1]:.3e}]"
             f", bar in [{r['bar_range'][0]:.3e}, {r['bar_range'][1]:.3e}]")
 
@@ -2327,15 +2367,39 @@ def check_eigmin(family: str, samp, pts) -> dict:
         "library_ms": time_ms(lambda: _in_pieces(
             lambda h: torch.linalg.eigvalsh(h)[:, 0], H), iters=1, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
-        "sweeps": keig.sweeps(H.shape[-1]),
+        "rounds": keig.ROUNDS, "points": keig.STURM_POINTS,
+        "cluster_ctas": keig.cluster_size(H.shape[-1]),
+        "scratch_mb": eigmin_scratch_mb(H, T),
         "max_abs_err": max(r["max_abs_err"] for r in out["cases"].values()),
         "c_max": max(r["c_float64"] for r in out["cases"].values()),
         "shape": {"T": T, "d": H.shape[-1]}})
     log(f"block_eigmin {family} T={T}: {ms:.4f} ms (graph replay), plain "
         f"{out['plain_ms']:.2f} ms, eigvalsh in pieces of 64 "
         f"{out['library_ms']:.2f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"{100 * b_ms / ms:.2f}% of bound")
+        f"{100 * b_ms / ms:.2f}% of bound; device-memory scratch "
+        f"{out['scratch_mb']} MiB")
     return out
+
+
+def eigmin_scratch_mb(H: torch.Tensor, T: int) -> float:
+    """MiB of device memory one ``block_eigmin`` call on T blocks (``H``
+    repeated) takes beyond its (T,) output: the peak allocated during the
+    call, less what was allocated before it and the output's bytes
+    (``torch.cuda.max_memory_allocated``). Checked 0: the kernel holds a
+    block in shared memory and allocates nothing."""
+    big = H.repeat(-(-T // H.shape[0]), 1, 1)[:T].contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    lam = keig.block_eigmin(big)
+    torch.cuda.synchronize()
+    taken = (torch.cuda.max_memory_allocated() - before
+             - lam.untyped_storage().nbytes())
+    del big, lam
+    mb = taken / 2 ** 20
+    check(taken == 0, f"block_eigmin d={H.shape[-1]}: {mb:.3f} MiB of "
+          f"device memory beyond its output at T={T}")
+    return mb
 
 
 def synthetic_blocks(kind: str, d: int, T: int, gen: torch.Generator
@@ -2369,15 +2433,20 @@ def synthetic_blocks(kind: str, d: int, T: int, gen: torch.Generator
 
 def check_eigmin_synthetic() -> dict:
     """8g on synthetic blocks (:func:`synthetic_blocks`), each kind at a
-    main-path width, random blocks at d = 18 and 130 (shared memory) and
-    at EIG_WIDE_D (device memory); the device-memory path's ms beside
-    ``eigvalsh`` in pieces of 64 on the same blocks, and the scratch a
-    batch of BATCHES[-1] blocks takes there."""
+    main-path width, random blocks at d = 18 and 130 (one CTA a block),
+    and EIG_WIDE_T random and diagonal blocks at each of EIG_WIDE_D (a
+    thread-block cluster a block), and the damping-floor and indefinite
+    kinds at d = 512: at each wide width the kernel's ms (events) below
+    ``eigvalsh`` in pieces of 64 on the same blocks, its rounds, cluster
+    size and resident clusters, and the device-memory scratch a call on
+    BATCHES[-1] blocks takes (:func:`eigmin_scratch_mb`)."""
     gen = torch.Generator().manual_seed(9)
     cases = [("diagonal", 34, EIG_T), ("repeated", 64, EIG_T),
              ("indefinite", 64, EIG_T), ("floor", 34, EIG_T),
              ("random", 18, EIG_T), ("random", 130, EIG_T)]
-    cases += [("random", d, EIG_WIDE_T) for d in EIG_WIDE_D]
+    for d in EIG_WIDE_D:
+        cases += [("random", d, EIG_WIDE_T), ("diagonal", d, EIG_WIDE_T)]
+    cases += [("floor", 512, EIG_WIDE_T), ("indefinite", 512, EIG_WIDE_T)]
     out = {}
     for kind, d, T in cases:
         H = synthetic_blocks(kind, d, T, gen)
@@ -2387,27 +2456,123 @@ def check_eigmin_synthetic() -> dict:
         if kind == "diagonal":
             check(bits_equal(keig.block_eigmin(H),
                              torch.diagonal(H, dim1=1, dim2=2).amin(1)),
-                  "block_eigmin: a diagonal block's λ_min is not its "
-                  "smallest diagonal entry")
+                  f"block_eigmin [{name}]: a diagonal block's λ_min is not "
+                  "its smallest diagonal entry")
         if kind == "indefinite":
             check(bool((keig.block_eigmin(H) < 0).all()),
                   "block_eigmin: an indefinite block's λ_min is not < 0")
         wide = ""
-        if d in EIG_WIDE_D:
-            n = keig.padded_size(d)
+        if d in EIG_WIDE_D and kind == "random":
             r.update({
-                "ms": r["first_launch_ms"],
+                "ms": time_ms(lambda: keig.block_eigmin(H), iters=3,
+                              warmup=1),
                 "library_ms": time_ms(lambda: _in_pieces(
                     lambda h: torch.linalg.eigvalsh(h)[:, 0], H), iters=1,
                     warmup=1),
-                "scratch_mb_at_T": {str(BATCHES[-1]):
-                                    BATCHES[-1] * n * n * 4 / 2 ** 20}})
-            wide = (f"; {r['ms']:.1f} ms, eigvalsh in pieces of 64 "
-                    f"{r['library_ms']:.1f} ms ({r['ms'] / r['library_ms']:.1f}"
-                    f"x); scratch at T={BATCHES[-1]} "
-                    f"{r['scratch_mb_at_T'][str(BATCHES[-1])]:.0f} MiB")
+                "rounds": keig.ROUNDS, "points": keig.STURM_POINTS,
+                "cluster_ctas": keig.cluster_size(d),
+                "resident_clusters": keig.resident_clusters(d),
+                "scratch_mb_at_T": {
+                    str(BATCHES[-1]): eigmin_scratch_mb(H, BATCHES[-1])}})
+            check(r["ms"] < r["library_ms"], f"block_eigmin [{name}]: "
+                  f"{r['ms']:.2f} ms, not below eigvalsh in pieces of 64 "
+                  f"({r['library_ms']:.2f} ms) on the same blocks")
+            wide = (f"; {r['ms']:.3f} ms, eigvalsh in pieces of 64 "
+                    f"{r['library_ms']:.1f} ms ({r['library_ms'] / r['ms']:.1f}"
+                    f"x the kernel); {r['rounds']} rounds of "
+                    f"{r['points']} points; {r['cluster_ctas']} CTA(s) a "
+                    f"block, {r['resident_clusters']} clusters resident "
+                    "(-1: no cluster); device-memory scratch "
+                    f"{r['scratch_mb_at_T'][str(BATCHES[-1])]} MiB at "
+                    f"T={BATCHES[-1]}")
         log(f"block_eigmin [{name}] T={T}: two launches the same bits, a "
             f"block alone its bits in the batch; {eigmin_line(r)}{wide}")
+    return out
+
+
+def check_eigmin_small() -> dict:
+    """8g below the main path's widths: EIG_SMALL_T random and indefinite
+    blocks at each of EIG_SMALL_D, held as :func:`eigmin_hold` holds a
+    case, to the float64 bar from EIG_REACH up; c printed beside float32
+    ``eigvalsh``'s on the same blocks, and the least width of the sweep
+    from which every case met the bar."""
+    gen = torch.Generator().manual_seed(10)
+    out = {}
+    for d in EIG_SMALL_D:
+        for kind in ("random", "indefinite"):
+            H = synthetic_blocks(kind, d, EIG_SMALL_T, gen)
+            name = f"{kind} d={d}"
+            r = out[name] = eigmin_hold(H, f"block_eigmin [{name}]",
+                                        gate=d >= EIG_REACH)
+            lib = torch.linalg.eigvalsh(H)[:, 0].double().cpu().numpy()
+            exact = np.linalg.eigvalsh(lower_float64(H))[:, 0]
+            r["c_eigvalsh_float32"] = float(np.max(
+                np.abs(lib - exact) / eigmin_unit(H)))
+            log(f"block_eigmin [{name}] T={EIG_SMALL_T}: two launches the "
+                f"same bits, a block alone its bits in the batch; "
+                f"{eigmin_line(r)}; float32 eigvalsh c = "
+                f"{r['c_eigvalsh_float32']:.3e}")
+    met = [all(out[f"{k} d={e}"]["c_float64"] <= EIG_C
+               for k in ("random", "indefinite") for e in EIG_SMALL_D
+               if e >= d) for d in EIG_SMALL_D]
+    reach = next((d for d, m in zip(EIG_SMALL_D, met) if m), None)
+    log(f"block_eigmin: the float64 bar c = {EIG_C} met at every width of "
+        f"the sweep from d = {reach} up (gated from {EIG_REACH})")
+    return {"cases": out, "bar_met_from_d": reach}
+
+
+def drive_sampled_wide(train, pts) -> dict:
+    """8h: the sampled rung (cap SAMPLED_CAP) at RQ2's upper widths
+    (WIDE_RUNG) on WIDE_RUNG_T queries at ML-1M shape, seeded weights,
+    beside direct on the same queries: wall ms (median of 5), busy share,
+    ``block_eigmin``'s launches and share of the device time, each
+    captured geometry's graph pool; every bound finite and >= 0; the
+    rung's H on those queries held as 8g's (:func:`eigmin_hold`)."""
+    out = {}
+    q = pts[:WIDE_RUNG_T]
+    for family, k in WIDE_RUNG:
+        cls = {"mf": MF, "ncf": NCF}[family]
+        model = cls(USERS, ITEMS, k, WD)
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   device=CARD)
+        direct = InfluenceEngine(model, params, train, damping=DAMPING)
+        samp = InfluenceEngine(model, params, train, damping=DAMPING,
+                               solver="sampled", sampled_cap=SAMPLED_CAP)
+        reset_counts()
+        res = samp.query_batch(q)
+        launched = keig.launches
+        check(launched > 0, f"{family} 8h k={k}: block_eigmin never launched")
+        check(bool(np.isfinite(res.err_bound).all())
+              and bool((res.err_bound >= 0).all()),
+              f"{family} 8h k={k}: bounds {res.err_bound[:4]}...")
+        H = sampled_hessians(samp, q, WIDE_RUNG_T)
+        held = eigmin_hold(H, f"block_eigmin {family} 8h k={k} "
+                           f"T={WIDE_RUNG_T}", alone=(0, WIDE_RUNG_T - 1))
+        log(f"block_eigmin {family} [8h k={k}] d={held['d']} "
+            f"T={WIDE_RUNG_T}: two launches the same bits, a block alone "
+            f"its bits in the batch; {eigmin_line(held)}")
+        del H
+        ms = wall_ms(lambda: samp.query_batch(q))
+        ms_direct = wall_ms(lambda: direct.query_batch(q))
+        dev = device_breakdown(lambda: samp.query_batch(q), ms,
+                               match="eigmin_")
+        row = out[f"{family} k={k}"] = {
+            "d": model.block_size, "T": WIDE_RUNG_T, "ms": ms,
+            "direct_ms": ms_direct, "busy_share": dev["busy_share"],
+            "device_busy_ms": dev["device_busy_ms"],
+            "eigmin_device_ms": dev["matched_ms"],
+            "eigmin_share_of_device": dev["matched_ms"]
+            / dev["device_busy_ms"],
+            "eigmin_launches": launched, "eigmin_hold": held,
+            "top_kernels": dev["top_kernels"],
+            "graphs": graph_inventory(samp)}
+        log(f"{family} 8h sampled rung k={k} (d={row['d']}), T={WIDE_RUNG_T}:"
+            f" {ms:.2f} ms, direct {ms_direct:.2f} ms; busy share "
+            f"{row['busy_share']:.2f}; block_eigmin {row['eigmin_device_ms']:.3f}"
+            f" ms, {100 * row['eigmin_share_of_device']:.1f}% of the device "
+            f"time; graphs {row['graphs']}")
+        del direct, samp, params, model, res
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2922,7 +3087,8 @@ def drive_facade(workdir: str) -> dict:
 
 
 def drive_ladder(engines, train, pts) -> dict:
-    """Phase 8, per model: 8a-8d, then 8e and 8f once."""
+    """Phase 8, per model: 8a-8d and 8g, then 8g's synthetic blocks, 8h,
+    8e and 8f once."""
     out = {}
     gen = torch.Generator().manual_seed(8)
     with tempfile.TemporaryDirectory() as workdir:
@@ -2938,6 +3104,8 @@ def drive_ladder(engines, train, pts) -> dict:
             }
             torch.cuda.empty_cache()
         out["eigmin_synthetic"] = check_eigmin_synthetic()
+        out["eigmin_small"] = check_eigmin_small()
+        out["sampled_wide"] = drive_sampled_wide(train, pts)
         out["full"] = drive_full(train, pts)
         out["facade"] = drive_facade(workdir)
     return out
@@ -3156,6 +3324,8 @@ def main() -> int:
         "shape": eig["shape"],
         "mf": ladder["mf"]["eigmin"],
         "synthetic": ladder["eigmin_synthetic"],
+        "small": ladder["eigmin_small"],
+        "sampled_wide": ladder["sampled_wide"],
         "ptxas": build["ptxas"][EIGMIN_SOURCE],
         "launches_by_path": {
             path: {f: ladder[f][path]["launches"][EIGMIN_SOURCE]

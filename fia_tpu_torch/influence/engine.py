@@ -694,8 +694,9 @@ class InfluenceEngine:
             # the certificate: the sample deviation of the per-row Hessian
             # action on the solved vector, pushed through the inverse by
             # λ_min(H) and through the score form (influence/sampled.py);
-            # λ_min by the Jacobi kernel, a block a matrix, from H's lower
-            # triangle as eigvalsh reads it: split invariant, no host wait
+            # λ_min by the block_eigmin kernel (Householder, then Sturm
+            # multisection), a block alone, from H's lower triangle as
+            # eigvalsh reads it: split invariant, no host wait
             sigma, gmax, wmax = Kcert.segment_certificate(
                 g, t, ihvp, Cx, wv, ws, abe, e, off, msz)
             lam = torch.clamp(Keig.block_eigmin(H), min=damping)
