@@ -186,6 +186,52 @@ Phases, each of which makes the script exit non-zero when it fails:
      The ``kernels`` line gains the ``segment_certificate`` and
      ``block_eigmin`` rows, and each row's ``launches_by_path`` the
      sampled and bank paths.
+  9. recovery and observability, first MF, then NCF, at ML-1M shape on
+     phase 8's held-out queries (the memory envelope in a temporary
+     file), under ``recovery`` in the ``perf`` line:
+     a. a worker death injected at the second dispatch of
+        ``query_many`` (1024 queries, 256 a batch, 4 in flight): every
+        batch bitwise the run without the fault, ``engine.upload`` fired
+        once, the captured graphs dropped and recaptured (counts before
+        and after printed), no tensor from before the reset reachable
+        from the engine or its delegates;
+     b. in ``query_batch(1024)``, a worker death at the first dispatch
+        retried as 512 + 512 and a preemption retried once at 1024, each
+        bitwise the run without the fault;
+     c. a real CUDA OOM on the flat path (all but 1 MiB of the card's
+        free memory, and the allocator's cached free blocks, held by
+        blockers, then a geometry not captured yet), and one raised
+        inside a capture (the captured program asks for more memory than
+        the card has): with ``cpu_fallback=False`` it rises classified
+        OOM, the capture ended and the graph's pool released; with
+        the CPU rung on (``cpu_fallback=True``) on phase 4's small input,
+        the answer within phase 4's card-vs-CPU bar, one batch counted in
+        ``engine.cpu_fallback_batches`` and one reliability diagnostic;
+        no capture
+        left open; once the blocker is freed, the same engines answer on
+        the card bitwise as before;
+     d. a real CUDA OOM on the padded direct program at T = 256 under
+        ``set_per_process_memory_fraction`` (the resident memory plus
+        three quarters of the full batch's own): it ends in halves, at
+        phase 6's bars against the uncapped run (bitwise or not,
+        printed), the memlimits file holds the failing size as the
+        ceiling, and a fresh engine dispatches only the chunks that
+        succeeded, none failing;
+     e. (once) a device-side assert in a child process, then a query:
+        it raises classified DEVICE_LOST within 60 s, with no retry,
+        reset or CPU rung;
+     f. ``query_many(1024)`` traced (``obs.configure(trace=True)``) with
+        each dispatch under ``set_sync_debug_mode("error")``: bitwise the
+        untraced run, ``engine.query`` and ``engine.dispatch_flat`` spans
+        present, the Perfetto and Prometheus exports parse; the traced
+        and untraced walls (``utils.timing.fenced_time``) are printed,
+        not gated.
+     Every engine outside phase 9 is built with ``cpu_fallback=False``
+     (the port's default, passed explicitly), and after each earlier
+     phase the obs registry must show no retry
+     (``reliability.retries_total``), no device-state reset
+     (``engine.device_resets``), no batch on the CPU rung
+     (``engine.cpu_fallback_batches``) and no reliability diagnostic.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -211,9 +257,12 @@ The last lines of standard output are a ``perf`` line, the card's
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -225,6 +274,7 @@ import warnings
 import numpy as np
 import torch
 
+from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.synthetic import (
     sample_heldout_pairs,
@@ -241,6 +291,7 @@ from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import sampled as sampled_mod
 from fia_tpu_torch.influence import solvers, spectral
 from fia_tpu_torch.influence.engine import (STAGES, InfluenceEngine,
+                                           _FlatGraph,
                                            _bank_solve, _in_pieces,
                                            capturing)
 from fia_tpu_torch.influence.full import FullInfluenceEngine
@@ -251,9 +302,12 @@ from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
 from fia_tpu_torch.influence.kernels import segment as kseg
 from fia_tpu_torch.models import MF, NCF
+from fia_tpu_torch.obs.export import perfetto, prometheus, span_fields
+from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.train import checkpoint
 from fia_tpu_torch.train.trainer import Trainer, TrainConfig, loo_retrain_many
-from fia_tpu_torch.utils import compilemon
+from fia_tpu_torch.utils import compilemon, memlimits
+from fia_tpu_torch.utils.timing import fenced_time
 
 # ML-1M shape and the reference's defaults (bench.py's full run)
 USERS, ITEMS, ROWS = 6040, 3706, 975_460
@@ -413,6 +467,14 @@ SEGMENT_REPLACES = "fia_tpu/influence/engine.py:920"
 KERNEL_MODULES = {"mf": kmf, "ncf": kncf}
 REPLACES = {"mf": "fia_tpu/influence/kernels/mf.py:25",
             "ncf": "fia_tpu/influence/kernels/ncf.py:30"}
+
+
+def engine(*args, **kw) -> InfluenceEngine:
+    """An engine with the CPU rung off (``cpu_fallback=False``, the
+    port's default, passed so that no later default can turn it on): outside
+    phase 9 a phase passes on the card or fails, never on a recovery
+    ladder (:func:`no_recovery` checks the rest of them)."""
+    return InfluenceEngine(*args, cpu_fallback=False, **kw)
 
 
 def fail(msg: str):
@@ -830,10 +892,10 @@ def to64(ops):
 
 def setup_engines(model, train):
     params = model.init_params(torch.Generator().manual_seed(0), device="cuda")
-    eng = InfluenceEngine(model, params, train, damping=DAMPING)
+    eng = engine(model, params, train, damping=DAMPING)
     check(eng.active_kernel_variant() == "cuda",
           f"{type(model).__name__} engine did not pick cuda")
-    plain = InfluenceEngine(model, params, train, damping=DAMPING,
+    plain = engine(model, params, train, damping=DAMPING,
                             kernel="torch", device="cuda")
     return eng, plain
 
@@ -1145,9 +1207,9 @@ def drive(family: str, eng, plain, pts) -> dict:
     tm = type(eng.model)(60, 40, 8, 1e-3)
     tp = tm.init_params(torch.Generator().manual_seed(0))
     tq = tiny["test"].x[:21]
-    on_card = InfluenceEngine(tm, tp, tiny["train"], damping=1e-3
+    on_card = engine(tm, tp, tiny["train"], damping=1e-3
                               ).query_batch(tq)
-    on_cpu = InfluenceEngine(tm, tp, tiny["train"], damping=1e-3,
+    on_cpu = engine(tm, tp, tiny["train"], damping=1e-3,
                              device="cpu").query_batch(tq)
     cpu_parity = compare_results(on_card, on_cpu, f"{family} card vs CPU "
                                  "(small)", CPU_RTOL, CPU_ATOL, CPU_RHO_MIN)
@@ -1163,7 +1225,7 @@ def measure(family: str, eng, train, pts) -> tuple[dict, dict, dict]:
     mod = KERNEL_MODULES[family]
     batches, last, seg_last = {}, None, None
     # the one-hot contraction the Hessian kernel replaced, same weights
-    onehot = InfluenceEngine(eng.model, eng.params, train,
+    onehot = engine(eng.model, eng.params, train,
                              damping=DAMPING, flat_accum="onehot")
     for T in BATCHES:
         counts, tx, s_pad = eng._flat_inputs(pts[:T])
@@ -1288,7 +1350,7 @@ def drive_graphs(family: str, eng, train, pts) -> dict:
           and res.ihvp.tobytes() == eager[1][:T].cpu().numpy().tobytes()
           and res.test_grad.tobytes() == eager[2][:T].cpu().numpy().tobytes(),
           f"{family} graphs: a replayed graph differs from the eager program")
-    fresh = InfluenceEngine(eng.model, eng.params, train, damping=DAMPING)
+    fresh = engine(eng.model, eng.params, train, damping=DAMPING)
     plan = {fresh.flat_geometry(q)}
     for bq in GRAPH_SPLITS:
         plan |= {fresh.flat_geometry(q[i: i + bq])
@@ -1332,7 +1394,7 @@ def padded_engine(eng, train, solver: str, **kw):
     the direct solve, else the iterative ``solver``."""
     kw = dict(kw, **({"impl": "padded"} if solver == "direct"
                      else {"solver": solver}))
-    return InfluenceEngine(eng.model, eng.params, train, damping=DAMPING, **kw)
+    return engine(eng.model, eng.params, train, damping=DAMPING, **kw)
 
 
 def spy_devices(eng) -> list:
@@ -1496,10 +1558,12 @@ def rank_agreement(res, ref) -> dict:
 
 
 def same_bytes(a, b, what: str) -> None:
-    check(a._packed.tobytes() == b._packed.tobytes()
+    """Counts, packed scores, iHVPs and test vectors the same bits."""
+    check(np.array_equal(a.counts, b.counts)
+          and a._packed.tobytes() == b._packed.tobytes()
           and a.ihvp.tobytes() == b.ihvp.tobytes()
           and a.test_grad.tobytes() == b.test_grad.tobytes(),
-          f"{what}: two identical query_batch calls differ")
+          f"{what}: the two results differ bit for bit")
 
 
 def padded_small(family: str, model) -> dict:
@@ -1511,11 +1575,11 @@ def padded_small(family: str, model) -> dict:
     tq = tiny["test"].x[:21]
     out = {}
     for name, kw in SMALL_CONFIGS.items():
-        card = InfluenceEngine(tm, tp, tiny["train"], damping=SMALL_DAMPING,
+        card = engine(tm, tp, tiny["train"], damping=SMALL_DAMPING,
                                **kw)
         devices = spy_devices(card)
         on_card = card.query_batch(tq)
-        on_cpu = InfluenceEngine(tm, tp, tiny["train"], damping=SMALL_DAMPING,
+        on_cpu = engine(tm, tp, tiny["train"], damping=SMALL_DAMPING,
                                  device="cpu", **kw).query_batch(tq)
         what = f"{family} {name} card vs CPU (small)"
         check(card.solver == kw.get("solver", "direct"),
@@ -1762,8 +1826,8 @@ def train_full(family: str, model, train, pts) -> tuple[dict, dict]:
     rep["checkpoint"] = "bitwise equal"
     # the flat query on the trained weights: kernel against plain
     T = BATCHES[0]
-    eng = InfluenceEngine(model, state.params, train, damping=DAMPING)
-    plain = InfluenceEngine(model, state.params, train, damping=DAMPING,
+    eng = engine(model, state.params, train, damping=DAMPING)
+    plain = engine(model, state.params, train, damping=DAMPING,
                             kernel="torch", device=CARD)
     res, ref = eng.query_batch(pts[:T]), plain.query_batch(pts[:T])
     ops = operands(eng, pts, T)
@@ -1905,8 +1969,8 @@ def drive_rq2(family: str, cls, train, pts) -> dict:
         model = cls(USERS, ITEMS, k, WD)
         params = model.init_params(torch.Generator().manual_seed(0),
                                    device=CARD)
-        eng = InfluenceEngine(model, params, train, damping=DAMPING)
-        plain = InfluenceEngine(model, params, train, damping=DAMPING,
+        eng = engine(model, params, train, damping=DAMPING)
+        plain = engine(model, params, train, damping=DAMPING,
                                 kernel="torch", device=CARD)
         row = {}
         for name, bq in (("query_batch", None), ("query_many", RQ2_BATCH)):
@@ -2089,7 +2153,7 @@ def probe(train, pts) -> dict:
             model = cls(USERS, ITEMS, k, WD)
             params = model.init_params(torch.Generator().manual_seed(0),
                                        device=CARD)
-            eng = InfluenceEngine(model, params, train, damping=DAMPING)
+            eng = engine(model, params, train, damping=DAMPING)
             row = probe_split(eng, pts, RQ2_Q if wide else BATCHES[0], wide,
                               (64, 128, 256) if wide else (64, 256, 1024))
             out[f"{family} k={k}"] = row
@@ -2109,7 +2173,7 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 def ladder_engine(eng, train, **kw) -> InfluenceEngine:
     """An engine on ``eng``'s model and weights at another rung."""
     kw.setdefault("damping", DAMPING)
-    return InfluenceEngine(eng.model, eng.params, train, **kw)
+    return engine(eng.model, eng.params, train, **kw)
 
 
 def certificate_operands(samp, pts, T):
@@ -2535,8 +2599,8 @@ def drive_sampled_wide(train, pts) -> dict:
         model = cls(USERS, ITEMS, k, WD)
         params = model.init_params(torch.Generator().manual_seed(0),
                                    device=CARD)
-        direct = InfluenceEngine(model, params, train, damping=DAMPING)
-        samp = InfluenceEngine(model, params, train, damping=DAMPING,
+        direct = engine(model, params, train, damping=DAMPING)
+        samp = engine(model, params, train, damping=DAMPING,
                                solver="sampled", sampled_cap=SAMPLED_CAP)
         reset_counts()
         res = samp.query_batch(q)
@@ -2661,8 +2725,8 @@ def sampled_small(family: str, model) -> dict:
     tp = tm.init_params(torch.Generator().manual_seed(0))
     tq = tiny["test"].x.astype(np.int64)
     kw = dict(damping=1e-3, solver="sampled", sampled_cap=SAMPLED_CAP)
-    on_card = InfluenceEngine(tm, tp, tiny["train"], **kw).query_batch(tq)
-    on_cpu = InfluenceEngine(tm, tp, tiny["train"], device="cpu", **kw
+    on_card = engine(tm, tp, tiny["train"], **kw).query_batch(tq)
+    on_cpu = engine(tm, tp, tiny["train"], device="cpu", **kw
                              ).query_batch(tq)
     sampled = int((on_cpu.counts > SAMPLED_CAP).sum())
     check(sampled > 0 and bool((on_cpu.err_bound > 0).any()),
@@ -3077,7 +3141,7 @@ def drive_facade(workdir: str) -> dict:
                    train_dir=workdir, model_name="smoke-facade")
     fia.train(num_steps=FACADE_STEPS, verbose=False)
     got = fia.get_influence_on_test_loss([0])
-    eng = InfluenceEngine(fia.model, fia.params, tiny["train"], damping=1e-3)
+    eng = engine(fia.model, fia.params, tiny["train"], damping=1e-3)
     want = eng.get_influence_on_test_loss([0], tiny["test"])
     check(got.tobytes() == want.tobytes() and bool(np.isfinite(got).all()),
           "FIAModel: influence differs from the engine's")
@@ -3111,6 +3175,489 @@ def drive_ladder(engines, train, pts) -> dict:
     return out
 
 
+# -- phase 9: recovery and observability -----------------------------------
+# 9a: query_many over 1024 queries, 256 a batch, 4 in flight, a worker
+# death injected at the second dispatch; 9b: query_batch(1024) with a
+# worker death (then halves) and a preemption (then the same size) at the
+# first dispatch; 9c: a real CUDA OOM on the flat path, all but
+# OOM_MARGIN bytes of the card's free memory (and the allocator's cached
+# free blocks) held by blockers, and one inside a capture; 9d: a
+# real CUDA OOM on the padded direct program at PADDED_T queries, the
+# allocator capped at OOM_CAP_SHARE of the full batch's own memory above
+# what is resident; 9e: a device-side assert in a child process, whose
+# next query must raise DEVICE_LOST within STICKY_LIMIT_S; 9f: tracing on.
+RECOVERY_Q, RECOVERY_BATCH, RECOVERY_WINDOW = 1024, 256, 4
+OOM_MARGIN = 1 << 20
+BLOCKER_PIECES = 100_000  # the most blockers 9c allocates
+OOM_Q = 100  # 9c's query count: a geometry no earlier phase captured
+OOM_CAPTURE_Q = 200  # 9c's capture-time OOM: another new geometry
+# what a failed capture may leave reserved: a library workspace of the
+# warm-up's stream, not the graph's private pool (hundreds of MiB here)
+CAPTURE_LEFT_MB = 64
+OOM_CAP_SHARE = 0.75
+STICKY_LIMIT_S = 60.0
+TRACE_REPS = 3
+# the child of 9e: a small engine on the card with the CPU rung on (so
+# that taking it would show), one query, then an out-of-range index on
+# the card (a device-side assert, which poisons the CUDA context) and
+# the query again; prints what the query raised
+STICKY_CHILD = r"""
+import json, time
+import torch
+from fia_tpu_torch import obs
+from fia_tpu_torch.data.synthetic import synthetic_splits
+from fia_tpu_torch.influence.engine import InfluenceEngine
+from fia_tpu_torch.models import MF
+from fia_tpu_torch.reliability import inject, taxonomy
+tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+model = MF(60, 40, 8, 1e-3)
+eng = InfluenceEngine(model, model.init_params(torch.Generator().manual_seed(0)),
+                      tiny["train"], damping=1e-3, cpu_fallback=True)
+q = tiny["test"].x[:21]
+eng.query_batch(q)
+x = torch.zeros(4, device="cuda")
+x[torch.tensor([1 << 20], device="cuda")] += 1.0  # device-side assert
+out = {"cls": None, "message": None}
+t0 = time.perf_counter()
+with inject.active() as inj:
+    try:
+        eng.query_batch(q)
+    except Exception as e:
+        out["cls"] = taxonomy.classify(e)
+        out["message"] = str(e).splitlines()[0][:300]
+out["seconds"] = time.perf_counter() - t0
+snap = obs.REGISTRY.snapshot()["counters"]
+out["uploads"] = inj.counts.get("engine.upload", 0)
+out["resets"] = snap.get("engine.device_resets", 0)
+out["retries"] = sum(v for k, v in snap.items()
+                     if k.startswith("reliability.retries_total"))
+out["reliability_diags"] = snap.get("diag_total{channel=reliability}", 0)
+out["cpu_rung"] = eng._cpu_engine is not None
+print("STICKY " + json.dumps(out), flush=True)
+"""
+
+
+def recovery_counts() -> dict:
+    """The registry's recovery counters: retries (any kind), device-state
+    resets, reliability diagnostics (the CPU rung announces itself so,
+    and so does the NaN ladder)."""
+    snap = obs.REGISTRY.snapshot()["counters"]
+    return {"retries": sum(v for k, v in snap.items()
+                           if k.startswith("reliability.retries_total")),
+            "resets": snap.get("engine.device_resets", 0.0),
+            "cpu_rung_batches": snap.get("engine.cpu_fallback_batches", 0.0),
+            "reliability_diags": snap.get("diag_total{channel=reliability}",
+                                          0.0)}
+
+
+def no_recovery(phase: str) -> None:
+    """Fail if ``phase`` passed through a recovery ladder: it must pass on
+    the card, with no retry, rebuild or CPU rung."""
+    got = recovery_counts()
+    check(not any(got.values()), f"phase {phase} went through a recovery "
+          f"ladder: {got}")
+    log(f"phase {phase}: no retry, reset or reliability diagnostic")
+
+
+def engine_tensors(eng) -> dict:
+    """``id -> tensor`` of every tensor reachable from the engine and its
+    delegates: their attributes (dicts, tuples and lists of them), the
+    captured programs' static inputs and outputs, the CPU rung aside."""
+    out, seen = {}, set()
+    stack = [eng, *eng._delegates_deep()]
+    while stack:
+        obj = stack.pop()
+        if id(obj) in seen:
+            continue
+        seen.add(id(obj))
+        if isinstance(obj, torch.Tensor):
+            out[id(obj)] = obj
+        elif isinstance(obj, dict):
+            stack.extend(obj.values())
+            stack.extend(obj.keys())
+        elif isinstance(obj, (tuple, list)):
+            stack.extend(obj)
+        elif isinstance(obj, InfluenceEngine):
+            stack.extend(v for k, v in vars(obj).items() if k != "_cpu_engine")
+        elif isinstance(obj, _FlatGraph):
+            stack.extend((obj.inputs, obj.out))
+    return out
+
+
+def recover_worker_stream(family: str, eng, pts) -> dict:
+    """9a: a worker death mid-stream in ``query_many``."""
+    q = pts[:RECOVERY_Q]
+    kw = dict(batch_queries=RECOVERY_BATCH, window=RECOVERY_WINDOW)
+    base = eng.query_many(q, **kw)
+    ref = eng.query_batch(q)
+    same_bytes_stitched(base, ref, f"{family} 9a fault-free query_many")
+    # the second dispatch raises while the first is still in flight
+    before = engine_tensors(eng)
+    progs_before = len(eng._programs)
+    builds0 = compilemon.count()
+    with inject.active(inject.Fault(sites.ENGINE_DISPATCH_FLAT, at=1,
+                                    kind=taxonomy.WORKER),
+                       strict=True) as inj:
+        got = eng.query_many(q, **kw)
+    builds = compilemon.count() - builds0
+    check(inj.counts.get(sites.ENGINE_UPLOAD, 0) == 1,
+          f"{family} 9a: engine.upload fired {inj.counts}")
+    check(len(got) == len(base), f"{family} 9a: {len(got)} batches")
+    for k, (g, b) in enumerate(zip(got, base)):
+        same_bytes(g, b, f"{family} 9a batch {k}")
+    after = engine_tensors(eng)
+    stale = set(before) & set(after)
+    check(not stale, f"{family} 9a: {len(stale)} pre-reset tensors still "
+          "reachable from the engine or its delegates")
+    check(builds > 0, f"{family} 9a: nothing was recaptured after the reset")
+    out = {"dispatches": inj.counts.get(sites.ENGINE_DISPATCH_FLAT, 0),
+           "uploads": inj.counts.get(sites.ENGINE_UPLOAD, 0),
+           "graphs_before": progs_before, "graphs_after": len(eng._programs),
+           "captures_in_recovery": builds,
+           "tensors_before": len(before), "tensors_after": len(after),
+           "pre_reset_tensors_reachable": 0, "bitwise": True}
+    log(f"{family} 9a worker death mid-stream: {json.dumps(out)}")
+    return out
+
+
+def recover_batch(family: str, eng, pts) -> dict:
+    """9b: the halving and preemption ladders in one ``query_batch``."""
+    q = pts[:RECOVERY_Q]
+    base = eng.query_batch(q)
+    out = {}
+    for kind, want in ((taxonomy.WORKER, 3), (taxonomy.PREEMPTION, 2)):
+        t0 = time.perf_counter()
+        with inject.active(inject.Fault(sites.ENGINE_DISPATCH_FLAT, at=0,
+                                        kind=kind), strict=True) as inj:
+            got = eng.query_batch(q)
+        secs = time.perf_counter() - t0
+        n = inj.counts.get(sites.ENGINE_DISPATCH_FLAT, 0)
+        check(n == want and inj.counts.get(sites.ENGINE_UPLOAD, 0) == 1,
+              f"{family} 9b {kind}: {inj.counts} (want {want} dispatches, "
+              "one upload)")
+        same_bytes(got, base, f"{family} 9b {kind}")
+        out[kind] = {"dispatches": n, "seconds": secs, "bitwise": True}
+    log(f"{family} 9b ladders: {json.dumps(out)}")
+    return out
+
+
+def free_bytes() -> int:
+    torch.cuda.synchronize()
+    return int(torch.cuda.mem_get_info()[0])
+
+
+@contextlib.contextmanager
+def blocking(margin: int):
+    """Blockers holding, for the block, all of the card's free memory but
+    ``margin`` bytes (in whole 2 MiB pages, as the allocator maps them),
+    and every free block of 1 MiB or more inside the allocator's cached
+    segments (which would serve an allocation without asking the card);
+    released to the card when the block ends."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = (free_bytes() - margin) // (2 << 20) * (2 << 20)
+    held = [torch.empty(n, dtype=torch.uint8, device=CARD)]
+    size = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    while size >= 1 << 20 and len(held) < BLOCKER_PIECES:
+        try:
+            held.append(torch.empty(size, dtype=torch.uint8, device=CARD))
+        except torch.cuda.OutOfMemoryError:
+            size //= 2
+    try:
+        yield
+    finally:
+        del held
+        torch.cuda.empty_cache()
+
+
+def capture_state_clean(what: str) -> None:
+    check(not torch.cuda.is_current_stream_capturing()
+          and torch.cuda.current_stream() == torch.cuda.default_stream(),
+          f"{what}: a capture was left open, or the capture stream is "
+          "still current")
+
+
+def capture_oom(family: str, off, eng, q) -> dict:
+    """9c, inside a capture: the program of a new geometry asks, while
+    the stream captures, for more memory than the card has. The CUDA OOM
+    must rise classified OOM with the capture ended (no stream left
+    capturing, the previous stream current), the graph's pool released,
+    and the engine must capture that geometry afterwards and answer as
+    another engine does."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    inner = off._flat_fn
+
+    def greedy(s_pad, stage="scores", mode="direct"):
+        fn = inner(s_pad, stage, mode)
+
+        def run(*args):
+            if torch.cuda.is_current_stream_capturing():
+                torch.empty(total, dtype=torch.uint8, device=CARD)
+            return fn(*args)
+
+        return run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    off._flat_fn = greedy
+    err = None
+    try:
+        off.query_batch(q)
+    except Exception as e:
+        err = e
+    finally:
+        del off._flat_fn
+    check(err is not None, f"{family} 9c: no OOM inside the capture")
+    cls, text = taxonomy.classify(err), str(err)
+    del err  # its traceback holds the failed program's tensors
+    check(cls == taxonomy.OOM and ": capture: " in text,
+          f"{family} 9c in a capture: {cls!r}: {text[:400]}")
+    capture_state_clean(f"{family} 9c in a capture")
+    gc.collect()
+    torch.cuda.empty_cache()
+    left_mb = (torch.cuda.memory_reserved() - reserved0) / 2**20
+    check(left_mb < CAPTURE_LEFT_MB, f"{family} 9c: the failed capture "
+          f"left {left_mb} MiB reserved")
+    same_bytes(off.query_batch(q), eng.query_batch(q),
+                f"{family} 9c the geometry captured after the OOM")
+    return {"class": cls, "reserved_left_mb": left_mb,
+            "recaptured": "bitwise another engine's answer"}
+
+
+def recover_flat_oom(family: str, eng, train, pts) -> dict:
+    """9c: a real CUDA OOM on the flat path (an uncaptured geometry under
+    a blocker): it rises classified OOM with the CPU rung off, the CPU
+    rung answers with it on, and once the blocker is freed the same
+    engines answer on the card as before."""
+    q = pts[:OOM_Q]
+    want = eng.query_batch(q)  # the card's answer, another engine
+    off = engine(eng.model, eng.params, train, damping=DAMPING)
+    err = None
+    with blocking(OOM_MARGIN):
+        try:
+            off.query_batch(q)  # a fresh engine: the geometry is new
+        except Exception as e:
+            err = e
+    check(err is not None, f"{family} 9c: no OOM under the blocker")
+    cls, text = taxonomy.classify(err), str(err)
+    del err  # its traceback holds the failed program's tensors
+    check(cls == taxonomy.OOM, f"{family} 9c: the failure classified "
+          f"{cls!r}: {text[:400]}")
+    stage = ("capture" if ": capture: " in text else
+             "warm-up" if ": warm-up: " in text else "eager")
+    capture_state_clean(f"{family} 9c")
+    again = off.query_batch(q)
+    same_bytes(again, want, f"{family} 9c after the OOM (rung off)")
+    in_capture = capture_oom(family, off, eng, pts[:OOM_CAPTURE_Q])
+    # the CPU rung, on phase 4's small input
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+    tm = type(eng.model)(60, 40, 8, 1e-3)
+    tp = tm.init_params(torch.Generator().manual_seed(0))
+    tq, tq2 = tiny["test"].x[:21], tiny["test"].x[21:50]
+    card = engine(tm, tp, tiny["train"], damping=1e-3)
+    card_ans = card.query_batch(tq2)
+    on = InfluenceEngine(tm, tp, tiny["train"], damping=1e-3,
+                         cpu_fallback=True)
+    first = on.query_batch(tq)  # captured before the OOM
+    before = recovery_counts()
+    with blocking(OOM_MARGIN):
+        rung = on.query_batch(tq2)  # an uncaptured geometry: the CPU rung
+    capture_state_clean(f"{family} 9c (CPU rung)")
+    check(on._cpu_engine is not None, f"{family} 9c: the CPU rung did not run")
+    after = recovery_counts()
+    diags = after["reliability_diags"] - before["reliability_diags"]
+    batches = after["cpu_rung_batches"] - before["cpu_rung_batches"]
+    check(diags == 1 and batches == 1, f"{family} 9c: {diags} reliability "
+          f"diagnostics and {batches} CPU-rung batches, want 1 and 1")
+    parity = compare_results(rung, card_ans, f"{family} 9c CPU rung vs card",
+                             CPU_RTOL, CPU_ATOL, CPU_RHO_MIN)
+    same_bytes(on.query_batch(tq), first, f"{family} 9c replay after the OOM")
+    same_bytes(on.query_batch(tq2), card_ans,
+                f"{family} 9c the same engine on the card after the OOM")
+    out = {"rung_off": {"class": cls, "failed_in": stage,
+                        "message": text.splitlines()[0][:200]},
+           "in_capture": in_capture,
+           "cpu_rung": {"reliability_diags": diags, "batches": batches,
+                        **parity},
+           "after_blocker_freed": "bitwise the card's answer"}
+    log(f"{family} 9c flat OOM: {json.dumps(out)}")
+    return out
+
+
+def chunk_log(eng) -> list:
+    """Record each padded dispatch of ``eng`` as (queries, succeeded)."""
+    log_, inner = [], eng._query_padded
+
+    def spy(points, pad_to, s_pad=None):
+        try:
+            out = inner(points, pad_to, s_pad)
+        except Exception:
+            log_.append((len(points), False))
+            raise
+        log_.append((len(points), True))
+        return out
+
+    eng._query_padded = spy
+    return log_
+
+
+def recover_padded_oom(family: str, eng, train, pts) -> dict:
+    """9d: a real CUDA OOM on the padded direct program: the batch ends
+    in halves, the ceiling persists, and a fresh engine pre-chunks."""
+    q = pts[:PADDED_T]
+    full = padded_engine(eng, train, "direct", model_name=f"{family}-9d-ref")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    ref = full.query_batch(q)
+    need = torch.cuda.max_memory_reserved() - reserved0
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    limit = torch.cuda.memory_reserved() + OOM_CAP_SHARE * need
+    name = f"{family}-9d"
+    capped = padded_engine(eng, train, "direct", model_name=name)
+    fresh = padded_engine(eng, train, "direct", model_name=name)
+    first, second = chunk_log(capped), chunk_log(fresh)
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        got = capped.query_batch(q)
+        pad = got._pad
+        ok, bad = memlimits.load(capped._memkey)
+        with inject.active() as inj:  # an empty plan: counts dispatches
+            again = fresh.query_batch(q)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    failed = [n for n, ok_ in first if not ok_]
+    check(failed and failed[0] == PADDED_T, f"{family} 9d: the capped "
+          f"batch's dispatches {first}: no OOM at the full batch")
+    check(bad == min(failed) * pad, f"{family} 9d: memlimits recorded "
+          f"cells_bad {bad}, want {min(failed)} x {pad}")
+    check(all(ok_ for _, ok_ in second)
+          and [n for n, _ in second] == [n for n, ok_ in first if ok_]
+          and inj.counts.get(sites.ENGINE_DISPATCH_PADDED, 0) == len(second),
+          f"{family} 9d: the fresh engine dispatched {second}, want the "
+          f"capped run's successful chunks {first} and no failure")
+    ops = operands(eng, pts, PADDED_T)
+    parity = compare_results(got, ref, f"{family} 9d halves vs uncapped",
+                             PADDED_RTOL, PADDED_ATOL, PADDED_RHO,
+                             relu_excuse(family, ops))
+    same_bytes(again, got, f"{family} 9d the pre-chunked engine")
+    bitwise = (got._packed.tobytes() == ref._packed.tobytes()
+               and got.ihvp.tobytes() == ref.ihvp.tobytes())
+    out = {"uncapped_mb": need / 2**20, "cap_mb": limit / 2**20,
+           "dispatches": first, "fresh_dispatches": second,
+           "cells_ok": ok, "cells_bad": bad, "pad": pad,
+           "bitwise_vs_uncapped": bitwise, **parity}
+    log(f"{family} 9d padded OOM: {json.dumps(out)}")
+    return out
+
+
+def recover_sticky() -> dict:
+    """9e: a device-side assert in a child process, then a query: it
+    must raise DEVICE_LOST within STICKY_LIMIT_S, with no retry, reset
+    or CPU rung."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", STICKY_CHILD],
+                          capture_output=True, text=True,
+                          timeout=STICKY_LIMIT_S + 120)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("STICKY ")]
+    check(len(lines) == 1, f"9e: the child printed no result (exit "
+          f"{proc.returncode}): {proc.stderr[-2000:]}")
+    out = json.loads(lines[0][len("STICKY "):])
+    check(out["cls"] == taxonomy.DEVICE_LOST, f"9e: the query raised "
+          f"{out['cls']!r}: {out['message']}")
+    check(out["seconds"] < STICKY_LIMIT_S, f"9e: {out['seconds']:.1f} s to "
+          "raise")
+    check(not (out["uploads"] or out["resets"] or out["retries"]
+               or out["reliability_diags"] or out["cpu_rung"]),
+          f"9e: the failure went through a recovery ladder: {out}")
+    out["child_seconds"] = time.perf_counter() - t0
+    log(f"9e sticky error: {json.dumps(out)}")
+    return out
+
+
+def trace_on_card(family: str, eng, pts) -> dict:
+    """9f: tracing on, no host wait in a dispatch, the same bits."""
+    q = pts[:RECOVERY_Q]
+    kw = dict(batch_queries=RECOVERY_BATCH, window=RECOVERY_WINDOW)
+
+    def walls(traced: bool):
+        obs.configure(trace=traced)
+        try:
+            times, res = [], None
+            for _ in range(TRACE_REPS):
+                # host results: the fetch already waited on the card
+                res, s = fenced_time(eng.query_many, q, **kw)
+                times.append(s * 1e3)
+            return float(np.median(times)), res
+        finally:
+            obs.configure(trace=False)
+
+    plain_ms, plain = walls(False)
+    obs.TRACER.reset()
+    dispatch = eng._dispatch_flat
+    dispatch_without_waits(eng)
+    try:
+        traced_ms, traced = walls(True)
+        obs.configure(trace=True)
+        try:
+            with obs.trace(f"{family}-9f"):
+                one = eng.query_batch(q[:RECOVERY_BATCH])
+        finally:
+            obs.configure(trace=False)
+    finally:
+        eng._dispatch_flat = dispatch
+    for k, (a, b) in enumerate(zip(traced, plain)):
+        same_bytes(a, b, f"{family} 9f traced batch {k}")
+    same_bytes_stitched([one], plain[0], f"{family} 9f traced query_batch")
+    spans = [span_fields(s) for s in obs.TRACER.flush()]
+    names = [s["name"] for s in spans]
+    for name in ("engine.query", "engine.dispatch_flat"):
+        check(name in names, f"{family} 9f: no {name} span")
+    doc = json.loads(json.dumps(perfetto(spans)))
+    check(len([e for e in doc["traceEvents"] if e["ph"] == "X"])
+          == len(spans), f"{family} 9f: the Perfetto export lost spans")
+    prom = prometheus(obs.REGISTRY.snapshot())
+    for line in prom.splitlines():
+        if not line.startswith("#"):
+            float(line.rsplit(" ", 1)[1])  # every sample parses
+    out = {"untraced_ms": plain_ms, "traced_ms": traced_ms,
+           "spans": len(spans),
+           "dispatch_spans": names.count("engine.dispatch_flat"),
+           "prometheus_lines": len(prom.splitlines()), "bitwise": True}
+    log(f"{family} 9f tracing: {json.dumps(out)}")
+    return out
+
+
+def drive_recovery(engines, train, pts) -> dict:
+    """Phase 9 (each model: 9a, 9b, 9c, 9d, 9f; 9e once), its memory
+    envelope in a file of its own."""
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        os.environ["FIA_MEMLIMIT_CACHE"] = os.path.join(workdir, "mem.json")
+        for family, (eng0, _) in engines.items():
+            t0 = time.perf_counter()
+            eng = InfluenceEngine(eng0.model, eng0.params, train,
+                                  damping=DAMPING)  # the CPU rung on
+            row = {"9a": recover_worker_stream(family, eng, pts),
+                   "9b": recover_batch(family, eng, pts),
+                   "9c": recover_flat_oom(family, eng, train, pts),
+                   "9d": recover_padded_oom(family, eng0, train, pts),
+                   "9f": trace_on_card(family, eng, pts)}
+            row["seconds"] = time.perf_counter() - t0
+            out[family] = row
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["9e"] = recover_sticky()
+    return out
+
+
 def main() -> int:
     # -- phase 1: the card ---------------------------------------------
     if not torch.cuda.is_available():
@@ -3119,6 +3666,11 @@ def main() -> int:
         return 2
     card = card_line()
     kind = torch.cuda.get_device_name(0)
+    # the padded path's learned memory envelope goes to a file of this
+    # run's own, not into the checkout
+    envelope_dir = tempfile.TemporaryDirectory()
+    os.environ["FIA_MEMLIMIT_CACHE"] = os.path.join(envelope_dir.name,
+                                                    "mem.json")
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
     # -- phase 2: build --------------------------------------------------
@@ -3153,6 +3705,7 @@ def main() -> int:
     for family, (eng, plain) in engines.items():
         checked[family] = check_kernel(family, eng, pts)
         driven[family] = drive(family, eng, plain, pts)
+    no_recovery("3-4")
 
     # -- the split-invariance probe, the any-split and graph phases ----
     t_split = time.perf_counter()
@@ -3174,6 +3727,7 @@ def main() -> int:
         graphs[family] = drive_graphs(family, eng, train, pts)
     split_s = time.perf_counter() - t_split
     log(f"probe, any-split and graph phases: {split_s:.1f} s")
+    no_recovery("S")
 
     # -- phase 5: times --------------------------------------------------
     perf = {"card": card, "build": build, "models": {},
@@ -3227,10 +3781,13 @@ def main() -> int:
         "mf": seg_rows["mf"],
     })
 
+    no_recovery("5")
+
     # -- phase 6: the padded per-query program -------------------------
     for family, (eng, _) in engines.items():
         perf["models"][family]["padded"] = drive_padded(family, eng, train,
                                                         pts)
+    no_recovery("6")
 
     # -- phase 7: training, checkpoints, RQ1 and RQ2 -------------------
     t7 = time.perf_counter()
@@ -3239,7 +3796,7 @@ def main() -> int:
     for row, (family, (eng, _)) in zip(rows, engines.items()):
         out = {"card_vs_cpu": train_small(family, classes[family])}
         params, out["full"] = train_full(family, eng.model, train, pts)
-        trained = InfluenceEngine(eng.model, params, train, damping=DAMPING)
+        trained = engine(eng.model, params, train, damping=DAMPING)
         out["rq1"] = drive_rq1(family, trained, train, pts)
         out["rq2"] = drive_rq2(family, classes[family], train, pts)
         perf["models"][family]["train"] = out
@@ -3262,6 +3819,7 @@ def main() -> int:
     rows[-1]["launches_by_path"] = seg_by_path
     perf["phase7_seconds"] = time.perf_counter() - t7
     log(f"phase 7: {perf['phase7_seconds']:.1f} s")
+    no_recovery("7")
 
     # -- phase 8: the rest of the solver ladder ------------------------
     t8 = time.perf_counter()
@@ -3333,6 +3891,14 @@ def main() -> int:
     })
     perf["phase8_seconds"] = time.perf_counter() - t8
     log(f"phase 8: {perf['phase8_seconds']:.1f} s")
+    no_recovery("8")
+
+    # -- phase 9: recovery and observability ---------------------------
+    t9 = time.perf_counter()
+    perf["recovery"] = drive_recovery(engines, train, pts)
+    perf["phase9_seconds"] = time.perf_counter() - t9
+    log(f"phase 9: {perf['phase9_seconds']:.1f} s")
+    envelope_dir.cleanup()
 
     log("perf " + json.dumps(perf, sort_keys=True))
     log(card)

@@ -20,11 +20,11 @@ the reference's ``jax.random`` draws (ROADMAP Queue C).
 from __future__ import annotations
 
 import os
-import sys
 
 import numpy as np
 import torch
 
+from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.index import InteractionIndex
 from fia_tpu_torch.device import resolve_device
@@ -175,11 +175,12 @@ class FIAModel:
         return memo[1]
 
     def _log_event(self, event: str, **fields) -> None:
-        """A model-lifecycle event as one line on stderr (the reference
+        """A model-lifecycle event as an :func:`obs.diag
+        <fia_tpu_torch.obs.diag>` on the event's channel (the reference
         routes it into a serving layer's metrics log when one is
         attached; serving is ROADMAP Queue A.11)."""
         body = " ".join(f"{k}={v}" for k, v in fields.items())
-        sys.stderr.write(f"[{event}] {body}\n")
+        obs.diag(event, body)
 
     def _refresh_factor_bank(self):
         """Surgical factor-bank invalidation on a params/train change

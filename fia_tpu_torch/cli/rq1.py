@@ -144,10 +144,9 @@ def main(argv=None):
         args, model, params, splits, event_log=log
     )
 
-    # no iHVP cache under --train_dir: the engine's cache_dir is ROADMAP
-    # Queue A.10
     engine = InfluenceEngine(
         model, state.params, train,
+        cache_dir=args.train_dir,
         model_name=common.model_name_for(args, splits=splits),
         **common.engine_kwargs(args),
     )

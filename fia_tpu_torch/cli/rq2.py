@@ -39,6 +39,7 @@ def main(argv=None):
 
     engine = InfluenceEngine(
         model, state.params, train,
+        cache_dir=args.train_dir,
         model_name=common.model_name_for(args, splits=splits),
         **common.engine_kwargs(args),
     )

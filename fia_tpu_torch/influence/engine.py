@@ -14,7 +14,11 @@ load/unload methods, ``_bank_fn``, ``_query_bank_hits``,
 (``_flat_fn``'s sampled mode, ``_query_sampled``, ``_dispatch_sampled``,
 ``_sampled_fallback``, ``approx_sibling``, ``_result_take``),
 ``query_batch``, ``get_influence_on_test_loss`` with its iHVP disk cache,
-and ``related_indices``).
+``related_indices``, and the device-failure recovery ladders:
+``_upload_device_state``/``_reset_device_state``, ``_query_flat``'s
+rebuild-and-retry, ``_query_on_cpu``, ``query_many``'s crash recovery and
+the padded path's memory envelope, ``_query_padded_adaptive`` and
+``_adaptive_run`` with :mod:`fia_tpu_torch.utils.memlimits`).
 
 For a test interaction (u*, i*) the engine computes the block-restricted
 inverse-HVP and scores every related training row's influence on the
@@ -49,6 +53,26 @@ from resident CSR postings:
   solve batched over T, and scores by per-example gradient and matvec
   (no score kernel).
 
+A classified device failure (:mod:`fia_tpu_torch.reliability.taxonomy`)
+walks a recovery ladder, as in the reference: a preemption rebuilds the
+device state from the host copies taken at construction and retries at
+the same size, a worker death rebuilds and retries in halves, an
+out-of-memory failure halves a padded batch (learning a memory envelope
+that persists across processes) or ends a flat one at the CPU rung
+(``cpu_fallback``, off by default). An unclassified failure (a kernel that does not
+build or launch) and CUDA's sticky errors (``DEVICE_LOST``) rise. The
+flat program is split invariant, so a flat batch recovered by halving
+or resumed after a crash gives the bits of the run without the fault.
+
+The engine reports into the obs spine (:mod:`fia_tpu_torch.obs`) under
+the reference's names: spans ``engine.query``, ``engine.dispatch_flat``,
+``engine.dispatch_sampled``, ``engine.precompile``, ``engine.bank_load``;
+counters ``engine.aot_hits``/``aot_misses``, ``engine.bank_hits``/
+``bank_misses``, ``engine.sampled_queries``,
+``engine.sampled_escalations{reason}``, ``engine.queries_total{solver}``,
+``engine.solver_escalations{from,to}``, and the port's
+``engine.device_resets`` and ``engine.cpu_fallback_batches``.
+
 Options of the reference that the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -60,12 +84,12 @@ import copy
 import gc
 import math
 import os
-import sys
 import time
 
 import numpy as np
 import torch
 
+from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.index import InteractionIndex, bucketed_pad
 from fia_tpu_torch.device import resolve_device
@@ -79,7 +103,7 @@ from fia_tpu_torch.influence.kernels import common as Kc
 from fia_tpu_torch.influence.kernels import eigmin as Keig
 from fia_tpu_torch.influence.kernels import segment as Kseg
 from fia_tpu_torch.reliability import inject, policy, sites, taxonomy
-from fia_tpu_torch.utils import compilemon
+from fia_tpu_torch.utils import compilemon, memlimits
 
 #: the flat program's cumulative prefixes (``_flat_fn(stage=...)``)
 STAGES = ("grads", "hessian", "solve", "scores")
@@ -91,6 +115,13 @@ MODES = ("direct", "sampled", "bank")
 #: the last padded by repeating its final query, because on the card
 #: their library kernels are chosen by batch size and change bits with it
 QUERY_PIECE = 64
+#: failure kinds the device ladders absorb (rebuild, retry, halve, the CPU
+#: rung); every other kind, and an unclassified failure, rises
+_ADAPTIVE_KINDS = frozenset({taxonomy.OOM, taxonomy.AMBIGUOUS,
+                             taxonomy.WORKER, taxonomy.PREEMPTION})
+#: those the padded path's envelope absorbs (halve, rebuild, retry)
+_PADDED_KINDS = frozenset({taxonomy.OOM, taxonomy.WORKER,
+                           taxonomy.PREEMPTION})
 
 
 class InfluenceResult:
@@ -257,7 +288,12 @@ def capturing(graph):
     """``torch.cuda.graph(graph)`` with Python's cyclic collector paused.
     A collection in the middle of a capture can free a dead graph (one
     of a dropped engine's, held in a reference cycle), and destroying a
-    graph while a stream captures invalidates the capture."""
+    graph while a stream captures invalidates the capture.
+
+    A failure inside the capture (a CUDA out-of-memory error, say) rises
+    unchanged once ``torch.cuda.graph``'s exit has ended the capture and
+    restored the previous stream; where ending the capture fails itself,
+    that error rises instead, chained to the body's, and is unclassified."""
     enabled = gc.isenabled()
     gc.disable()
     try:
@@ -289,17 +325,31 @@ class _FlatGraph:
                             for shape, dtype in inputs)
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            fn(*args, *self.inputs)
+        try:
+            with torch.cuda.stream(side):
+                fn(*args, *self.inputs)
+        except Exception as e:
+            raise RuntimeError(f"warm-up: {e}") from e
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         captured = K.captured_counts()
-        self.graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        with capturing(self.graph):
-            self.out = fn(*args, *self.inputs)
+        try:
+            with capturing(graph):
+                out = fn(*args, *self.inputs)
+        except Exception as e:
+            # the partial graph and its private pool go now, not when
+            # the traceback that holds this frame is collected
+            try:
+                graph.reset()
+            except Exception:
+                pass
+            torch.cuda.empty_cache()
+            raise RuntimeError(f"capture: {e}") from e
+        self.graph, self.out = graph, out
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.launches = tuple(b - a for a, b in zip(captured,
@@ -367,6 +417,15 @@ class InfluenceEngine:
         like the reference.
       sampled_cap, sampled_tol: the sampled rung's per-query sample cap
         (rows) and error-bound tolerance.
+      cpu_fallback: the flat ladder's last rung, off by default (the
+        reference's default is on): with it on, after a classified
+        device failure the ladder could not absorb on the device (an
+        out-of-memory or ambiguous failure, a worker death past its
+        halving), the batch is answered on the CPU from the host copies
+        (:meth:`_query_on_cpu`), each such batch counted in
+        ``engine.cpu_fallback_batches`` and announced on the
+        ``reliability`` channel. Off, the failure rises, so no caller's
+        batch leaves the card unless it asked for that.
       device: ``None`` (the CUDA device; raises without one), ``"cuda"``
         or ``"cpu"``.
     """
@@ -392,11 +451,12 @@ class InfluenceEngine:
         pad_policy: str = "batch",
         impl: str = "auto",
         flat_chunk: int = 2048,
+        flat_accum: str = "auto",
         row_features: str = "auto",
+        cpu_fallback: bool = False,
         query_bucket: int = 64,
         kernel: str = "auto",
         lissa_tune: str = "spectral",
-        flat_accum: str = "auto",
         sampled_cap: int = sampled_mod.DEFAULT_CAP,
         sampled_tol: float = float("inf"),
         device=None,
@@ -428,18 +488,20 @@ class InfluenceEngine:
         self.model = model
         self.kernel = kernel
         self._kernel_variant = K.resolve_variant(kernel, model, self.device)
-        self.params = {
-            k: torch.as_tensor(v, dtype=torch.float32).to(self.device)
+        # Host copies (float32 numpy) survive a device failure: the device
+        # state is rebuilt from them (_upload_device_state), the CPU rung
+        # and the factor bank's dependency digests read them
+        self._params_host = {
+            k: (v.detach().to("cpu", torch.float32).numpy()
+                if isinstance(v, torch.Tensor)
+                else np.asarray(v, np.float32))
             for k, v in params.items()
         }
-        self._params_np = None  # host copies, made on first need
         self._train_host = (np.asarray(train.x), np.asarray(train.y))
         self.index = InteractionIndex(train.x, model.num_users, model.num_items)
-        self.train_x = torch.as_tensor(train.x).to(self.device)  # int32
-        self.train_y = torch.as_tensor(train.y).to(self.device)
-        self._postings = tuple(
-            torch.as_tensor(a).to(self.device) for a in self.index.postings()
-        )
+        self._upload_device_state()
+        self.cpu_fallback = bool(cpu_fallback)
+        self._is_cpu_fallback = False
         self.damping = float(damping)
         self.solver = solver
         self.cg_maxiter = int(cg_maxiter)
@@ -476,9 +538,81 @@ class InfluenceEngine:
         self.sampled_tol = float(sampled_tol)
         self._init_state()
 
+    def _upload_device_state(self) -> None:
+        """(Re)build every device-resident tensor from the host copies:
+        the params, the train tensors and the CSR postings (related sets
+        are gathered on the device, so a dispatch uploads only its query
+        block). Called at construction, and again by
+        :meth:`_reset_device_state` after a device failure."""
+        inject.fire(sites.ENGINE_UPLOAD)
+        self.params = {k: torch.as_tensor(v).to(self.device)
+                       for k, v in self._params_host.items()}
+        self.train_x = torch.as_tensor(self._train_host[0]).to(self.device)
+        self.train_y = torch.as_tensor(self._train_host[1]).to(self.device)
+        self._postings = tuple(
+            torch.as_tensor(a).to(self.device) for a in self.index.postings()
+        )
+
+    def _reset_device_state(self, max_wait_s: float = 120.0) -> None:
+        """Recover the device state after a classified device failure
+        (a worker death or a preemption, in the reference's words).
+
+        Every captured CUDA graph (with its private memory pool) and
+        every armed geometry is dropped, of this engine and of each
+        delegate, and the allocator's cached blocks go back to the card;
+        then the params, train tensors and postings are uploaded again
+        from the host copies, the factor bank is placed again, and every
+        delegate is re-pointed at the new tensors, so no engine holds a
+        tensor from before the reset. The next dispatch recaptures.
+        Host-side state (the index, the learned memory envelope, the
+        counters) survives.
+
+        An upload that fails with the worker-death or preemption
+        signature backs off and retries under the reference's policy
+        (8 attempts, 2 s base, 30 s cap) within ``max_wait_s``.
+        """
+        obs.REGISTRY.counter("engine.device_resets").inc()
+        obs.event("engine.reset")
+        engines = self._delegates_deep()
+        for eng in (self, *engines):
+            eng._programs.clear()
+            eng._aot.clear()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        pol = policy.RetryPolicy(max_attempts=8, base_delay=2.0,
+                                 max_delay=30.0, jitter=0.25)
+        pol.run(self._upload_device_state,
+                retry_on=(taxonomy.WORKER, taxonomy.PREEMPTION),
+                deadline=policy.Deadline(max_wait_s))
+        self._place_bank()
+        for eng in engines:
+            eng.params = dict(self.params)
+            eng.train_x, eng.train_y = self.train_x, self.train_y
+            eng._postings = self._postings
+            eng._place_bank()
+
+    def _delegates(self) -> list:
+        """The engines this one hands queries to (the bank's miss
+        delegate, the sampled rung's fallback, the approximate sibling):
+        siblings that share its device tensors."""
+        return [d for d in (self._bank_delegate, self._sampled_delegate,
+                            self._approx_sibling)
+                if d is not None and d is not self]
+
+    def _delegates_deep(self) -> list:
+        """Every delegate, and theirs, once each."""
+        out, stack = [], self._delegates()
+        while stack:
+            d = stack.pop()
+            if all(d is not e for e in out):
+                out.append(d)
+                stack.extend(d._delegates())
+        return out
+
     def _init_state(self) -> None:
         """The engine's own mutable state: compiled programs, the factor
-        bank, delegates and counters (a sibling starts with fresh ones)."""
+        bank, delegates, the CPU rung, the padded path's memory envelope
+        and counters (a sibling starts with fresh ones)."""
         # flat programs by _flat_key: CUDA graphs on the card, the
         # program closures on the CPU; and the keys precompile_flat armed
         self._programs: dict = {}
@@ -501,18 +635,19 @@ class InfluenceEngine:
         self._sampled_queries = 0
         self._sampled_escalations: dict[str, int] = {}
         self._params_fp = None
+        # the last rung of the flat ladder (built on first need)
+        self._cpu_engine: InfluenceEngine | None = None
+        # the padded path's memory envelope, in (queries x pad) cells:
+        # the largest that dispatched, the smallest that failed with an
+        # out-of-memory error, and a success size that refutes a
+        # persisted ceiling; seeded lazily from memlimits
+        self._cells_ok = 0
+        self._cells_bad = memlimits.UNSET_BAD
+        self._cleared_bad = 0
+        self._memkey = None
 
     def active_kernel_variant(self) -> str:
         return self._kernel_variant
-
-    @property
-    def _params_host(self) -> dict:
-        """Host (numpy float32) copies of the params, fetched once: the
-        factor bank's dependency digests read them."""
-        if self._params_np is None:
-            self._params_np = {k: v.detach().cpu().numpy()
-                               for k, v in self.params.items()}
-        return self._params_np
 
     def _sibling(self, solver: str) -> "InfluenceEngine":
         """A config-identical engine at another rung, with no disk cache,
@@ -757,15 +892,19 @@ class InfluenceEngine:
             return {"compiled": [], "cached": [], "seconds": 0.0}
         t0 = time.perf_counter()
         compiled, cached = [], []
-        for t_pad, s_pad in geometries:
-            t_pad, s_pad = int(t_pad), int(s_pad)
-            key = self._flat_key(t_pad, s_pad)
-            if key in self._programs:
-                cached.append([t_pad, s_pad])
-            else:
-                self._programs[key] = self._build_flat(t_pad, s_pad)
-                compiled.append([t_pad, s_pad])
-            self._aot.add(key)
+        # each capture's compile.backend event (compilemon) attaches to
+        # this span: the geometry's attribution
+        with obs.span("engine.precompile") as sp:
+            for t_pad, s_pad in geometries:
+                t_pad, s_pad = int(t_pad), int(s_pad)
+                key = self._flat_key(t_pad, s_pad)
+                if key in self._programs:
+                    cached.append([t_pad, s_pad])
+                else:
+                    self._programs[key] = self._build_flat(t_pad, s_pad)
+                    compiled.append([t_pad, s_pad])
+                self._aot.add(key)
+            sp.set(compiled=len(compiled), cached=len(cached))
         return {"compiled": compiled, "cached": cached,
                 "seconds": time.perf_counter() - t0}
 
@@ -785,7 +924,8 @@ class InfluenceEngine:
         ihvp, v, err_bound)`` ("sampled"). On the card a captured CUDA
         graph (raising with the cause if the program cannot be
         captured), on the CPU the program closure. Each build is counted
-        by :mod:`fia_tpu_torch.utils.compilemon`."""
+        by :mod:`fia_tpu_torch.utils.compilemon`, with its capture
+        time."""
         fn = self._flat_fn(s_pad, mode=mode)
         args = (self.params, self.train_x, self.train_y, self._postings)
         inputs = [((t_pad, 2), torch.int32)]
@@ -799,15 +939,17 @@ class InfluenceEngine:
                              bknd)
         elif mode == "sampled":
             inputs += [((s_pad,), torch.float32), ((t_pad,), torch.int32)]
-        compilemon.record()
         if self.device.type != "cuda":
+            compilemon.record()
             return lambda *xs: fn(*args, *xs)
         try:
-            return _FlatGraph(fn, args, inputs, self.device)
+            prog = _FlatGraph(fn, args, inputs, self.device)
         except Exception as e:
             raise RuntimeError(
                 f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
                 f"{s_pad}) could not be captured as a CUDA graph: {e}") from e
+        compilemon.record(prog.capture_s)
+        return prog
 
     def _flat_exec(self, t_pad: int, s_pad: int, mode: str = "direct"):
         """The program for one dispatch geometry: the one
@@ -815,6 +957,9 @@ class InfluenceEngine:
         now (captured on its first dispatch, as ``jit`` compiles on its
         first call)."""
         key = self._flat_key(t_pad, s_pad, mode)
+        if mode == "direct":
+            obs.REGISTRY.counter("engine.aot_hits" if key in self._aot
+                                 else "engine.aot_misses").inc()
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = self._build_flat(t_pad, s_pad, mode)
@@ -860,13 +1005,16 @@ class InfluenceEngine:
     def _dispatch_flat(self, test_points: np.ndarray, pad_to: int | None):
         """Enqueue one flat query program; returns a handle for
         :meth:`_finalize_flat`. Work is queued on the current stream and
-        the host moves on."""
-        counts, tx, s_pad = self._flat_inputs(test_points)
-        pad = bucketed_pad(
-            counts.max() if counts.size else 1, self.pad_bucket, pad_to
-        )
-        out = self._flat_exec(tx.shape[0], s_pad)(tx)
-        return (test_points, counts, out, pad)
+        the host moves on (the ``engine.dispatch_flat`` span times the
+        enqueue)."""
+        with obs.span("engine.dispatch_flat", n=int(len(test_points))):
+            inject.fire(sites.ENGINE_DISPATCH_FLAT)
+            counts, tx, s_pad = self._flat_inputs(test_points)
+            pad = bucketed_pad(
+                counts.max() if counts.size else 1, self.pad_bucket, pad_to
+            )
+            out = self._flat_exec(tx.shape[0], s_pad)(tx)
+            return (test_points, counts, out, pad)
 
     def _finalize_flat(self, handle) -> InfluenceResult:
         test_points, counts, out, pad = handle
@@ -899,8 +1047,74 @@ class InfluenceEngine:
         )
 
     def _query_flat(self, test_points: np.ndarray,
-                    pad_to: int | None = None) -> InfluenceResult:
-        return self._finalize_flat(self._dispatch_flat(test_points, pad_to))
+                    pad_to: int | None = None,
+                    _depth: int = 0) -> InfluenceResult:
+        """One flat dispatch, with the reference's device ladder
+        (``engine.py:1400-1438``): after a preemption, rebuild the device
+        state and retry at the same size; after a worker death, rebuild
+        and retry in halves (⌈T/2⌉ then ⌊T/2⌋); both to depth 3. An
+        out-of-memory or ambiguous failure, or a worker death past the
+        ladder, ends at the CPU rung (:meth:`_query_on_cpu`) where it is
+        enabled; anything else rises. The program is split invariant, so
+        a result recovered in halves has the bits of one dispatch."""
+        try:
+            return self._finalize_flat(
+                self._dispatch_flat(test_points, pad_to))
+        except Exception as e:
+            T = len(test_points)
+            cls = taxonomy.classify(e)
+            if cls == taxonomy.PREEMPTION and _depth < 3:
+                # no size evidence: rebuild (the reset's own backoff
+                # waits out the reclaim) and retry at the same size
+                self._reset_device_state()
+                return self._query_flat(test_points, pad_to, _depth + 1)
+            if cls != taxonomy.WORKER or _depth >= 3 or T <= 1:
+                if cls in _ADAPTIVE_KINDS:
+                    cpu = self._query_on_cpu(test_points, pad_to)
+                    if cpu is not None:
+                        return cpu
+                raise
+            # a worker death took every device buffer: rebuild, then
+            # retry at half the size
+            self._reset_device_state()
+            h = (T + 1) // 2
+            return _concat_results([
+                self._query_flat(test_points[:h], pad_to, _depth + 1),
+                self._query_flat(test_points[h:], pad_to, _depth + 1),
+            ])
+
+    def _query_on_cpu(self, test_points: np.ndarray, pad_to: int | None
+                      ) -> InfluenceResult | None:
+        """The last rung: answer the batch on the CPU, from one engine
+        (built on first need, ``device="cpu"``) over the host copies,
+        which survive any device failure; a forced CUDA score kernel
+        becomes ``auto`` there (the plain versions). Every batch it
+        answers is counted (``engine.cpu_fallback_batches``) and
+        announced. ``None`` where the rung does not apply
+        (``cpu_fallback=False``, or this engine is itself the CPU rung),
+        so the caller surfaces the failure."""
+        if not self.cpu_fallback or self._is_cpu_fallback:
+            return None
+        obs.REGISTRY.counter("engine.cpu_fallback_batches").inc()
+        obs.diag("reliability", "device-side recovery exhausted; "
+                 "degrading to the CPU backend for this query")
+        if self._cpu_engine is None:
+            eng = InfluenceEngine(
+                self.model, self._params_host,
+                RatingDataset(*self._train_host),
+                damping=self.damping, solver=self.solver,
+                cg_maxiter=self.cg_maxiter, cg_tol=self.cg_tol,
+                lissa_scale=self.lissa_scale, lissa_depth=self.lissa_depth,
+                model_name=self.model_name + "-cpufb",
+                pad_bucket=self.pad_bucket, hessian_mode="auto",
+                impl="auto",
+                kernel="auto" if self.kernel == "cuda" else self.kernel,
+                lissa_tune=self.lissa_tune, sampled_cap=self.sampled_cap,
+                sampled_tol=self.sampled_tol, device="cpu",
+            )
+            eng._is_cpu_fallback = True
+            self._cpu_engine = eng
+        return self._cpu_engine.query_batch(test_points, pad_to=pad_to)
 
     def _flat_eligible(self) -> bool:
         return self.solver == "direct" and self._gn_hooks()
@@ -1006,14 +1220,14 @@ class InfluenceEngine:
             inject.fire(sites.ENGINE_FACTOR_LOAD)
             bank, dropped = fbank.load_bank(path, self)
         except artifacts.ArtifactIntegrityError as e:
-            _diag(f"factor bank rejected ({e.reason}); queries fall "
-                  "through the solver ladder")
+            obs.diag("reliability", f"factor bank rejected ({e.reason}); "
+                     "queries fall through the solver ladder")
             return 0
         except Exception as e:
             if taxonomy.classify(e) is None:
                 raise
-            _diag("factor bank load failed transiently; serving without "
-                  "the bank")
+            obs.diag("reliability", "factor bank load failed transiently; "
+                     "serving without the bank")
             return 0
         self._bank_dropped_stale = int(dropped)
         if len(bank) == 0:
@@ -1036,7 +1250,9 @@ class InfluenceEngine:
     def ensure_factor_bank(self) -> int:
         """Load the bank once, lazily; returns the servable entry count."""
         if not self._bank_load_attempted:
-            self.load_factor_bank()
+            with obs.span("engine.bank_load") as sp:
+                self.load_factor_bank()
+                sp.set(entries=0 if self._bank is None else len(self._bank))
         return 0 if self._bank is None else len(self._bank)
 
     def unload_factor_bank(self) -> None:
@@ -1098,6 +1314,8 @@ class InfluenceEngine:
                 raise
             self._bank_hits -= len(points)
             self._bank_misses += len(points)
+            obs.REGISTRY.counter(
+                "engine.bank_hit_fallbacks").inc(len(points))
             return self._miss_delegate().query_batch(points, pad_to=pad_to)
 
     def _merge_stream(self, test_points, hits, misses,
@@ -1137,6 +1355,7 @@ class InfluenceEngine:
         T = test_points.shape[0]
         if not self._bank_serving_eligible():
             self._bank_misses += T
+            obs.REGISTRY.counter("engine.bank_misses").inc(T)
             return self._miss_delegate().query_batch(test_points,
                                                      pad_to=pad_to)
         lut = self._bank_lookup
@@ -1146,6 +1365,9 @@ class InfluenceEngine:
         nh = int(np.count_nonzero(hit))
         self._bank_hits += nh
         self._bank_misses += T - nh
+        obs.REGISTRY.counter("engine.bank_hits").inc(nh)
+        obs.REGISTRY.counter("engine.bank_misses").inc(T - nh)
+        obs.event("bank.partition", hits=nh, misses=T - nh)
         if nh == T:
             return self._query_bank_hits(test_points, rows, pad_to)
         if nh == 0:
@@ -1162,14 +1384,15 @@ class InfluenceEngine:
     def _count_escalations(self, reason: str, n: int) -> None:
         self._sampled_escalations[reason] = (
             self._sampled_escalations.get(reason, 0) + int(n))
+        obs.REGISTRY.counter("engine.sampled_escalations",
+                             reason=reason).inc(int(n))
 
     def sampled_stats(self) -> dict:
-        """The sampled rung's counters: queries answered by the sampled
-        program, and queries escalated one rung, by reason
-        (``ineligible``, ``tolerance``, or a fault kind). The reference
-        counts these in its metrics registry (``engine.sampled_queries``,
-        ``engine.sampled_escalations``); here they wait for the ``obs``
-        port (ROADMAP Queue A.10) and live on the engine."""
+        """The sampled rung's counters on this engine: queries answered
+        by the sampled program, and queries escalated one rung, by reason
+        (``ineligible``, ``tolerance``, or a fault kind). The registry
+        counts them process-wide too (``engine.sampled_queries``,
+        ``engine.sampled_escalations{reason}``)."""
         return {"queries": int(self._sampled_queries),
                 "escalations": dict(self._sampled_escalations)}
 
@@ -1228,14 +1451,19 @@ class InfluenceEngine:
             cls = taxonomy.classify(e)
             if cls is None:
                 raise
-            # a classified device fault degrades the whole batch (the
-            # device-state rebuild waits for ROADMAP Queue A.10)
+            # one-shot degradation on a classified device fault: rebuild
+            # the device state, then the fallback engine (which owns the
+            # full retry and CPU ladder) answers the whole batch
             self._count_escalations(cls, T)
+            self._reset_device_state()
             return self._sampled_fallback().query_batch(test_points,
                                                         pad_to=pad_to)
         self._sampled_queries += T
-        err = res.err_bound
+        err = res.err_bound  # fetched with the scores: no extra wait
         over = np.flatnonzero(err > self.sampled_tol)
+        obs.REGISTRY.counter("engine.sampled_queries").inc(T)
+        obs.event("engine.sampled", queries=T, escalated=int(len(over)),
+                  err_max=float(err.max()) if T else 0.0)
         if len(over) == 0:
             return res
         self._count_escalations("tolerance", len(over))
@@ -1279,10 +1507,11 @@ class InfluenceEngine:
 
     def _dispatch_sampled(self, test_points: np.ndarray,
                           pad_to: int | None) -> InfluenceResult:
-        counts, out = self._enqueue_sampled(test_points)
-        pad = bucketed_pad(counts.max() if counts.size else 1,
-                           self.pad_bucket, pad_to)
-        return self._assemble_packed(test_points, counts, out, pad)
+        with obs.span("engine.dispatch_sampled", n=int(len(test_points))):
+            counts, out = self._enqueue_sampled(test_points)
+            pad = bucketed_pad(counts.max() if counts.size else 1,
+                               self.pad_bucket, pad_to)
+            return self._assemble_packed(test_points, counts, out, pad)
 
     # -- padded per-query path -------------------------------------------
     def _solve_blocks(self, params, u, i, rel_x, rel_y, w, v):
@@ -1339,12 +1568,13 @@ class InfluenceEngine:
     def _padded_fn(self, pad: int):
         """The reference's ``_query_one`` over T queries at once, packed
         on the device (``_batched_packed``). Returns ``fn(params,
-        train_x, train_y, postings, tx, total) -> (packed, ihvp, v,
+        train_x, train_y, postings, tx, total, s) -> (packed, ihvp, v,
         iterations)``; ``total`` is the batch's related-row count, which
-        the host knows, so packing needs no device-to-host wait."""
+        the host knows, so packing needs no device-to-host wait, and the
+        packed scores are zero-padded to ``s >= total`` entries."""
         model = self.model
 
-        def fn(params, train_x, train_y, postings, tx, total: int):
+        def fn(params, train_x, train_y, postings, tx, total: int, s: int):
             T = tx.shape[0]
             u, i = tx[:, 0].long(), tx[:, 1].long()
             # related rows: user postings first, then item postings,
@@ -1389,13 +1619,18 @@ class InfluenceEngine:
             start = torch.cumsum(n, 0) - n
             pos = torch.arange(total, device=tx.device) - start[tq]
             packed = scores.reshape(-1)[tq * pad + pos]
+            packed = torch.nn.functional.pad(packed, (0, s - total))
             return packed, ihvp, v, iterations
 
         return fn
 
-    def _query_padded(self, test_points: np.ndarray, pad_to: int | None
-                      ) -> InfluenceResult:
-        """One padded dispatch at a single pad length."""
+    def _query_padded(self, test_points: np.ndarray, pad_to: int | None,
+                      s_pad: int | None = None) -> InfluenceResult:
+        """One padded dispatch at a single pad length. ``s_pad``: the
+        packed output's length (at least the batch's related-row total;
+        ``None``: its geometric bucket), which the chunks of one batch
+        share."""
+        inject.fire(sites.ENGINE_DISPATCH_PADDED)
         counts = self.index.counts_batch(test_points)
         m = counts.max() if counts.size else 1
         if pad_to is None and self.pad_policy == "dataset":
@@ -1404,12 +1639,170 @@ class InfluenceEngine:
         tx = torch.as_tensor(
             np.asarray(test_points, np.int64).astype(np.int32)
         ).to(self.device)
+        total = int(counts.sum())
+        s = bucketed_pad(total, 1024) if s_pad is None else int(s_pad)
         *out, iterations = self._padded_fn(pad)(
             self.params, self.train_x, self.train_y, self._postings, tx,
-            int(counts.sum()),
+            total, s,
         )
         return self._assemble_packed(test_points, counts, out, pad,
                                      iterations)
+
+    # -- the padded path's memory envelope -----------------------------------
+    def _memlimits_seed(self) -> None:
+        """Adopt the cross-process learned memory envelope (lazily)."""
+        if self._memkey is not None:
+            return
+        backend = ("cuda:" + torch.cuda.get_device_name(self.device)
+                   if self.device.type == "cuda" else "torch-cpu")
+        self._memkey = memlimits.key(backend, 1, self.model_name,
+                                     int(self.model.block_size))
+        ok, bad = memlimits.load(self._memkey)
+        self._cells_ok = max(self._cells_ok, ok)
+        self._cells_bad = min(self._cells_bad, bad)
+        if self._cells_ok >= self._cells_bad:
+            # inconsistent records (a cache carried between cards of
+            # different memory): trust the failure, not a poisoned ok
+            self._cells_ok = self._cells_bad // 2
+
+    def _record_ok(self, cells: int) -> None:
+        self._cells_ok = max(self._cells_ok, cells)
+        if cells >= self._cells_bad:
+            # a success at or above a recorded failing size refutes it:
+            # clear it, and remember the size so the persisted copy is
+            # cleared too
+            self._cells_bad = memlimits.UNSET_BAD
+            self._cleared_bad = max(self._cleared_bad, cells)
+
+    def _record_bad(self, cells: int) -> None:
+        self._cells_bad = min(self._cells_bad, cells)
+        self._cells_ok = min(self._cells_ok, self._cells_bad // 2)
+
+    def _query_padded_adaptive(self, test_points: np.ndarray,
+                               pad_to: int | None) -> InfluenceResult:
+        """Memory-envelope bookkeeping around :meth:`_adaptive_run`: the
+        envelope is seeded from, and what this batch taught it written
+        back to, :mod:`fia_tpu_torch.utils.memlimits`."""
+        self._memlimits_seed()
+        state0 = (self._cells_ok, self._cells_bad, self._cleared_bad)
+        try:
+            return self._adaptive_run(test_points, pad_to)
+        finally:
+            if (self._cells_ok, self._cells_bad, self._cleared_bad) != state0:
+                try:
+                    memlimits.update(self._memkey, self._cells_ok,
+                                     self._cells_bad,
+                                     clear_bad_at=self._cleared_bad or None)
+                    self._cleared_bad = 0
+                except Exception:
+                    # persistence must never replace a query's result
+                    # (this runs in a finally)
+                    pass
+
+    def _adaptive_run(self, test_points: np.ndarray, pad_to: int | None
+                      ) -> InfluenceResult:
+        """A padded batch, split when device memory runs out.
+
+        A (T, pad) padded program's temporaries scale with T x pad x d.
+        On an out-of-memory failure the batch is re-dispatched in halved
+        query chunks at the SAME pad (so chunks concatenate exactly); the
+        working and failing cell counts persist on the engine, so later
+        batches (other pads too) pre-chunk instead of failing again. A
+        worker death rebuilds the device state and halves, teaching the
+        envelope nothing; a preemption rebuilds and retries at the same
+        size (at most 3 times). Every other failure rises, the ambiguous
+        kind among them (the reference's TPU compile-helper failure,
+        which nothing on CUDA raises).
+        """
+        test_points = np.asarray(test_points)
+        T = test_points.shape[0]
+        counts = self.index.counts_batch(test_points)
+        m = counts.max() if counts.size else 1
+        if pad_to is None and self.pad_policy == "dataset":
+            m = self.index.max_related_count()
+        pad = bucketed_pad(m, self.pad_bucket, pad_to)
+
+        chunk = T
+        if self._cells_bad < memlimits.UNSET_BAD and (
+            T * pad >= self._cells_bad
+            or (self._cells_ok and T * pad > self._cells_ok)
+        ):
+            # memory pressure was seen: never try an untested larger
+            # size, stay at the known-good cell count (a power-of-two
+            # chunk, so the chunks of a power-of-two batch are alike)
+            good = self._cells_ok // pad
+            chunk = good if good else max(1, (self._cells_bad // pad) // 2)
+            chunk = max(1, min(T, chunk))
+            if chunk < T:
+                chunk = 1 << (chunk.bit_length() - 1)
+        preempt_left = 3
+        if chunk >= T:
+            try:
+                out = self._query_padded(test_points, pad)
+            except Exception as e:
+                cls = taxonomy.classify(e)
+                if cls not in _PADDED_KINDS or (
+                    T <= 1 and cls != taxonomy.PREEMPTION
+                ):
+                    raise
+                if cls == taxonomy.PREEMPTION:
+                    preempt_left -= 1
+                    if preempt_left < 0:
+                        raise
+                    self._reset_device_state()
+                    # into the chunked loop at the same size
+                elif cls == taxonomy.WORKER:
+                    self._reset_device_state()
+                    chunk = max(1, T // 2)
+                else:
+                    self._record_bad(T * pad)
+                    chunk = max(1, T // 2)
+            else:
+                # record successes too, so one misread transient failure
+                # cannot over-chunk a size that dispatches fine for good
+                self._record_ok(T * pad)
+                return out
+
+        # one packed-output length for every chunk of this batch: the
+        # sliding-window maximum bounds any contiguous chunk of the
+        # current size, so halving mid-loop just recomputes it
+        cum = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
+
+        def shared_s(c: int) -> int:
+            win = int((cum[min(c, T):] - cum[: T - min(c, T) + 1]).max())
+            return bucketed_pad(max(win, 1), 1024)
+
+        parts: list[InfluenceResult] = []
+        start = 0
+        s_shared = shared_s(chunk)
+        prev_chunk = chunk
+        while start < T:
+            if chunk != prev_chunk:
+                s_shared = shared_s(chunk)
+                prev_chunk = chunk
+            n = min(chunk, T - start)
+            try:
+                parts.append(self._query_padded(
+                    test_points[start: start + n], pad, s_shared))
+            except Exception as e:
+                cls = taxonomy.classify(e)
+                if cls == taxonomy.PREEMPTION:
+                    preempt_left -= 1
+                    if preempt_left < 0:
+                        raise
+                    self._reset_device_state()
+                    continue  # same size: no size evidence
+                if n <= 1 or cls not in _PADDED_KINDS:
+                    raise
+                if cls == taxonomy.WORKER:
+                    self._reset_device_state()
+                else:
+                    self._record_bad(n * pad)
+                chunk = max(1, n // 2)
+                continue
+            self._record_ok(n * pad)
+            start += n
+        return parts[0] if len(parts) == 1 else _concat_results(parts)
 
     def _query_grouped(self, test_points: np.ndarray) -> InfluenceResult:
         """``group_queries``: one padded dispatch per pad bucket of the
@@ -1419,7 +1812,7 @@ class InfluenceEngine:
                          for c in counts])
         uniq = np.unique(pads)
         if len(uniq) == 1:
-            return self._query_padded(test_points, None)
+            return self._query_padded_adaptive(test_points, None)
         T, P = len(test_points), int(uniq.max())
         d = self.model.block_size
         scores = np.zeros((T, P), np.float32)
@@ -1431,7 +1824,7 @@ class InfluenceEngine:
         iterations = None
         for p in uniq:
             sel = np.flatnonzero(pads == p)
-            r = self._query_padded(test_points[sel], int(p))
+            r = self._query_padded_adaptive(test_points[sel], int(p))
             w = r.scores.shape[1]
             scores[sel, :w] = r.scores
             rel_idx[sel, :w] = r.related_idx
@@ -1464,7 +1857,7 @@ class InfluenceEngine:
             )
         if self.group_queries and pad_to is None and len(test_points) > 1:
             return self._query_grouped(test_points)
-        return self._query_padded(test_points, pad_to)
+        return self._query_padded_adaptive(test_points, pad_to)
 
     def _nan_ladder(self, res: InfluenceResult, recompute) -> InfluenceResult:
         """Escalate the solver until the payload is finite, or the ladder
@@ -1476,12 +1869,15 @@ class InfluenceEngine:
         ) is not None:
             nxt = policy.next_solver(self.solver)
             if nxt is None:
-                _diag(f"non-finite influence payload from the {self.solver!r} "
-                      "solver with no fallback rung left; returning as-is "
-                      "(check damping/conditioning)")
+                obs.diag("reliability", "non-finite influence payload from "
+                         f"the {self.solver!r} solver with no fallback rung "
+                         "left; returning as-is (check damping/conditioning)")
                 return res
-            _diag(f"non-finite influence payload from {self.solver!r}; "
-                  f"escalating solver to {nxt!r}")
+            obs.diag("reliability", "non-finite influence payload from "
+                     f"{self.solver!r}; escalating solver to {nxt!r}")
+            obs.event("solver.escalate", **{"from": self.solver, "to": nxt})
+            obs.REGISTRY.counter("engine.solver_escalations",
+                                 **{"from": self.solver, "to": nxt}).inc()
             self.solver = nxt
             res = recompute()
         return res
@@ -1503,10 +1899,22 @@ class InfluenceEngine:
         A non-finite payload (a diverged LiSSA or Schulz solve returns a
         "successful" NaN buffer) escalates the solver down the ladder
         (``lissa → cg → direct``, ``schulz → direct``) and recomputes.
+        Each call is an ``engine.query`` span, counted by solver in
+        ``engine.queries_total`` and timed (host wall, µs) in
+        ``engine.query_us``.
         """
-        res = self._query_batch_impl(test_points, pad_to)
-        return self._nan_ladder(
-            res, lambda: self._query_batch_impl(test_points, pad_to))
+        t0 = time.perf_counter()
+        with obs.span("engine.query", solver_requested=self.solver) as sp:
+            res = self._query_batch_impl(test_points, pad_to)
+            res = self._nan_ladder(
+                res, lambda: self._query_batch_impl(test_points, pad_to))
+            # the ladder may have escalated self.solver
+            sp.set(solver=self.solver, kernel=self._kernel_variant,
+                   n=int(np.asarray(test_points).reshape(-1, 2).shape[0]))
+        obs.REGISTRY.counter("engine.queries_total", solver=self.solver).inc()
+        obs.REGISTRY.histogram("engine.query_us", solver=self.solver).observe(
+            (time.perf_counter() - t0) * 1e6)
+        return res
 
     def query_many(
         self,
@@ -1535,14 +1943,19 @@ class InfluenceEngine:
         ``deadline``: a reliability ``Deadline``; expiry between batches
         raises ``DeadlineExpired`` with every completed batch journaled.
 
-        Two pieces of the reference are not carried over. Its
-        ``_wide_block_cap`` (``engine.py:1494-1507``) caps wide-block
-        dispatches at 32 queries to dodge a fault of the TPU worker, and
-        is scoped to that backend. Its worker-crash recovery
-        (``engine.py:1586-1603``: classify, rebuild the device state,
-        finish sequentially) belongs to ROADMAP Queue A.10; until then a
-        device failure rises to the caller, with the finished batches
-        journaled.
+        A worker death or a preemption kills every batch in flight at
+        once: the device state is rebuilt (:meth:`_reset_device_state`)
+        and the unfinished batches run in order through
+        :meth:`_query_flat`, whose own ladder absorbs a recurring fault;
+        finished batches are host arrays and are kept (journaled, with a
+        journal). The flat program is split invariant, so the results
+        have the bits of the run without the fault. Any other failure
+        rises, with the finished batches journaled.
+
+        The reference's ``_wide_block_cap`` (``engine.py:1494-1507``),
+        which caps wide-block dispatches at 32 queries to dodge a fault
+        of the TPU worker, is scoped to that backend and not carried
+        over.
         """
         test_points = np.asarray(test_points)
         if test_points.ndim == 1:
@@ -1572,17 +1985,29 @@ class InfluenceEngine:
                     deadline.check("query_many (sequential)")
                 bank(k, self.query_batch(batches[k], pad_to=pad_to))
             return results
-        inflight: list = []
-        for k in todo:
-            if deadline is not None:
-                deadline.check("query_many (dispatch)")
-            inflight.append((k, self._dispatch_flat(batches[k], pad_to)))
-            if len(inflight) >= max(1, window):
+        done = 0  # finalize order == dispatch order == batch order
+        try:
+            inflight: list = []
+            for k in todo:
+                if deadline is not None:
+                    deadline.check("query_many (dispatch)")
+                inflight.append((k, self._dispatch_flat(batches[k], pad_to)))
+                if len(inflight) >= max(1, window):
+                    j, h = inflight.pop(0)
+                    bank(j, self._finalize_flat(h))
+                    done += 1
+            while inflight:
                 j, h = inflight.pop(0)
                 bank(j, self._finalize_flat(h))
-        while inflight:
-            j, h = inflight.pop(0)
-            bank(j, self._finalize_flat(h))
+                done += 1
+        except Exception as e:
+            if taxonomy.classify(e) not in (taxonomy.WORKER,
+                                            taxonomy.PREEMPTION):
+                raise
+            inflight = []  # the dead dispatches' outputs
+            self._reset_device_state()
+            for k in todo[done:]:
+                bank(k, self._query_flat(batches[k], pad_to))
         return results
 
     # -- resumable-execution plumbing --------------------------------------
@@ -1751,8 +2176,3 @@ class InfluenceEngine:
         u, i = int(test_point[0]), int(test_point[1])
         return self.index.related(u, i)
 
-
-def _diag(msg: str) -> None:
-    """One reliability diagnostic on stderr (the reference's
-    ``obs.diag`` channel and format)."""
-    sys.stderr.write(f"[reliability] {msg}\n")

@@ -21,12 +21,12 @@ the call's ``seed``; they are not the reference's ``jax.random`` draws
 
 from __future__ import annotations
 
-import sys
 import time
 
 import numpy as np
 import torch
 
+from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence import solvers
@@ -219,10 +219,17 @@ class FullInfluenceEngine:
                 return x
             nxt = rpolicy.next_solver(solver, rpolicy.FULL_SOLVER_FALLBACK)
             if nxt is None:
-                _diag(f"{reason} from {solver!r} with no fallback rung "
-                      "left; returning as-is")
+                obs.diag("reliability",
+                         f"{reason} from {solver!r} with no "
+                         "fallback rung left; returning as-is")
                 return torch.as_tensor(xh).to(self.device)
-            _diag(f"{reason} from {solver!r}; escalating solver to {nxt!r}")
+            obs.diag("reliability",
+                     f"{reason} from {solver!r}; escalating "
+                     f"solver to {nxt!r}")
+            obs.REGISTRY.counter(
+                "engine.solver_escalations",
+                **{"from": solver, "to": nxt}
+            ).inc()
             self.solver = solver = nxt
 
     def relative_residual(self, v, x) -> float:
@@ -308,9 +315,3 @@ class FullInfluenceEngine:
             torch.cuda.synchronize(self.device)
         return {"compiled": compiled, "cached": cached,
                 "seconds": time.perf_counter() - t0}
-
-
-def _diag(msg: str) -> None:
-    """One reliability diagnostic on stderr (the reference's
-    ``obs.diag`` channel and format)."""
-    sys.stderr.write(f"[reliability] {msg}\n")

@@ -173,8 +173,7 @@ def segment_certificate(g, t, ihvp, Cx, wv, ws, abe, e, off, m):
                 m.data_ptr(), *(o.data_ptr() for o in out), part.data_ptr(),
                 part_s.data_ptr(), S, T, d, CERT_PIECE_ROWS, stream)
     if rc != 0:
-        raise RuntimeError(f"segment_certificate kernel launch failed: "
-                           f"cudaError {rc}")
+        raise common.launch_error("segment_certificate", rc)
     me = sys.modules[__name__]
     for _ in range(LAUNCHES_PER_CALL):
         common.count_launch(me)

@@ -65,6 +65,41 @@ def count_launch(module) -> None:
         module.launches += 1
 
 
+#: cudaGetErrorString's text of the codes a kernel launch can return: a
+#: launch error of the kernel itself (a bad configuration, too many
+#: resources) stays unclassified by the reliability taxonomy and rises,
+#: while a sticky error left by earlier work classifies as a lost device
+CUDA_ERRORS = {
+    1: "invalid argument",
+    2: "out of memory",
+    9: "invalid configuration argument",
+    98: "invalid device function",
+    209: "no kernel image is available for execution on the device",
+    214: "uncorrectable ECC error encountered",
+    700: "an illegal memory access was encountered",
+    701: "too many resources requested for launch",
+    710: "device-side assert triggered",
+    714: "hardware stack error",
+    715: "an illegal instruction was encountered",
+    716: "misaligned address",
+    718: "invalid program counter",
+    719: "unspecified launch failure",
+    900: "operation not permitted when stream is capturing",
+    901: "operation failed due to a previous error during capture",
+}
+
+
+def launch_error(name: str, rc: int) -> RuntimeError:
+    """The error a wrapper raises when its C entry returns ``rc`` != 0:
+    the code with its CUDA text. The taxonomy reads a sticky error here
+    as a lost device, as in PyTorch's own CUDA errors, and leaves every
+    other code unclassified (out of memory included), so a kernel that
+    cannot launch rises."""
+    text = CUDA_ERRORS.get(int(rc), "unrecognised CUDA error")
+    return RuntimeError(f"{name} kernel launch failed: cudaError {rc} "
+                        f"({text})")
+
+
 def find_nvcc() -> str:
     """``$CUDA_HOME/bin/nvcc``, then ``/usr/local/cuda/bin/nvcc``, then
     ``nvcc`` on ``$PATH``; raises when there is none."""

@@ -302,7 +302,6 @@ def block_eigmin(H: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(H.device).cuda_stream
         rc = fn(H.data_ptr(), lam.data_ptr(), T, d, stream)
     if rc != 0:
-        raise RuntimeError(f"block_eigmin kernel launch failed: cudaError "
-                           f"{rc}")
+        raise common.launch_error("block_eigmin", rc)
     common.count_launch(sys.modules[__name__])
     return lam

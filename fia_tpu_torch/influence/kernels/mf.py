@@ -95,6 +95,6 @@ def fused_scores(rel_x, t, e, wv, tx, P, Q, B) -> torch.Tensor:
                 tx.data_ptr(), P.data_ptr(), Q.data_ptr(), B.data_ptr(),
                 out.data_ptr(), S, k, int(vec4), stream)
     if rc != 0:
-        raise RuntimeError(f"mf_scores kernel launch failed: cudaError {rc}")
+        raise common.launch_error("mf_scores", rc)
     common.count_launch(sys.modules[__name__])
     return out

@@ -158,6 +158,6 @@ def fused_scores(rel_x, t, e, wv, tx, P_mlp, Q_mlp, P_gmf, Q_gmf, W1, b1, W2,
         rc = fn(*(x.data_ptr() for x in args), out.data_ptr(),
                 scratch.data_ptr(), S, T, k, k2, stream)
     if rc != 0:
-        raise RuntimeError(f"ncf_scores kernel launch failed: cudaError {rc}")
+        raise common.launch_error("ncf_scores", rc)
     common.count_launch(sys.modules[__name__])
     return out

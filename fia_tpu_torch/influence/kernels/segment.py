@@ -233,8 +233,7 @@ def segment_sums(g, t, wv, abe, off, chunk: int):
                 HH.data_ptr(), sabe.data_ptr(), part.data_ptr(),
                 part_abe.data_ptr(), S, T, d, piece, stream)
     if rc != 0:
-        raise RuntimeError(f"segment_hessian kernel launch failed: "
-                           f"cudaError {rc}")
+        raise common.launch_error("segment_hessian", rc)
     me = sys.modules[__name__]
     common.count_launch(me)  # the pieces
     common.count_launch(me)  # their combination

@@ -7,7 +7,8 @@
 - :class:`Deadline` — a monotonic time budget (``:93-123``); expiry is a
   clean, resumable stop (kind ``DEADLINE``), not an error;
 - :class:`RetryPolicy` — bounded exponential backoff with deterministic
-  jitter (``:126-202``), used by the trainer's dispatches;
+  jitter (``:126-202``), used by the trainer's dispatches and the
+  engine's device-state rebuild;
 - the query solver degradation ladder (``:220-271``): a non-finite
   influence payload escalates one rung toward the exact direct solve
   (``lissa → cg → direct``, ``schulz → direct``); ``precomputed`` sits
@@ -21,6 +22,7 @@ import time as _time
 from dataclasses import dataclass
 from typing import Callable, Iterable
 
+from fia_tpu_torch import obs
 from fia_tpu_torch.reliability import taxonomy
 
 
@@ -140,8 +142,8 @@ class RetryPolicy:
         """Call ``fn`` with bounded retries on classified-transient
         failures. Unclassified failures, kinds outside ``retry_on`` and
         a failure whose next backoff would overshoot ``deadline`` surface
-        at once. (The reference also counts each retry in its metrics
-        registry, which the port does not have yet: ROADMAP A.10.)"""
+        at once. Each retry counts in ``reliability.retries_total{kind}``
+        and is a ``retry`` event on the current span."""
         if sleep is None:
             sleep = (WALL if clock is None else clock).sleep
         retry_on = frozenset(retry_on)
@@ -156,6 +158,10 @@ class RetryPolicy:
                 d = self.delay(attempt)
                 if deadline is not None and deadline.remaining() < d:
                     raise
+                obs.REGISTRY.counter(
+                    "reliability.retries_total", kind=kind).inc()
+                obs.event("retry", kind=kind, attempt=attempt,
+                          delay_s=round(d, 3))
                 if on_retry is not None:
                     on_retry(kind, attempt, e)
                 if d > 0.0:

@@ -182,15 +182,23 @@ def _fence(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("not ported yet — mesh: ROADMAP Queue A.13")
+
+
 class Trainer:
     """Minibatch trainer on one device (``device=None``: the CUDA
     device, raising without one; ``"cpu"`` when asked). ``last_losses``
     holds, after :meth:`fit`, the loss of every step it ran, in order,
-    as a tensor on the device."""
+    as a tensor on the device. ``mesh`` takes the reference's place in
+    the signature; data parallelism over a mesh is not ported (ROADMAP
+    Queue A.13), so a non-None mesh raises."""
 
-    def __init__(self, model, config: TrainConfig, event_log=None,
+    def __init__(self, model, config: TrainConfig, event_log=None, mesh=None,
                  retry_policy: "rpolicy.RetryPolicy | None" = None,
                  clock: "rpolicy.Clock | None" = None, device=None):
+        _no_mesh(mesh)
         self.model = model
         self.config = config
         self.retry_policy = _TRAIN_RETRY if retry_policy is None else retry_policy
@@ -341,6 +349,7 @@ def loo_retrain_many(
     learning_rate: float = 1e-3,
     seeds=None,
     steps_per_dispatch: int = 2000,
+    mesh=None,
     retry_policy: "rpolicy.RetryPolicy | None" = None,
     clock: "rpolicy.Clock | None" = None,
     device=None,
@@ -361,8 +370,10 @@ def loo_retrain_many(
     ``steps_per_dispatch`` sets where the dispatch boundaries fall
     (whole epochs, at least one): each is one retried unit with the
     ``trainer.loo_segment`` injection site. It does not change the
-    result.
+    result. A non-None ``mesh`` (the reference's lane sharding) raises:
+    ROADMAP Queue A.13.
     """
+    _no_mesh(mesh)
     dev = resolve_device(device)
     x, y = _put(x, dev), _put(y, dev)
     n = x.shape[0]

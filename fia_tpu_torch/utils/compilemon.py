@@ -13,9 +13,18 @@ leaves the count where it was::
     before = compilemon.count()
     ... hot path ...
     assert compilemon.count() == before
+
+Each build is also mirrored into the obs spine as the reference mirrors
+a backend compile: ``compile.backend_total`` counts it, and a capture's
+seconds go to the ``compile.backend_us`` histogram and, as a
+``compile.backend`` event, to whatever span was active (e.g.
+``engine.precompile``), which is how a capture is attributed to a key.
 """
 
 from __future__ import annotations
+
+from fia_tpu_torch.obs.registry import REGISTRY
+from fia_tpu_torch.obs.trace import TRACER
 
 _counts = {"builds": 0}
 
@@ -25,9 +34,15 @@ def install() -> None:
     itself, so there is no listener to register."""
 
 
-def record() -> None:
-    """One flat program built (captured, on the card)."""
+def record(seconds: float | None = None) -> None:
+    """One flat program built; ``seconds``, the capture's duration on
+    the card (``None`` for a CPU closure, which has none)."""
     _counts["builds"] += 1
+    REGISTRY.counter("compile.backend_total").inc()
+    if seconds is not None:
+        REGISTRY.histogram("compile.backend_us").observe(seconds * 1e6)
+        TRACER.current_span().event(
+            "compile.backend", dur_us=round(seconds * 1e6, 1))
 
 
 def count() -> int:

@@ -213,6 +213,7 @@ def test_unported_options_raise(kw, family):
     {"solver": "precomputed"}, {"solver": "sampled"},
     {"cache_dir": "unused"},
     {"solver": "sampled", "sampled_cap": 8, "sampled_tol": 0.5},
+    {"cpu_fallback": False}, {"cpu_fallback": True, "mesh": None},
 ])
 def test_ported_rungs_construct(kw, family):
     shape, x, y, _ = _kernels_setup()
@@ -223,6 +224,31 @@ def test_ported_rungs_construct(kw, family):
     assert eng.solver == kw.get("solver", "direct")
     assert eng.sampled_cap == kw.get("sampled_cap", 64)
     assert eng.sampled_tol == kw.get("sampled_tol", float("inf"))
+    assert eng.cpu_fallback == kw.get("cpu_fallback", False)
+
+
+#: defaults the port sets apart from the reference's, each with its
+#: reason: the CPU rung would answer a batch on the CPU while the tensors
+#: lie on the card, so the port leaves it to a caller who asks for it
+DEFAULT_DIVERGENCES = {"cpu_fallback": (True, False)}
+
+
+def test_signature_is_the_references():
+    """The constructor takes the reference's parameters, in its order
+    and with its defaults (save those in ``DEFAULT_DIVERGENCES``); the
+    port's own ``device`` comes last."""
+    import inspect
+
+    port = inspect.signature(InfluenceEngine.__init__).parameters
+    ref = inspect.signature(RefEngine.__init__).parameters
+    assert list(port)[-1] == "device"
+    assert [p for p in port if p != "device"] == list(ref)
+    for name, p in ref.items():
+        want = DEFAULT_DIVERGENCES.get(name)
+        if want is None:
+            assert port[name].default == p.default, name
+        else:
+            assert (p.default, port[name].default) == want, name
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

@@ -59,6 +59,14 @@ LADDER_MODULES = ("fia_tpu_torch.influence.sampled",
                   "fia_tpu_torch.influence.full",
                   "fia_tpu_torch.api",
                   "fia_tpu_torch.cli.factor")
+# the observability spine and the recovery ladders' utilities
+OBS_MODULES = ("fia_tpu_torch.obs",
+               "fia_tpu_torch.obs.registry",
+               "fia_tpu_torch.obs.trace",
+               "fia_tpu_torch.obs.events",
+               "fia_tpu_torch.obs.export",
+               "fia_tpu_torch.utils.timing",
+               "fia_tpu_torch.utils.memlimits")
 
 
 def _forbidden(name: str) -> bool:
@@ -98,6 +106,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(TRAIN_MODULES) <= set(names)
     assert set(DISPATCH_MODULES) <= set(names)
     assert set(LADDER_MODULES) <= set(names)
+    assert set(OBS_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -130,7 +139,8 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
 
 
 @pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
-                         + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES)
+                         + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES
+                         + OBS_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""

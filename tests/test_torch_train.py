@@ -326,6 +326,43 @@ def test_errors_and_default_device(setup, monkeypatch):
         T.loo_retrain_many(model, arrays, x, y, [1], 2, 10)
 
 
+@pytest.mark.parametrize("fn", ["Trainer.__init__", "loo_retrain_many"])
+def test_signature_is_the_references(fn):
+    """The reference's parameters, in its order and with its defaults
+    (``mesh`` among them); the port's own ``device`` comes last."""
+    import inspect
+
+    def resolve(mod):
+        obj = mod
+        for part in fn.split("."):
+            obj = getattr(obj, part)
+        return inspect.signature(obj).parameters
+
+    port, ref = resolve(T), resolve(ref_trainer)
+    assert list(port)[-1] == "device"
+    assert [p for p in port if p != "device"] == list(ref)
+    for name, p in ref.items():
+        if p.default is not inspect.Parameter.empty:
+            assert port[name].default == p.default, name
+
+
+def test_unported_options_raise(setup):
+    """A mesh (data parallelism, lane sharding) is ROADMAP Queue A.13:
+    ``mesh=None`` constructs and runs, a mesh raises naming the item."""
+    _, model, _, arrays, x, y = setup
+    cfg = T.TrainConfig(200, 5, 1e-2)
+    tr = T.Trainer(model, cfg, mesh=None, device="cpu")
+    tr.fit(tr.init_state(_port_params(model, arrays)), x, y)
+    with pytest.raises(NotImplementedError, match="A.13"):
+        T.Trainer(model, cfg, mesh=object(), device="cpu")
+    lanes = T.loo_retrain_many(model, _port_params(model, arrays), x, y,
+                               [3], 2, 200, mesh=None, device="cpu")
+    assert all(v.shape[0] == 1 for v in lanes.values())
+    with pytest.raises(NotImplementedError, match="A.13"):
+        T.loo_retrain_many(model, _port_params(model, arrays), x, y, [3],
+                           2, 200, mesh=object(), device="cpu")
+
+
 def test_reliability_copies_match_reference():
     """The copied classifier, backoff schedule and deadline behave as
     the reference's (the retry and deadline paths above rely on them)."""
