@@ -226,12 +226,49 @@ Phases, each of which makes the script exit non-zero when it fails:
         present, the Perfetto and Prometheus exports parse; the traced
         and untraced walls (``utils.timing.fenced_time``) are printed,
         not gated.
+ 10. serving, first MF, then NCF, at ML-1M shape on phase 4's engines
+     and phase 8's held-out queries, under ``serving`` in the ``perf``
+     line:
+     a. the direct service (``ServeConfig(max_batch=1024,
+        dispatch_window=2)``): 4,096 requests of ``smoke_stream`` (hot
+        share 0.5, seed 10), drained every 1,024; ``warmup`` over each
+        drain's expected misses reports every planned geometry built,
+        and nothing is captured from the first request on; every answer
+        bitwise ``query_many`` over the dispatch order at 1,024, each
+        hot hit bitwise the compute that filled it, all 4,096 ok, host
+        waits a drain at most its batches, the score kernel and
+        ``segment_hessian`` launched, no recovery; requests/s, latency
+        (submit to answer) p50/p95/p99, solve ms, the hot-hit share and
+        the device busy share (the stream again, under the profiler)
+        printed;
+     b. brownout: a ``precomputed`` service on 8d's bank, driven to
+        ``bank_preferred`` by two drains a worker death at
+        ``serve.dispatch`` sheds, then 512 requests, 256 banked pairs
+        and 256 others: hits at tier ``precomputed`` bitwise the bank
+        engine's ``query_batch``, the others ``approx`` with a bound,
+        |approx − direct| <= bound + 1e-6 on at least 99%,
+        ``segment_certificate`` and ``block_eigmin`` launched, the exact
+        answers bitwise a run with approx serving off; captures and
+        ``sample_weights``' host ms beside the sampled program's device
+        ms printed;
+     c. faults: a worker death at ``serve.dispatch`` on batch 1 of 10a's
+        stream sheds exactly that batch's requests (the rest bitwise
+        10a, a replay the same set); one at ``engine.dispatch_flat`` with
+        two batches in flight (1,024 queries, 256 a batch, three in the
+        window: the third dispatch fails) reroutes after a device-state
+        reset, every answer bitwise, no pre-reset tensor reachable;
+     d. (once) ``cli.serve --warmup 64 --smoke_requests 512`` and
+        ``cli.factor --verify`` in process on the card, each returning
+        0; the verify's worst Spearman printed.
+     The score, Hessian, certificate and λ_min rows of the ``kernels``
+     line gain a ``serve`` path under ``launches_by_path``.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
      (``reliability.retries_total``), no device-state reset
      (``engine.device_resets``), no batch on the CPU rung
-     (``engine.cpu_fallback_batches``) and no reliability diagnostic.
+     (``engine.cpu_fallback_batches``) and no reliability diagnostic;
+     so must 10a and 10b (the registry is emptied after phase 9).
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -282,6 +319,7 @@ from fia_tpu_torch.data.synthetic import (
     synthetic_splits,
 )
 from fia_tpu_torch.api import FIAModel
+from fia_tpu_torch.cli.serve import smoke_stream
 from fia_tpu_torch.eval import metrics
 from fia_tpu_torch.eval.rq1 import test_retraining
 from fia_tpu_torch.eval.rq2 import time_influence_queries
@@ -304,6 +342,8 @@ from fia_tpu_torch.influence.kernels import segment as kseg
 from fia_tpu_torch.models import MF, NCF
 from fia_tpu_torch.obs.export import perfetto, prometheus, span_fields
 from fia_tpu_torch.reliability import inject, sites, taxonomy
+from fia_tpu_torch.serve import (HealthConfig, InfluenceService, Request,
+                                 ServeConfig)
 from fia_tpu_torch.train import checkpoint
 from fia_tpu_torch.train.trainer import Trainer, TrainConfig, loo_retrain_many
 from fia_tpu_torch.utils import compilemon, memlimits
@@ -2690,7 +2730,8 @@ def launch_counts() -> dict:
 def host_waits(fn) -> int:
     """Host waits for the card during ``fn()``
     (``torch.cuda.set_sync_debug_mode("warn")``), the final fetch
-    included."""
+    included: the warnings of synchronizing operations, not the one the
+    mode itself gives on its first use."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -2698,7 +2739,7 @@ def host_waits(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def wall_ms(fn, reps: int = 5) -> float:
@@ -3150,28 +3191,27 @@ def drive_facade(workdir: str) -> dict:
     return {"steps": FACADE_STEPS, "rows": int(got.size)}
 
 
-def drive_ladder(engines, train, pts) -> dict:
+def drive_ladder(engines, train, pts, workdir: str) -> dict:
     """Phase 8, per model: 8a-8d and 8g, then 8g's synthetic blocks, 8h,
-    8e and 8f once."""
+    8e and 8f once. 8d's banks stay in ``workdir`` for phase 10."""
     out = {}
     gen = torch.Generator().manual_seed(8)
-    with tempfile.TemporaryDirectory() as workdir:
-        for family, (eng, _) in engines.items():
-            samp = ladder_engine(eng, train, solver="sampled",
-                                 sampled_cap=SAMPLED_CAP)
-            out[family] = {
-                "certificate": check_certificate(family, samp, pts, gen),
-                "eigmin": check_eigmin(family, samp, pts),
-                "segment_ht": check_segment_ht(family, samp, pts, gen),
-                "sampled": drive_sampled(family, eng, train, pts),
-                "bank": drive_bank(family, eng, train, pts, workdir),
-            }
-            torch.cuda.empty_cache()
-        out["eigmin_synthetic"] = check_eigmin_synthetic()
-        out["eigmin_small"] = check_eigmin_small()
-        out["sampled_wide"] = drive_sampled_wide(train, pts)
-        out["full"] = drive_full(train, pts)
-        out["facade"] = drive_facade(workdir)
+    for family, (eng, _) in engines.items():
+        samp = ladder_engine(eng, train, solver="sampled",
+                             sampled_cap=SAMPLED_CAP)
+        out[family] = {
+            "certificate": check_certificate(family, samp, pts, gen),
+            "eigmin": check_eigmin(family, samp, pts),
+            "segment_ht": check_segment_ht(family, samp, pts, gen),
+            "sampled": drive_sampled(family, eng, train, pts),
+            "bank": drive_bank(family, eng, train, pts, workdir),
+        }
+        torch.cuda.empty_cache()
+    out["eigmin_synthetic"] = check_eigmin_synthetic()
+    out["eigmin_small"] = check_eigmin_small()
+    out["sampled_wide"] = drive_sampled_wide(train, pts)
+    out["full"] = drive_full(train, pts)
+    out["facade"] = drive_facade(workdir)
     return out
 
 
@@ -3658,7 +3698,418 @@ def drive_recovery(engines, train, pts) -> dict:
     return out
 
 
+# -- phase 10: serving on the card -----------------------------------------
+# 10a: SERVE_N requests from smoke_stream over the held-out queries (hot
+# share SERVE_HOT_FRAC, seed SERVE_SEED), drained every SERVE_DRAIN, at
+# max_batch SERVE_BATCH and dispatch_window SERVE_WINDOW; 10b: a
+# precomputed service on 8d's bank browned out by two shed drains, then
+# BROWNOUT_N requests, half banked pairs, half misses; 10c: a host-side
+# fault at serve.dispatch on batch 1 of 10a's stream, and a worker death
+# at engine.dispatch_flat with two batches in flight (ENGINE_FAULT_Q
+# distinct queries at ENGINE_FAULT_BATCH a batch, ENGINE_FAULT_WINDOW in
+# the window: the third dispatch fails); 10d: the serving and factor
+# drivers in process.
+SERVE_N, SERVE_DRAIN, SERVE_BATCH, SERVE_WINDOW = 4096, 1024, 1024, 2
+SERVE_HOT_FRAC, SERVE_SEED = 0.5, 10
+BROWNOUT_N = 512
+ENGINE_FAULT_Q, ENGINE_FAULT_BATCH, ENGINE_FAULT_WINDOW = 1024, 256, 3
+BROWNOUT_HEALTH = dict(window=4, min_evidence=2, hold=2, err_cache_only=2.0)
+
+
+def serve_config(**kw) -> ServeConfig:
+    """The phase's service knobs: no disk tier, a hot tier that holds
+    every key of the stream (so that a drain's misses are the keys the
+    stream has not seen yet)."""
+    kw.setdefault("max_batch", SERVE_BATCH)
+    kw.setdefault("dispatch_window", SERVE_WINDOW)
+    kw.setdefault("disk_cache", False)
+    kw.setdefault("cache_entries", SERVE_N)
+    kw.setdefault("max_queue", SERVE_N)
+    return ServeConfig(**kw)
+
+
+def serve_stream(pts) -> list:
+    return smoke_stream(pts, SERVE_N, SERVE_HOT_FRAC, SERVE_SEED)
+
+
+def drain_misses(reqs) -> list:
+    """Each drain's misses in first-arrival order, when no entry is ever
+    evicted: the keys the stream has not seen before that drain."""
+    seen, out = set(), []
+    for s in range(0, len(reqs), SERVE_DRAIN):
+        miss = []
+        for r in reqs[s: s + SERVE_DRAIN]:
+            if r.key() not in seen:
+                seen.add(r.key())
+                miss.append(r.key())
+        out.append(np.asarray(miss, np.int64).reshape(-1, 2))
+    return out
+
+
+def serve_run(svc, reqs, waits: list | None = None) -> dict:
+    """Submit ``reqs`` and drain every SERVE_DRAIN; with ``waits``,
+    append each drain's (host waits, batches dispatched)."""
+    out = {}
+    for s in range(0, len(reqs), SERVE_DRAIN):
+        for r in reqs[s: s + SERVE_DRAIN]:
+            rej = svc.submit(r)
+            if rej is not None:
+                out[rej.id] = rej
+        if waits is None:
+            for r in svc.drain():
+                out[r.id] = r
+            continue
+        nb = len(svc.dispatch_log)
+        got = []
+        n = host_waits(lambda: got.extend(svc.drain()))
+        waits.append((n, len(svc.dispatch_log) - nb))
+        for r in got:
+            out[r.id] = r
+    return out
+
+
+def dispatched_rows(eng, svc, batch: int) -> dict:
+    """``(user, item) -> (scores, related)`` of every key the service
+    dispatched, from ``query_many`` over its dispatch order."""
+    pts = np.concatenate([p for _, p in svc.dispatch_log])
+    rows = {}
+    for res in eng.query_many(pts, batch_queries=batch):
+        for t, (u, i) in enumerate(res._test_points.tolist()):
+            rows.setdefault((u, i), (res.scores_of(t).copy(),
+                                     res.related_of(t)))
+    return rows
+
+
+def same_answer(r, want, what: str) -> None:
+    check(r.scores.tobytes() == want[0].tobytes()
+          and np.array_equal(r.related, want[1]),
+          f"{what}: request {r.id} ({r.user}, {r.item}) not bitwise the "
+          "engine's answer")
+
+
+def serve_direct(family: str, eng, pts) -> tuple[dict, dict]:
+    """10a: the direct service over a repeat-heavy stream."""
+    reqs = serve_stream(pts)
+    svc = InfluenceService(engine=eng, config=serve_config())
+    t0 = time.perf_counter()
+    warm = [svc.warmup(m) for m in drain_misses(reqs) if len(m)]
+    warm_s = time.perf_counter() - t0
+    check(all(w["all_planned_compiled"] for w in warm)
+          and all(w["kernel_variant"] == "cuda" for w in warm),
+          f"{family} 10a warmup: {warm}")
+    reset_counts()
+    builds0 = compilemon.count()
+    waits = []
+    t0 = time.perf_counter()
+    out = serve_run(svc, reqs, waits)
+    wall_s = time.perf_counter() - t0
+    captures = compilemon.count() - builds0
+    launches = launch_counts()
+    check(captures == 0, f"{family} 10a: {captures} programs built after "
+          "the warmup")
+    check(launches[SOURCES[family]] > 0 and launches[SEGMENT_SOURCE] > 0,
+          f"{family} 10a: kernels not launched: {launches}")
+    check(all(n <= b for n, b in waits), f"{family} 10a: host waits "
+          f"(waits, batches) by drain {waits}")
+    resp = [out[r.id] for r in reqs]
+    check(all(r.ok for r in resp), f"{family} 10a: "
+          f"{sum(not r.ok for r in resp)} of {len(resp)} not ok")
+    planned = [m for m in drain_misses(reqs) if len(m)]
+    check([len(p) for _, p in svc.dispatch_log] == [len(m) for m in planned],
+          f"{family} 10a: dispatches {[len(p) for _, p in svc.dispatch_log]}"
+          f" != the warmed plan {[len(m) for m in planned]}")
+    rows = dispatched_rows(eng, svc, SERVE_BATCH)
+    filled = {}
+    for r in resp:
+        same_answer(r, rows[(r.user, r.item)], f"{family} 10a")
+        if r.cache_tier == "compute":
+            filled[(r.user, r.item)] = r
+    for r in resp:
+        if r.cache_tier == "hot":
+            f = filled[(r.user, r.item)]
+            check(r.scores.tobytes() == f.scores.tobytes()
+                  and r.ihvp.tobytes() == f.ihvp.tobytes(),
+                  f"{family} 10a: hot hit {r.id} differs from its compute")
+    roll = svc.rollup()
+    lat = np.asarray([r.queue_wait_s * 1e3 for r in resp])
+    wall_ms_ = wall_s * 1e3
+    # the same stream again through a fresh service (the engine holds
+    # every geometry), under the profiler: the device's busy share
+    dev = device_breakdown(
+        lambda: serve_run(InfluenceService(engine=eng,
+                                           config=serve_config()), reqs),
+        wall_ms_)
+    no_recovery(f"10a {family}")
+    res = {
+        "requests": len(resp), "ok": roll["ok"], "seconds": wall_s,
+        "requests_per_s": len(resp) / wall_s,
+        "latency_ms": {"p50": float(np.percentile(lat, 50)),
+                       "p95": float(np.percentile(lat, 95)),
+                       "p99": float(np.percentile(lat, 99))},
+        "solve_ms": roll["solve_ms"], "hot_hit_share": roll["hot_hit_rate"],
+        "tiers": roll["tiers"], "batches": len(svc.dispatch_log),
+        "batch_sizes": [len(p) for _, p in svc.dispatch_log],
+        "captures_after_warmup": captures, "warmup_s": warm_s,
+        "warmup_builds": sum(w["builds"] for w in warm),
+        "host_waits_by_drain": waits, "launches": launches,
+        "device_busy_share": dev["busy_share"],
+        "device_busy_ms": dev["device_busy_ms"],
+    }
+    log(f"{family} 10a direct service: {len(resp)} requests at "
+        f"{res['requests_per_s']:.0f}/s; latency p50/p95/p99 "
+        f"{res['latency_ms']['p50']:.1f}/{res['latency_ms']['p95']:.1f}/"
+        f"{res['latency_ms']['p99']:.1f} ms; solve p50 "
+        f"{roll['solve_ms']['p50']} ms; hot share {roll['hot_hit_rate']}; "
+        f"busy share {dev['busy_share']:.2f}; batches "
+        f"{res['batch_sizes']}; 0 captures after warmup; host waits "
+        f"{waits}; every answer bitwise query_many; launches {launches}")
+    return res, {"reqs": reqs, "out": out, "rows": rows, "svc": svc}
+
+
+def brownout_service(pre, approx_ok: bool, misses) -> InfluenceService:
+    """A precomputed service driven to bank_preferred by two drains whose
+    dispatch sheds (a worker death at serve.dispatch each)."""
+    svc = InfluenceService(engine=pre, config=serve_config(
+        health=HealthConfig(approx_ok=approx_ok, **BROWNOUT_HEALTH)))
+    with inject.active(
+        inject.Fault(sites.SERVE_DISPATCH, at=0, kind=taxonomy.WORKER),
+        inject.Fault(sites.SERVE_DISPATCH, at=1, kind=taxonomy.WORKER),
+        strict=True, validate=True,
+    ):
+        for n, (u, i) in enumerate(misses[:2]):
+            svc.submit(Request(int(u), int(i), id=f"degrade{n}"))
+            svc.drain()
+    check(svc.health.mode == "bank_preferred", f"brownout: mode "
+          f"{svc.health.mode} after two shed drains")
+    return svc
+
+
+def serve_brownout(family: str, eng, train, pts, workdir: str) -> dict:
+    """10b: bank hits and certified approximate misses under brownout."""
+    pre = ladder_engine(eng, train, solver="precomputed", cache_dir=workdir,
+                        model_name=f"smoke-{family}")
+    n_bank = pre.ensure_factor_bank()
+    check(n_bank >= BROWNOUT_N // 2, f"{family} 10b: bank of {n_bank}")
+    half = BROWNOUT_N // 2
+    banked = pre._bank.pairs[:half].astype(np.int64)
+    bset = {tuple(p) for p in pre._bank.pairs.tolist()}
+    pool = [p for p in pts.tolist() if tuple(p) not in bset]
+    misses = np.asarray(pool[2: 2 + half], np.int64)
+    mixed = np.empty((BROWNOUT_N, 2), np.int64)
+    mixed[0::2], mixed[1::2] = banked, misses
+    reqs = [Request(int(u), int(i), id=f"b{k}")
+            for k, (u, i) in enumerate(mixed)]
+    svc = brownout_service(pre, True, pool)
+    reset_counts()
+    builds0 = compilemon.count()
+    t0 = time.perf_counter()
+    for r in reqs:
+        svc.submit(r)
+    out = {r.id: r for r in svc.drain()}
+    wall_s = time.perf_counter() - t0
+    captures = compilemon.count() - builds0
+    launches = launch_counts()
+    for name in (SOURCES[family], CERT_SOURCE, EIGMIN_SOURCE):
+        check(launches[name] > 0, f"{family} 10b never launched {name}")
+    hits = [out[f"b{k}"] for k in range(0, BROWNOUT_N, 2)]
+    apx = [out[f"b{k}"] for k in range(1, BROWNOUT_N, 2)]
+    check(all(r.ok and r.cache_tier == "precomputed" and not r.approx
+              for r in hits), f"{family} 10b: bank hits "
+          f"{[(r.status, r.cache_tier) for r in hits[:4]]}")
+    check(all(r.ok and r.approx and r.err_bound is not None for r in apx),
+          f"{family} 10b: misses not answered approx with a bound")
+    # bank hits bitwise the bank engine's query_batch on their batch
+    for bid, bpts in svc.dispatch_log:
+        keys = {tuple(p) for p in bpts.tolist()}
+        if not keys <= bset:
+            continue
+        res = pre.query_batch(bpts)
+        by_key = {tuple(p): t for t, p in enumerate(bpts.tolist())}
+        for r in hits:
+            t = by_key.get((r.user, r.item))
+            if t is not None:
+                check(r.scores.tobytes() == res.scores_of(t).tobytes(),
+                      f"{family} 10b: bank hit {r.id} not bitwise "
+                      "query_batch")
+    # the certificate against the direct path
+    direct = eng.query_batch(misses)
+    inside = [float(np.max(np.abs(r.scores - direct.scores_of(t)),
+                           initial=0.0)) <= r.err_bound + 1e-6
+              for t, r in enumerate(apx)]
+    share = float(np.mean(inside))
+    check(share >= FIDELITY_SHARE, f"{family} 10b: |approx - direct| <= "
+          f"err_bound + 1e-6 on {share:.4f} of misses")
+    # approx serving off: the exact path's responses are the same bits
+    off = brownout_service(pre, False, pool)
+    for r in reqs:
+        off.submit(Request(r.user, r.item, id=r.id))
+    got_off = {r.id: r for r in off.drain()}
+    for r in hits:
+        o = got_off[r.id]
+        check(o.ok and o.batch_id == r.batch_id
+              and o.scores.tobytes() == r.scores.tobytes(),
+              f"{family} 10b: exact answer {r.id} differs with approx off")
+    check(all(not got_off[r.id].ok and got_off[r.id].reason == "degraded"
+              for r in apx), f"{family} 10b: approx off must shed misses")
+    # the host sampler beside the sampled program's device time
+    sib = pre.approx_sibling()
+    counts = sib.index.counts_batch(misses)
+    s_pad = sib._s_pad_for(int(counts.sum()))
+    sw = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        sampled_mod.sample_weights(misses, counts, s_pad, sib.sampled_cap)
+        sw.append((time.perf_counter() - t1) * 1e3)
+    samp_ms = wall_ms(lambda: sib.query_batch(misses))
+    dev = device_breakdown(lambda: sib.query_batch(misses), samp_ms)
+    res = {"requests": len(reqs), "seconds": wall_s, "bank_entries": n_bank,
+           "captures": captures, "launches": launches,
+           "fidelity_share": share,
+           "err_bound_median": float(np.median([r.err_bound for r in apx])),
+           "sample_weights_ms": float(np.median(sw)),
+           "sampled_wall_ms": samp_ms,
+           "sampled_device_ms": dev["device_busy_ms"],
+           "mode_transitions": len(svc.health.transitions)}
+    log(f"{family} 10b brownout: {half} bank hits at tier precomputed "
+        f"(bitwise query_batch), {half} misses approx (fidelity share "
+        f"{share:.4f}, median bound {res['err_bound_median']:.3e}); exact "
+        f"answers bitwise the approx-off run; {captures} captures in the "
+        f"stream; sample_weights {res['sample_weights_ms']:.2f} ms on the "
+        f"host beside the sampled program's {dev['device_busy_ms']:.2f} "
+        f"device ms ({samp_ms:.2f} ms wall) at T={half}; launches "
+        f"{launches}")
+    return res
+
+
+def serve_faults(family: str, eng, pts, direct: dict) -> dict:
+    """10c: a host-side fault sheds exactly its batch; an engine fault
+    with two batches in flight reroutes after a reset."""
+    reqs, rows = direct["reqs"], direct["rows"]
+
+    def faulted():
+        svc = InfluenceService(engine=eng, config=serve_config())
+        with inject.active(inject.Fault(sites.SERVE_DISPATCH, at=1,
+                                        kind=taxonomy.WORKER),
+                           strict=True, validate=True):
+            out = serve_run(svc, reqs)
+        return svc, out
+
+    svc, out = faulted()
+    shed = sorted(r.id for r in out.values() if not r.ok)
+    batch1 = {tuple(p) for p in dict(svc.dispatch_log)[1].tolist()}
+    want = sorted(r.id for r in reqs[SERVE_DRAIN: 2 * SERVE_DRAIN]
+                  if r.key() in batch1)
+    check(shed == want and all(out[i].reason == taxonomy.WORKER
+                               for i in shed),
+          f"{family} 10c: shed {len(shed)} requests, want batch 1's "
+          f"{len(want)}")
+    for r in out.values():
+        if r.ok:
+            same_answer(r, rows[(r.user, r.item)], f"{family} 10c host")
+    check(sorted(r.id for r in faulted()[1].values() if not r.ok) == shed,
+          f"{family} 10c: a replay shed another set")
+    # a worker death at the engine's dispatch with a batch in flight
+    q = pts[:ENGINE_FAULT_Q]
+    before = engine_tensors(eng)
+    svc = InfluenceService(engine=eng, config=serve_config(
+        max_batch=ENGINE_FAULT_BATCH, dispatch_window=ENGINE_FAULT_WINDOW))
+    with inject.active(inject.Fault(sites.ENGINE_DISPATCH_FLAT, at=2,
+                                    kind=taxonomy.WORKER),
+                       strict=True, validate=True) as inj:
+        got = svc.run([Request(int(u), int(i), id=f"e{k}")
+                       for k, (u, i) in enumerate(q)])
+    resets = obs.REGISTRY.snapshot()["counters"].get(
+        "engine.device_resets", 0.0)
+    after = engine_tensors(eng)
+    stale = set(before) & set(after)
+    check(not stale, f"{family} 10c: {len(stale)} pre-reset tensors "
+          "reachable from the engine")
+    shed_e = [r for r in got if not r.ok]
+    check(not shed_e, f"{family} 10c engine fault: {len(shed_e)} shed")
+    rows_e = dispatched_rows(eng, svc, ENGINE_FAULT_BATCH)
+    for r in got:
+        same_answer(r, rows_e[(r.user, r.item)], f"{family} 10c engine")
+        if (r.user, r.item) in rows:
+            same_answer(r, rows[(r.user, r.item)], f"{family} 10c vs 10a")
+    res = {"host_fault_shed": len(shed), "host_fault_batch": len(batch1),
+           "replay_same": True, "engine_fault_shed": 0,
+           "engine_fault_batches": len(svc.dispatch_log),
+           "device_resets": resets,
+           "uploads": inj.counts.get(sites.ENGINE_UPLOAD, 0),
+           "pre_reset_tensors_reachable": 0}
+    log(f"{family} 10c faults: serve.dispatch on batch 1 shed exactly its "
+        f"{len(shed)} requests (reason {taxonomy.WORKER}), the rest bitwise "
+        f"10a, a replay the same set; engine.dispatch_flat with two in "
+        f"flight rerouted after {resets:.0f} reset(s), every answer "
+        f"bitwise; no pre-reset tensor reachable")
+    return res
+
+
+def serve_entry_points(workdir: str) -> dict:
+    """10d: the serving and factor drivers, in process on the card."""
+    import contextlib
+    import io
+
+    from fia_tpu_torch.cli import factor as cli_factor
+    from fia_tpu_torch.cli import serve as cli_serve
+
+    base = ["--dataset", "synthetic", "--model", "MF",
+            "--num_steps_train", "300", "--batch_size", "3000"]
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_serve.main(base + [
+            "--warmup", "64", "--smoke_requests", "512",
+            "--train_dir", os.path.join(workdir, "serve")])
+    serve_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"10d: cli.serve returned {rc}: {lines[-3:]}")
+    smoke = next(json.loads(x) for x in lines if '"serve.smoke"' in x)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_factor.main(base + [
+            "--bank_entries", "256", "--verify",
+            "--train_dir", os.path.join(workdir, "factor")])
+    factor_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"10d: cli.factor --verify returned {rc}: {lines[-3:]}")
+    summary = json.loads(lines[-1])
+    res = {"serve_rc": 0, "serve_s": serve_s, "serve_ok": smoke["ok"],
+           "serve_hot_hit_rate": smoke["hot_hit_rate"],
+           "factor_rc": 0, "factor_s": factor_s,
+           "factor_entries": summary["entries"],
+           "verify_spearman_worst": summary["verify"]["spearman_worst"]}
+    log(f"10d entry points: cli.serve --warmup 64 --smoke_requests 512 "
+        f"returned 0 ({smoke['ok']}/512 ok) in {serve_s:.1f} s; "
+        f"cli.factor --verify returned 0 in {factor_s:.1f} s, worst "
+        f"Spearman {res['verify_spearman_worst']:.6f}")
+    return res
+
+
+def drive_serving(engines, train, pts, workdir: str) -> dict:
+    """Phase 10 (each model: 10a, 10b, 10c; 10d once)."""
+    out = {}
+    obs.REGISTRY.reset()  # phase 9's recoveries are its own
+    for family, (eng, _) in engines.items():
+        t0 = time.perf_counter()
+        row = {}
+        row["10a"], direct = serve_direct(family, eng, pts)
+        row["10b"] = serve_brownout(family, eng, train, pts, workdir)
+        no_recovery(f"10b {family}")
+        row["10c"] = serve_faults(family, eng, pts, direct)
+        obs.REGISTRY.reset()
+        row["seconds"] = time.perf_counter() - t0
+        out[family] = row
+        del direct
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["10d"] = serve_entry_points(workdir)
+    return out
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3823,7 +4274,9 @@ def main() -> int:
 
     # -- phase 8: the rest of the solver ladder ------------------------
     t8 = time.perf_counter()
-    ladder = perf["ladder"] = drive_ladder(engines, train, pts)
+    ladder_dir = tempfile.TemporaryDirectory()
+    ladder = perf["ladder"] = drive_ladder(engines, train, pts,
+                                           ladder_dir.name)
     for row, family in zip(rows, engines):
         lad = ladder[family]
         row["launches_by_path"]["sampled"] = lad["sampled"]["launches"][
@@ -3898,7 +4351,30 @@ def main() -> int:
     perf["recovery"] = drive_recovery(engines, train, pts)
     perf["phase9_seconds"] = time.perf_counter() - t9
     log(f"phase 9: {perf['phase9_seconds']:.1f} s")
+
+    # -- phase 10: serving on the card ---------------------------------
+    t10 = time.perf_counter()
+    os.environ["FIA_MEMLIMIT_CACHE"] = os.path.join(envelope_dir.name,
+                                                    "mem.json")
+    serving = perf["serving"] = drive_serving(engines, train, pts,
+                                              ladder_dir.name)
+    by_name = {row["name"]: row for row in rows}
+    for family in engines:
+        a = serving[family]["10a"]["launches"]
+        b = serving[family]["10b"]["launches"]
+        by_name[SOURCES[family]]["launches_by_path"]["serve"] = {
+            "direct": a[SOURCES[family]], "brownout": b[SOURCES[family]]}
+        seg_by_path[family]["serve"] = {"direct": a[SEGMENT_SOURCE],
+                                        "brownout": b[SEGMENT_SOURCE]}
+    for name in (CERT_SOURCE, EIGMIN_SOURCE):
+        by_name[name]["launches_by_path"]["serve"] = {
+            f: serving[f]["10b"]["launches"][name] for f in engines}
+    perf["phase10_seconds"] = time.perf_counter() - t10
+    log(f"phase 10: {perf['phase10_seconds']:.1f} s")
+    ladder_dir.cleanup()
     envelope_dir.cleanup()
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"chip_smoke total: {perf['total_seconds']:.1f} s")
 
     log("perf " + json.dumps(perf, sort_keys=True))
     log(card)

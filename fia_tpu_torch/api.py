@@ -10,9 +10,11 @@ core. Engines are built with ``cache_dir=train_dir``, so the factor bank
 beside the checkpoints, and every params or train-set change refreshes
 the bank surgically.
 
-Not ported yet: ``serve`` (ROADMAP Queue A.11), ``apply_updates`` and
-``apply_removal`` (A.12), and ``mesh`` (A.13); each raises
-``NotImplementedError``. Initial parameters come from the port's own
+``serve`` returns an online query service
+(:class:`fia_tpu_torch.serve.InfluenceService`) that tracks the model:
+every params or train-set change invalidates its caches. Not ported yet:
+``apply_updates`` and ``apply_removal`` (ROADMAP Queue A.12), and
+``mesh`` (A.13); each raises ``NotImplementedError``. Initial parameters come from the port's own
 generator (a ``torch.Generator`` seeded with ``seed``): they cannot equal
 the reference's ``jax.random`` draws (ROADMAP Queue C).
 """
@@ -20,6 +22,7 @@ the reference's ``jax.random`` draws (ROADMAP Queue C).
 from __future__ import annotations
 
 import os
+import weakref
 
 import numpy as np
 import torch
@@ -109,6 +112,10 @@ class FIAModel:
         # and params dicts are replaced, never mutated)
         self._index_memo: tuple | None = None  # (x, y, InteractionIndex)
         self._host_params_memo: tuple | None = None  # (params, host dict)
+        # serving layers derived from this model (FIAModel.serve), told
+        # of every params or train-set change; weak, so a dropped
+        # service is not kept alive by the model
+        self._serving = weakref.WeakSet()
 
     # -- properties --------------------------------------------------------
     @property
@@ -145,10 +152,13 @@ class FIAModel:
     def _invalidate(self):
         """The params or train set moved: the published factor bank is
         refreshed (entries whose dependency digests still match survive,
-        touched ones are dropped), and engines are dropped (rebuilt
-        lazily from the new state)."""
+        touched ones are dropped), engines are dropped (rebuilt lazily
+        from the new state), and every serving layer clears its hot
+        caches and memoized fingerprints."""
         self._refresh_factor_bank()
         self._engines.clear()
+        for svc in list(self._serving):
+            svc.invalidate()
 
     def _interaction_index(self) -> InteractionIndex:
         """The interaction index over the current train set, memoized on
@@ -175,12 +185,26 @@ class FIAModel:
         return memo[1]
 
     def _log_event(self, event: str, **fields) -> None:
-        """A model-lifecycle event as an :func:`obs.diag
-        <fia_tpu_torch.obs.diag>` on the event's channel (the reference
-        routes it into a serving layer's metrics log when one is
-        attached; serving is ROADMAP Queue A.11)."""
-        body = " ".join(f"{k}={v}" for k, v in fields.items())
-        obs.diag(event, body)
+        """Route a model-lifecycle event into the serving metrics JSONL:
+        mirrored to every registered service's metrics log (the event
+        names are declared in ``serve/metrics.py`` SCHEMA). With no
+        serving layer attached, one :func:`obs.diag
+        <fia_tpu_torch.obs.diag>` line on the event's channel."""
+        recorder = {
+            "stream.update": "record_update",
+            "factor.refresh": "record_factor_refresh",
+            "audit.sweep": "record_audit_sweep",
+            "audit.apply": "record_audit_apply",
+        }.get(event)
+        sent = False
+        for svc in list(self._serving):
+            fn = getattr(svc.metrics, recorder, None) if recorder else None
+            if fn is not None:
+                fn(**fields)
+                sent = True
+        if not sent:
+            body = " ".join(f"{k}={v}" for k, v in fields.items())
+            obs.diag(event, body)
 
     def _refresh_factor_bank(self):
         """Surgical factor-bank invalidation on a params/train change
@@ -204,8 +228,19 @@ class FIAModel:
                             dropped=stats["dropped"],
                             model_key=self.model_name)
 
+    def _register_serving(self, svc) -> None:
+        self._serving.add(svc)
+
     def serve(self, config=None, solver: str | None = None, **engine_extra):
-        _unported("serve: ROADMAP Queue A.11")
+        """An online query service over this model
+        (:class:`fia_tpu_torch.serve.InfluenceService`) on the model's
+        device. The service tracks this model: retrain, checkpoint load
+        and train-set mutation invalidate its caches automatically."""
+        from fia_tpu_torch.serve import InfluenceService
+
+        return InfluenceService.from_model(
+            self, config=config, solver=solver, **engine_extra
+        )
 
     # -- training (genericNeuralNet.py:367-449) ----------------------------
     def train(self, num_steps: int, iter_to_switch_to_batch: int | None = None,

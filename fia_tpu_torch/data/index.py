@@ -5,10 +5,14 @@ of ``fia_tpu/data/index.py`` with the stable-argsort CSR builder of
 The FIA related set of a test pair (u*, i*) — every training row whose
 user is u* or whose item is i* — is two CSR row lookups. The postings
 are uploaded to the device once, and the engine gathers related rows
-there.
+there. ``related`` and single-query ``related_padded`` are memoized as
+the reference's are (bounded LRUs of read-only arrays): a serving stream
+revisits its hot pairs.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import numpy as np
 
@@ -50,6 +54,15 @@ class InteractionIndex:
         self.num_items = int(num_items if num_items is not None else x[:, 1].max() + 1)
         self._u_indptr, self._u_rows = _csr_from_ids(x[:, 0], self.num_users)
         self._i_indptr, self._i_rows = _csr_from_ids(x[:, 1], self.num_items)
+        # related() memo (bounded LRU; the entries are write-protected,
+        # since several callers hold them) and the single-query
+        # related_padded memo, keyed by pair + resolved pad
+        self._related_memo: OrderedDict[tuple, np.ndarray] = OrderedDict()
+        self._related_memo_cap = 4096
+        self.memo_hits = 0
+        self.memo_misses = 0
+        self._padded_memo: OrderedDict[tuple, tuple] = OrderedDict()
+        self._padded_memo_cap = 1024
 
     def rows_of_user(self, u: int) -> np.ndarray:
         return self._u_rows[self._u_indptr[u] : self._u_indptr[u + 1]]
@@ -60,8 +73,22 @@ class InteractionIndex:
     def related(self, u: int, i: int) -> np.ndarray:
         """Training rows sharing user u or item i: user rows first, then
         item rows, so a row matching both (the (u, i) interaction itself)
-        appears twice — the reference's ordering."""
-        return np.concatenate([self.rows_of_user(u), self.rows_of_item(i)])
+        appears twice — the reference's ordering. Memoized: a read-only
+        array."""
+        key = (int(u), int(i))
+        memo = self._related_memo
+        hit = memo.get(key)
+        if hit is not None:
+            memo.move_to_end(key)
+            self.memo_hits += 1
+            return hit
+        self.memo_misses += 1
+        out = np.concatenate([self.rows_of_user(u), self.rows_of_item(i)])
+        out.setflags(write=False)
+        memo[key] = out
+        if len(memo) > self._related_memo_cap:
+            memo.popitem(last=False)
+        return out
 
     def related_count(self, u: int, i: int) -> int:
         return int(
@@ -110,6 +137,15 @@ class InteractionIndex:
           count: (T,)   int32 — true related-set sizes.
         """
         test_points = np.asarray(test_points)
+        if len(test_points) == 1:
+            u, i = (int(v) for v in test_points[0])
+            key = (u, i, bucketed_pad(self.related_count(u, i), bucket,
+                                      pad_to))
+            hit = self._padded_memo.get(key)
+            if hit is not None:
+                self._padded_memo.move_to_end(key)
+                self.memo_hits += 1
+                return hit
         lists = [self.related(int(u), int(i)) for u, i in test_points]
         counts = np.array([len(l) for l in lists], dtype=np.int32)
         pad_to = bucketed_pad(counts.max() if counts.size else 1, bucket, pad_to)
@@ -118,4 +154,10 @@ class InteractionIndex:
         for t, l in enumerate(lists):
             idx[t, : len(l)] = l
             mask[t, : len(l)] = True
+        for a in (idx, mask, counts):
+            a.setflags(write=False)
+        if len(test_points) == 1:
+            self._padded_memo[key] = (idx, mask, counts)
+            if len(self._padded_memo) > self._padded_memo_cap:
+                self._padded_memo.popitem(last=False)
         return idx, mask, counts

@@ -5,8 +5,10 @@ Restates ``tests/test_api.py`` port against port on ``tiny_splits``
 related rows, the test block, retraining, the Hessian's extreme
 eigenvalues, the gradient of influence, a resumed run keeping the phase
 schedule, the dataset updaters, and the spectral tools. Nothing of that
-file needs ``serve`` or ``stream``, so none of it is left out; those two
-surfaces raise here (ROADMAP Queue A.11, A.12). Added: the facade's
+file needs ``serve`` or ``stream``, so none of it is left out; ``stream``
+raises here (ROADMAP Queue A.12), and so does ``serve`` over a mesh
+(A.13; ``serve`` itself is held in ``test_torch_serve.py``). Added: the
+facade's
 influence is bitwise the engine's; the iHVP disk cache serves, and
 misses after a params change; the factor bank is refreshed by a params
 change. The eigenvalues are held to a float64 eigendecomposition of the
@@ -24,6 +26,7 @@ from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.influence import factor as fbank
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence.engine import InfluenceEngine
+from fia_tpu_torch.serve import ServeConfig
 from fia_tpu_torch.influence.spectral import (block_hessian_eigvals,
                                               extreme_eigvals)
 
@@ -140,7 +143,7 @@ class TestFacade:
         assert "Norm of the mean of gradients:" in out
 
     @pytest.mark.parametrize("call,item", [
-        (lambda m: m.serve(), "A.11"),
+        (lambda m: m.serve(config=ServeConfig(mesh=2)), "A.13"),
         (lambda m: m.apply_updates(np.zeros((1, 2), np.int64)), "A.12"),
         (lambda m: m.apply_removal([0]), "A.12"),
     ])

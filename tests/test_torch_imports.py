@@ -67,6 +67,16 @@ OBS_MODULES = ("fia_tpu_torch.obs",
                "fia_tpu_torch.obs.export",
                "fia_tpu_torch.utils.timing",
                "fia_tpu_torch.utils.memlimits")
+# the serving layer and its entry points
+SERVE_MODULES = ("fia_tpu_torch.serve",
+                 "fia_tpu_torch.serve.request",
+                 "fia_tpu_torch.serve.admission",
+                 "fia_tpu_torch.serve.scheduler",
+                 "fia_tpu_torch.serve.health",
+                 "fia_tpu_torch.serve.cache",
+                 "fia_tpu_torch.serve.metrics",
+                 "fia_tpu_torch.serve.service",
+                 "fia_tpu_torch.cli.serve")
 
 
 def _forbidden(name: str) -> bool:
@@ -107,6 +117,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(DISPATCH_MODULES) <= set(names)
     assert set(LADDER_MODULES) <= set(names)
     assert set(OBS_MODULES) <= set(names)
+    assert set(SERVE_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -140,7 +151,7 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
 
 @pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
                          + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES
-                         + OBS_MODULES)
+                         + OBS_MODULES + SERVE_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""
@@ -233,6 +244,36 @@ def test_ladder_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         FIAModel(**kw)
     assert FIAModel(**kw, device="cpu").device.type == "cpu"
+
+
+def test_serving_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """FIAModel.serve, a service over a default-device engine and the
+    serve driver run on the card unless asked for the CPU, and raise
+    without one."""
+    from fia_tpu_torch.api import FIAModel
+    from fia_tpu_torch.cli import serve as cli_serve
+    from fia_tpu_torch.serve import InfluenceService, Request, ServeConfig
+
+    model = MF(4, 3, 2, 1e-3)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    train = RatingDataset(np.asarray([[0, 0], [1, 2], [3, 1]]),
+                          np.asarray([1.0, 2.0, 3.0]))
+    kw = dict(model="MF", num_users=4, num_items=3, embedding_size=2,
+              weight_decay=1e-3, batch_size=1,
+              data_sets={"train": train, "test": train}, train_dir="")
+    on_cpu = FIAModel(**kw, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FIAModel(**kw).serve()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        InfluenceService(
+            engine_provider=lambda: InfluenceEngine(model, params, train))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_serve.main(["--dataset", "synthetic", "--warmup", "2",
+                        "--train_dir", str(tmp_path)])
+    svc = on_cpu.serve(config=ServeConfig(disk_cache=False))
+    assert svc._peek_engine().device.type == "cpu"
+    assert svc.run([Request(0, 0)])[0].ok
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch):

@@ -7,10 +7,14 @@ exporters write the same bytes. The compile mirror is the port's: each
 flat-program capture the engine records goes to
 ``compile.backend_total``, with its seconds in ``compile.backend_us``.
 
-``TestServeChains`` and ``TestChaosOracle`` of that file wait for the
-serving layer and the chaos scenarios (ROADMAP Queue A.11 and A.14).
-Added here: a traced ``query_many`` returns the untraced run's scores as
-equal arrays, and emits the engine's spans.
+``TestServeChains`` is restated over a traced stream of the port's
+service (``fia_tpu_torch.serve``), its JSONL audited and rendered by the
+reference's own ``fia_tpu.cli.obs`` (``audit_chains``, ``report``,
+``trace``; the port's ``cli/obs.py`` is ROADMAP Queue A.14): the port
+writes the reference's span and metrics schema. ``TestChaosOracle`` waits
+for the chaos scenarios (A.14). Added here: a traced ``query_many``
+returns the untraced run's scores as equal arrays, and emits the engine's
+spans.
 """
 
 import hashlib
@@ -32,6 +36,7 @@ from fia_tpu_torch.obs.export import (
     span_fields,
 )
 from fia_tpu_torch.obs.registry import (
+    US_BUCKETS,
     Registry,
     percentile_from_snapshot,
 )
@@ -374,3 +379,136 @@ class TestTiming:
             assert json.load(fh)["traceEvents"]
         with profile_trace(None):  # off: a no-op
             pass
+
+
+# ------------------------------------------------------------- serving
+
+
+def _serve(pts, metrics_path):
+    from fia_tpu_torch.serve import InfluenceService, Request, ServeConfig
+
+    eng, _ = _engine()
+    svc = InfluenceService(engine=eng, config=ServeConfig(
+        disk_cache=False, metrics_path=metrics_path))
+    out = []
+    for i, (u, it) in enumerate(pts):
+        svc.submit(Request(user=int(u), item=int(it), id=f"q{i}"))
+    out.append(svc.submit(Request(user=-1, item=0, id="bad")))
+    out.extend(svc.drain())
+    svc.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def traced_stream(tmp_path_factory):
+    """One traced stream of the port's service (plus its untraced twin)
+    shared by the chain/identity/CLI tests below."""
+    _, x = _engine()
+    pts = np.unique(x, axis=0)[:8].astype(np.int64)
+    ref = _serve(pts, None)
+    path = str(tmp_path_factory.mktemp("obs") / "serve.jsonl")
+    obs.TRACER.reset()
+    obs.REGISTRY.reset()
+    obs.configure(trace=True)
+    try:
+        got = _serve(pts, path)
+    finally:
+        obs.configure(trace=False)
+        obs.TRACER.reset()
+    return {"path": path, "ref": ref, "got": got, "n_ok": len(pts)}
+
+
+class TestServeChains:
+    def test_payload_invariance(self, traced_stream):
+        """Tracing on changes zero response bytes."""
+        by_id = {r.id: r for r in traced_stream["ref"]}
+        n_ok = 0
+        for r in traced_stream["got"]:
+            b = by_id[r.id]
+            assert r.ok == b.ok
+            if r.ok:
+                n_ok += 1
+                assert np.array_equal(np.asarray(r.scores),
+                                      np.asarray(b.scores))
+                assert np.array_equal(np.asarray(r.related),
+                                      np.asarray(b.related))
+        assert n_ok == traced_stream["n_ok"]
+
+    def test_chains_complete_from_file_alone(self, traced_stream):
+        from fia_tpu.cli import obs as ref_cli_obs
+
+        spans = read_spans(traced_stream["path"])
+        audit = ref_cli_obs.audit_chains(spans)
+        assert audit["incomplete"] == 0
+        assert audit["ok_complete"] == traced_stream["n_ok"]
+        assert audit["rejected_complete"] == 1
+
+    def test_trace_ids_derive_from_request_ids(self, traced_stream):
+        spans = read_spans(traced_stream["path"])
+        roots = {s["trace"]: s for s in spans
+                 if s["name"] == "serve.request"}
+        want = {trace_id_for(f"req-q{i}")
+                for i in range(traced_stream["n_ok"])}
+        want.add(trace_id_for("req-bad"))
+        assert set(roots) == want
+
+    def test_solver_attr_matches_engine(self, traced_stream):
+        spans = read_spans(traced_stream["path"])
+        solver = [s for s in spans if s["name"] == "serve.solver"]
+        assert solver
+        assert {s["attrs"]["solver"] for s in solver} == {"direct"}
+
+    def test_seq_layout(self, traced_stream):
+        """Span ids encode the documented seq layout: root .0, solver
+        .5, rejected chains stop at .2."""
+        spans = read_spans(traced_stream["path"])
+        ok_tid = trace_id_for("req-q0")
+        chain = sorted((s["span"], s["name"]) for s in spans
+                       if s["trace"] == ok_tid)
+        assert chain == [
+            (f"{ok_tid}.0", "serve.request"),
+            (f"{ok_tid}.1", "serve.admit"),
+            (f"{ok_tid}.2", "serve.queue"),
+            (f"{ok_tid}.3", "serve.batch"),
+            (f"{ok_tid}.4", "serve.dispatch"),
+            (f"{ok_tid}.5", "serve.solver"),
+        ]
+        bad_tid = trace_id_for("req-bad")
+        assert len([s for s in spans if s["trace"] == bad_tid]) == 3
+
+    def test_metrics_snapshot_on_close(self, traced_stream):
+        from fia_tpu.cli import obs as ref_cli_obs
+
+        snap = ref_cli_obs.last_snapshot(traced_stream["path"])
+        assert snap is not None
+        key = "serve.requests_total{mode=full,status=ok}"
+        assert snap["counters"][key] == traced_stream["n_ok"]
+        assert snap["buckets_us"] == list(US_BUCKETS)
+        hist = [k for k in snap["histograms"]
+                if k.startswith("serve.solve_by_solver_us")]
+        assert hist == ["serve.solve_by_solver_us{solver=direct}"]
+
+    def test_cli_report_exit_codes(self, traced_stream, tmp_path, capsys):
+        from fia_tpu.cli import obs as ref_cli_obs
+
+        assert ref_cli_obs.main(["report", traced_stream["path"]]) == 0
+        out = capsys.readouterr().out
+        assert "incomplete: 0" in out
+        assert "solver=direct" in out
+        broken = tmp_path / "broken.jsonl"
+        with open(traced_stream["path"]) as src, open(broken, "w") as dst:
+            for line in src:
+                if '"name": "serve.solver"' not in line:
+                    dst.write(line)
+        assert ref_cli_obs.main(["report", str(broken)]) == 1
+
+    def test_cli_trace_export(self, traced_stream, tmp_path):
+        from fia_tpu.cli import obs as ref_cli_obs
+
+        out = tmp_path / "t.json"
+        assert ref_cli_obs.main(["trace", traced_stream["path"],
+                                 "--last", "2", "--out", str(out)]) == 0
+        doc = json.load(open(out))
+        dur = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        assert dur
+        assert len({e["tid"] for e in dur}) == 2
