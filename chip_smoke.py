@@ -262,13 +262,59 @@ Phases, each of which makes the script exit non-zero when it fails:
         0; the verify's worst Spearman printed.
      The score, Hessian, certificate and λ_min rows of the ``kernels``
      line gain a ``serve`` path under ``launches_by_path``.
+ 11. streaming updates and the audit subsystem, under ``stream`` (11a)
+     and ``audit`` (11b–11d) in the ``perf`` line; 11a and 11b first MF,
+     then NCF:
+     a. on a community graph of ML-1M's shape (``community_ratings``:
+        USERS x ITEMS, ROWS rows in 40 communities; on phase 4's data the
+        read reach of 256 held-out pairs is every user and item, printed,
+        so no block there lies outside a footprint), a ``FIAModel`` with
+        a factor bank of its 64 hottest pairs and a direct service
+        (``max_batch`` 1,024, ``dispatch_window`` 2) whose hot and disk
+        tiers hold 8 probes inside community 0's footprint and 8 outside;
+        256 new ratings in community 0, 400 steps (two epoch
+        dispatches at batch 3,020), a checkpoint every 200: an OOM
+        injected at ``trainer.epoch`` (the second dispatch) and a
+        preemption at ``stream.swap`` each roll back, the service
+        answering bitwise on the old state; the identical retry resumes
+        at step 323 and commits, params bitwise an uninterrupted update's
+        on a twin, every row outside the moved masks and every global
+        leaf bitwise the old; requests in flight across the swap answer
+        bitwise the old engine's ``query_batch``; the warmed pair builds
+        nothing; every probe after the swap bitwise a fresh service (0
+        stale), the outside ones hot hits re-keyed, the inside ones
+        recomputed; the bank refreshed; three more updates with drains
+        between them leave ``memory_allocated`` no higher than after the
+        first plus one engine's tables and graphs;
+     b. ``reverse_topk`` over phase 8's 1,024 held-out queries on 7b's
+        trained weights (labels seeded in 1..5, k = 64, 256 a batch):
+        bitwise under ``chunk_points=100, batch_queries=64`` and under
+        ``segment=4096``, the card's selection exactly the (value, id)
+        order of ``group_scores`` and of a tied accumulator, the score
+        kernel and ``segment_hessian`` launched, the plan round-tripped;
+        then, on 11a's model and service, one sweep over 64 community-0
+        held-out pairs gives a reweight plan (w = 0.5) and a removal plan
+        (16 rows), each saved and loaded, the first applied through
+        ``FIAModel.apply_removal``, the second through ``apply_plan``:
+        committed, the probes 0 stale, the outside ones re-keyed;
+     c. (once) ``verify_plan`` on phase 4's small input, the lanes on the
+        card within 7a's bar of the CPU's and a journaled rerun bitwise
+        with nothing appended; then at ML-1M shape on 7b's MF weights, 4
+        plan rows and 4 controls, 2 repeats, 300 steps (actual finite;
+        sign agreement and Spearman printed, not gated);
+     d. (once) ``cli.debug_data`` in process with
+        ``scripts/unlearn_smoke.sh``'s arguments: it returns, the
+        summary has the reference's keys and the apply committed.
+     The score and Hessian rows of the ``kernels`` line gain ``stream``
+     (11a's serving after the swap) and ``audit`` (11b's sweep) paths.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
      (``reliability.retries_total``), no device-state reset
      (``engine.device_resets``), no batch on the CPU rung
      (``engine.cpu_fallback_batches``) and no reliability diagnostic;
-     so must 10a and 10b (the registry is emptied after phase 9).
+     so must 10a and 10b (the registry is emptied after phase 9), and
+     phase 11 outside the faults 11a injects (counted, then emptied).
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -319,6 +365,10 @@ from fia_tpu_torch.data.synthetic import (
     synthetic_splits,
 )
 from fia_tpu_torch.api import FIAModel
+from fia_tpu_torch.audit import (apply_plan, build_plan, load_plan, reverse_topk,
+                                 save_plan, verify_plan)
+from fia_tpu_torch.audit import reverse as audit_reverse
+from fia_tpu_torch.audit import verify as audit_verify
 from fia_tpu_torch.cli.serve import smoke_stream
 from fia_tpu_torch.eval import metrics
 from fia_tpu_torch.eval.rq1 import test_retraining
@@ -342,10 +392,13 @@ from fia_tpu_torch.influence.kernels import segment as kseg
 from fia_tpu_torch.models import MF, NCF
 from fia_tpu_torch.obs.export import perfetto, prometheus, span_fields
 from fia_tpu_torch.reliability import inject, sites, taxonomy
+from fia_tpu_torch.reliability.journal import Journal
 from fia_tpu_torch.serve import (HealthConfig, InfluenceService, Request,
                                  ServeConfig)
+from fia_tpu_torch.stream import compute_footprint
 from fia_tpu_torch.train import checkpoint
-from fia_tpu_torch.train.trainer import Trainer, TrainConfig, loo_retrain_many
+from fia_tpu_torch.train.trainer import (Trainer, TrainConfig, TrainState,
+                                         loo_retrain_many)
 from fia_tpu_torch.utils import compilemon, memlimits
 from fia_tpu_torch.utils.timing import fenced_time
 
@@ -1800,12 +1853,12 @@ def full_loss(model, params, x, y) -> float:
         return float(model.loss(params, x, y))
 
 
-def train_full(family: str, model, train, pts) -> tuple[dict, dict]:
+def train_full(family: str, model, train, pts) -> tuple[TrainState, dict]:
     """Phase 7b: training at ML-1M shape through the three phases, timed
     a phase at a time; the device-busy share of a 200-step window; a
     checkpoint round trip; and the flat query on the trained weights,
-    kernel against plain score stage. Returns the trained params and
-    the phase's report."""
+    kernel against plain score stage. Returns the trained state (phase
+    11 starts from it) and the phase's report."""
     dev = torch.device(CARD)
     x = torch.as_tensor(train.x).to(dev)
     y = torch.as_tensor(train.y).to(dev)
@@ -1883,7 +1936,7 @@ def train_full(family: str, model, train, pts) -> tuple[dict, dict]:
         res, ref, f"{family} 7b trained weights kernel vs plain", RTOL, ATOL,
         RHO_MIN, relu_excuse(family, ops), exact)
     log(f"{family} 7b: {json.dumps(rep, sort_keys=True)}")
-    return state.params, rep
+    return state, rep
 
 
 def drive_rq1(family: str, eng, train, pts) -> dict:
@@ -4108,6 +4161,680 @@ def drive_serving(engines, train, pts, workdir: str) -> dict:
     return out
 
 
+# -- phase 11: streaming updates and the audit subsystem ---------------------
+# 11a and 11b's removal run on a community graph of ML-1M's shape (USERS,
+# ITEMS, ROWS; STREAM_GROUPS communities, no row crosses one): on phase
+# 4's data the read reach of STREAM_NEW held-out pairs covers every user
+# and item (printed as reach_phase4), so no block there lies outside an
+# update's footprint and re-keying could not be seen. The updates land in
+# community 0. 11b's sweep runs on phase 4's data from 7b's weights.
+STREAM_GROUPS = 40
+STREAM_NEW, STREAM_STEPS, STREAM_CKPT = 256, 400, 200
+STREAM_PROBES = 8  # probes inside the footprint, and as many outside
+STREAM_BANK = 64
+STREAM_CYCLES = 3  # updates in a row for the memory bound
+STREAM_CONFIG = dict(max_batch=1024, dispatch_window=2)
+SWEEP_K, SWEEP_BATCH = 64, 256
+SWEEP_ALT = ({"chunk_points": 100, "batch_queries": 64}, {"segment": 4096})
+PLAN_ROWS, REWEIGHT_W, APPLY_STEPS = 16, 0.5, 100
+AUDIT_GROUP_POINTS = 64  # 11b's removal: community-0 held-out test points
+# 11c: verify on phase 4's small input (card against the CPU at 7a's
+# bar), then at ML-1M shape at reduced depth
+VERIFY_SMALL = dict(num_steps=150, batch_size=200, learning_rate=1e-3,
+                    retrain_times=2, max_rows=4, seed=0)
+VERIFY_FULL = dict(num_steps=300, batch_size=FULL_BATCH, learning_rate=1e-3,
+                   retrain_times=2, max_rows=4, seed=0)
+VERIFY_CONTROLS = 4
+# 11d: scripts/unlearn_smoke.sh's arguments, on the card
+UNLEARN_SMOKE = [
+    "--dataset", "synthetic", "--synth_users", "60", "--synth_items", "40",
+    "--synth_train", "2000", "--synth_test", "40", "--split_seed", "3",
+    "--seed", "0", "--model", "MF", "--embed_size", "4",
+    "--weight_decay", "1e-3", "--damping", "1e-3", "--lr", "1e-2",
+    "--batch_size", "200", "--num_steps_train", "300", "--solver", "direct",
+    "--corrupt_rows", "40", "--topk", "16", "--plan_rows", "4",
+    "--controls", "4", "--verify", "1", "--verify_steps", "150",
+    "--retrain_times", "2", "--apply", "1", "--apply_steps", "40",
+    "--force_apply",
+]
+DEBUG_DATA_KEYS = {
+    "model_key", "sweep_id", "rows_scored", "rows_per_s", "plan_id",
+    "plan_action", "plan_rows", "predicted_delta", "planted_hit_rate",
+    "plan_path", "gate_passed", "sign_agreement", "spearman",
+    "verify_artifact", "apply_status", "apply_seconds",
+}
+FAMILY_NAMES = {"mf": "MF", "ncf": "NCF"}
+
+
+def group_bounds(g: int) -> tuple[int, int, int, int]:
+    """Community g's user range [u0, u1) and item range [i0, i1)."""
+    return (g * USERS // STREAM_GROUPS, (g + 1) * USERS // STREAM_GROUPS,
+            g * ITEMS // STREAM_GROUPS, (g + 1) * ITEMS // STREAM_GROUPS)
+
+
+def community_ratings(seed: int = 0) -> RatingDataset:
+    """ROWS ratings in 1..5 over USERS x ITEMS, each row inside one of
+    STREAM_GROUPS communities drawn uniformly, its user and item uniform
+    within the community's ranges."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, STREAM_GROUPS, ROWS)
+    b = np.asarray([group_bounds(k) for k in range(STREAM_GROUPS + 1)])
+    u = b[g, 0] + (rng.random(ROWS) * (b[g, 1] - b[g, 0])).astype(np.int64)
+    i = b[g, 2] + (rng.random(ROWS) * (b[g, 3] - b[g, 2])).astype(np.int64)
+    y = rng.integers(1, 6, ROWS).astype(np.float32)
+    return RatingDataset(np.stack([u, i], axis=1).astype(np.int32), y)
+
+
+def group_heldout(train_x, groups, n: int, seed: int) -> np.ndarray:
+    """n distinct (u, i) pairs absent from ``train_x``, the k-th inside
+    community ``groups[k % len(groups)]``."""
+    rng = np.random.default_rng(seed)
+    have = set((np.asarray(train_x[:, 0], np.int64) * ITEMS
+                + train_x[:, 1]).tolist())
+    out = []
+    for _ in range(1000 * n):
+        if len(out) == n:
+            break
+        u0, u1, i0, i1 = group_bounds(groups[len(out) % len(groups)])
+        u, i = int(rng.integers(u0, u1)), int(rng.integers(i0, i1))
+        if u * ITEMS + i not in have:
+            have.add(u * ITEMS + i)
+            out.append((u, i))
+    check(len(out) == n, f"only {len(out)} of {n} held-out pairs found in "
+          f"communities {list(groups)}")
+    return np.asarray(out, np.int64)
+
+
+def stream_model(family: str, train, workdir: str, name: str,
+                 state: TrainState | None = None) -> FIAModel:
+    """An ML-1M-shape FIAModel on the card: seeded weights, or ``state``."""
+    m = FIAModel(FAMILY_NAMES[family], USERS, ITEMS, K_EMB, WD,
+                 batch_size=FULL_BATCH, data_sets={"train": train},
+                 initial_learning_rate=TRAIN_LR, damping=DAMPING,
+                 train_dir=workdir, model_name=name, solver="direct",
+                 seed=0, device=CARD)
+    if state is not None:
+        m.state = state
+    return m
+
+
+def host_params(m) -> dict:
+    return {k: v.detach().cpu().numpy().copy()
+            for k, v in m.state.params.items()}
+
+
+def same_params(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def outside_moved_bitwise(m, before: dict, fp) -> bool:
+    """Every user- or item-keyed row outside the moved masks, and every
+    global leaf, has its pre-update bytes."""
+    after = host_params(m)
+    for k, old in before.items():
+        new = after[k]
+        if old.ndim and old.shape[0] == USERS:
+            new, old = new[~fp.user_touched], old[~fp.user_touched]
+        elif old.ndim and old.shape[0] == ITEMS:
+            new, old = new[~fp.item_touched], old[~fp.item_touched]
+        if new.tobytes() != old.tobytes():
+            return False
+    return True
+
+
+def serve_pairs(svc, pairs, tag: str, drain: bool = True) -> dict:
+    """Submit one request a pair; with ``drain``, drain and return
+    ``(u, i) -> Response``, each ok."""
+    for n, (u, i) in enumerate(np.asarray(pairs).tolist()):
+        rej = svc.submit(Request(int(u), int(i), id=f"{tag}-{n}"))
+        check(rej is None, f"{tag}: request ({u}, {i}) rejected: {rej}")
+    if not drain:
+        return {}
+    out = {(r.user, r.item): r for r in svc.drain()}
+    check(all(r.ok for r in out.values()), f"{tag}: "
+          f"{[(r.id, r.status, r.reason) for r in out.values() if not r.ok]}")
+    return out
+
+
+def rows_of(eng, pairs) -> dict:
+    """``(u, i) -> (scores, related)`` of ``eng.query_batch(pairs)``."""
+    res = eng.query_batch(np.asarray(pairs))
+    return {(int(u), int(i)): (res.scores_of(t).copy(), res.related_of(t))
+            for t, (u, i) in enumerate(np.asarray(pairs).tolist())}
+
+
+def publish_bank(m) -> int:
+    """The model's factor bank of its STREAM_BANK hottest pairs."""
+    eng = m.engine()
+    pairs = fbank.select_hot_pairs(eng.index, STREAM_BANK)
+    bank = fbank.build_bank(eng, pairs, batch_queries=512)
+    fbank.publish_bank(bank, eng.factor_bank_path(), fbank.bank_fingerprint(
+        m.model_name, m.model.block_size, DAMPING, *eng._train_host))
+    return len(bank)
+
+
+def events(path: str, name: str) -> list:
+    with open(path) as f:
+        return [e for e in map(json.loads, f) if e.get("event") == name]
+
+
+def settled_allocated() -> int:
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def keeps_serving(family: str, svc, eng, probes, pre: dict, misses,
+                  what: str) -> None:
+    """After a rollback: the probes answer their pre-update bytes, and new
+    keys compute bitwise the old engine's ``query_batch``."""
+    got = serve_pairs(svc, np.concatenate([probes, misses]), what)
+    for key, r in pre.items():
+        check(got[key].scores.tobytes() == r.scores.tobytes(),
+              f"{family} {what}: probe {key} changed after the rollback")
+    want = rows_of(eng, misses)
+    for key, w in want.items():
+        same_answer(got[key], w, f"{family} {what}")
+
+
+def stream_update(family: str, workdir: str, reach: dict) -> tuple:
+    """11a: a streaming update under live serving on the community graph;
+    returns the report and (model, service, probes, their footprint
+    sides) for 11b's removal."""
+    train = community_ratings()
+    m = stream_model(family, train, os.path.join(workdir, family),
+                     f"stream-{family}")
+    eng0 = m.engine()
+    bank_n = publish_bank(m)
+    mpath = os.path.join(workdir, f"{family}-serve.jsonl")
+    svc = m.serve(config=ServeConfig(metrics_path=mpath, **STREAM_CONFIG))
+    pool = group_heldout(train.x, [0], (1 + STREAM_CYCLES) * STREAM_NEW
+                         + 4 * STREAM_PROBES, seed=29)
+    rng = np.random.default_rng(31)
+    updates = [(pool[k * STREAM_NEW:(k + 1) * STREAM_NEW].astype(np.int32),
+                rng.integers(1, 6, STREAM_NEW).astype(np.float32))
+               for k in range(1 + STREAM_CYCLES)]
+    nx, ny = updates[0]
+    fp = compute_footprint(train.x, nx, USERS, ITEMS)
+    u1, i1 = group_bounds(0)[1], group_bounds(0)[3]
+    check(not fp.user_read[u1:].any() and not fp.item_read[i1:].any(),
+          f"{family} 11a: the footprint leaves community 0")
+    spare = pool[(1 + STREAM_CYCLES) * STREAM_NEW:]
+    inside = np.asarray([p for p in spare if fp.touched(*p)][:STREAM_PROBES])
+    outside = group_heldout(train.x, list(range(1, 1 + STREAM_PROBES)),
+                            STREAM_PROBES, seed=37)
+    check(len(inside) == STREAM_PROBES
+          and not any(fp.touched(*p) for p in outside),
+          f"{family} 11a: probes inside {len(inside)}, outside touched")
+    probes = np.concatenate([inside, outside])
+    misses = group_heldout(train.x, list(range(9, 9 + STREAM_PROBES)),
+                           2 * STREAM_PROBES, seed=41)
+    pre = serve_pairs(svc, probes, "pre")
+    base, base_state = host_params(m), m.state
+
+    # the kill: an OOM in the fine-tune's second epoch dispatch, after the
+    # first dispatch's checkpoint; then a fault at the swap (the retry
+    # resumes from that checkpoint, fine-tunes the rest and fails there)
+    with inject.active(inject.Fault(sites.TRAINER_EPOCH, at=1,
+                                    kind=taxonomy.OOM)):
+        killed = m.apply_updates(nx, ny, steps=STREAM_STEPS,
+                                 checkpoint_every=STREAM_CKPT)
+    check(killed.status == "rolled_back" and killed.reason == taxonomy.OOM
+          and same_params(host_params(m), base)
+          and m.data_sets["train"] is train and svc.epoch == 0,
+          f"{family} 11a: the killed update did not roll back: {killed}")
+    ckpt_dir = os.path.join(m.train_dir, "stream", f"upd-{killed.update_id}")
+    check(bool(checkpoint.generations(ckpt_dir)),
+          f"{family} 11a: the killed update left no checkpoint")
+    keeps_serving(family, svc, eng0, probes, pre, misses[:STREAM_PROBES],
+                  "11a after the kill")
+    with inject.active(inject.Fault(sites.STREAM_SWAP, at=0,
+                                    kind=taxonomy.PREEMPTION)):
+        swapped = m.apply_updates(nx, ny, steps=STREAM_STEPS,
+                                  checkpoint_every=STREAM_CKPT)
+    check(swapped.status == "rolled_back"
+          and swapped.reason == taxonomy.PREEMPTION
+          and swapped.resumed_step is not None
+          and same_params(host_params(m), base)
+          and m.data_sets["train"] is train and svc.epoch == 0,
+          f"{family} 11a: the swap fault did not roll back: {swapped}")
+    keeps_serving(family, svc, eng0, probes, pre,
+                  misses[STREAM_PROBES:2 * STREAM_PROBES],
+                  "11a after the swap fault")
+    injected = recovery_counts()
+    obs.REGISTRY.reset()
+
+    # the uninterrupted update, on a twin with no service
+    twin = stream_model(family, train, os.path.join(workdir, f"{family}-twin"),
+                        f"stream-{family}", state=base_state)
+    clean = twin.apply_updates(nx, ny, steps=STREAM_STEPS,
+                               checkpoint_every=STREAM_CKPT)
+    check(clean.committed, f"{family} 11a: the uninterrupted update: {clean}")
+    clean_params = host_params(twin)
+    del twin
+    gc.collect()
+
+    # the retry commits with requests in flight across the swap
+    serve_pairs(svc, probes, "inflight", drain=False)
+    old_rows = rows_of(eng0, probes)
+    stats0 = dict(vars(svc.cache.stats))
+    res = m.apply_updates(nx, ny, steps=STREAM_STEPS,
+                          checkpoint_every=STREAM_CKPT)
+    check(res.committed and res.update_id == killed.update_id
+          and res.resumed_step is not None
+          and res.resumed_step > res.base_step and svc.epoch == 1,
+          f"{family} 11a: the retry did not commit resumed: {res}")
+    check(same_params(host_params(m), clean_params),
+          f"{family} 11a: the resumed update is not bitwise the "
+          "uninterrupted one")
+    check(outside_moved_bitwise(m, base, res.footprint),
+          f"{family} 11a: a row outside the moved masks or a global leaf "
+          "moved")
+    check(not os.path.isdir(ckpt_dir), f"{family} 11a: checkpoints kept")
+    inflight = {(r.user, r.item): r for r in svc.drain()}
+    for key, w in old_rows.items():
+        same_answer(inflight[key], w, f"{family} 11a in flight across the "
+                    "swap (the old engine's answer)")
+    del eng0, old_rows
+    # the warmed pair first, alone: nothing is built for it
+    reset_counts()
+    builds0 = compilemon.count()
+    serve_pairs(svc, nx[:1], "warmed")
+    warmed_builds = compilemon.count() - builds0
+    check(warmed_builds == 0, f"{family} 11a: the warmed pair's first "
+          f"request built {warmed_builds} programs")
+    post = serve_pairs(svc, probes, "post")
+    launches = launch_counts()
+    check(launches[SOURCES[family]] > 0 and launches[SEGMENT_SOURCE] > 0,
+          f"{family} 11a: kernels not launched after the swap: {launches}")
+    fresh = serve_pairs(InfluenceService(
+        engine=m.engine(), config=ServeConfig(disk_cache=False,
+                                              **STREAM_CONFIG)),
+        probes, "fresh")
+    stale = sum(post[k].scores.tobytes() != fresh[k].scores.tobytes()
+                or not np.array_equal(post[k].related, fresh[k].related)
+                for k in fresh)
+    check(stale == 0, f"{family} 11a: {stale} stale probes after the swap")
+    for p in outside.tolist():
+        k = tuple(p)
+        check(post[k].cache_tier == "hot"
+              and post[k].scores.tobytes() == pre[k].scores.tobytes(),
+              f"{family} 11a: untouched probe {k} not re-keyed "
+              f"(tier {post[k].cache_tier})")
+    for p in inside.tolist():
+        k = tuple(p)
+        check(post[k].cache_tier == "compute",
+              f"{family} 11a: touched probe {k} served from "
+              f"{post[k].cache_tier}")
+    st = vars(svc.cache.stats)
+    swap = {"hot_rekeyed": st["rekeyed"] - stats0["rekeyed"],
+            "hot_dropped": st["rekey_dropped"] - stats0["rekey_dropped"],
+            "disk_rekeyed": st["disk_rekeyed"] - stats0["disk_rekeyed"],
+            "disk_dropped": (st["disk_rekey_dropped"]
+                             - stats0["disk_rekey_dropped"])}
+    check(swap["hot_rekeyed"] >= STREAM_PROBES
+          and swap["hot_dropped"] >= STREAM_PROBES,
+          f"{family} 11a: re-key accounting {swap}")
+    refresh = events(mpath, "factor.refresh")
+    check(bool(refresh), f"{family} 11a: the factor bank was not refreshed")
+    bank = {"entries": bank_n, "kept": refresh[-1]["kept"],
+            "dropped": refresh[-1]["dropped"]}
+    check(bank["kept"] > 0 and bank["kept"] + bank["dropped"] == bank_n,
+          f"{family} 11a: bank refresh {bank}")
+    no_recovery(f"11a {family}")
+
+    # three more updates in a row, draining between them: fenced engines
+    # and their graphs are released once their epoch drains
+    a0 = settled_allocated()
+    extra = engine(m.model, m.state.params, m.data_sets["train"],
+                   damping=DAMPING, device=CARD)
+    for pts_ in (nx[:1], inside, probes):
+        extra.query_batch(pts_)
+    one_engine = settled_allocated() - a0
+    del extra
+    allocated, cycles = [], []
+    for k in range(1, 1 + STREAM_CYCLES):
+        serve_pairs(svc, probes, f"cycle{k}", drain=False)
+        r = m.apply_updates(*updates[k], steps=STREAM_STEPS,
+                            checkpoint_every=STREAM_CKPT)
+        check(r.committed, f"{family} 11a: update {k + 1}: {r}")
+        svc.drain()
+        serve_pairs(svc, probes, f"cycle{k}-post")
+        allocated.append(settled_allocated())
+        cycles.append({"seconds": r.seconds, "staleness_ms":
+                       r.staleness_s * 1e3})
+    check(allocated[-1] <= allocated[0] + one_engine,
+          f"{family} 11a: device memory grew across updates: "
+          f"{[a >> 20 for a in allocated]} MiB, one engine "
+          f"{one_engine >> 20} MiB")
+    no_recovery(f"11a {family} cycles")
+    out = {
+        "update_s": res.seconds, "staleness_ms": res.staleness_s * 1e3,
+        "clean_update_s": clean.seconds, "steps": STREAM_STEPS,
+        "base_step": res.base_step, "resumed_step": res.resumed_step,
+        "killed_s": killed.seconds, "swap_fault_s": swapped.seconds,
+        "touched_users": res.touched_users,
+        "touched_items": res.touched_items, "swap": swap, "bank": bank,
+        "stale_probes": stale, "warmed_builds": warmed_builds,
+        "launches": launches, "injected_counts": injected,
+        "memory_mib": {"after_drain": [a / 2**20 for a in allocated],
+                       "one_engine": one_engine / 2**20},
+        "cycles": cycles, "reach_phase4": reach,
+    }
+    log(f"{family} 11a streaming update: {out['update_s']:.2f} s "
+        f"({STREAM_STEPS} steps resumed from {res.resumed_step}; "
+        f"uninterrupted {clean.seconds:.2f} s), staleness "
+        f"{out['staleness_ms']:.1f} ms, touched {res.touched_users} users / "
+        f"{res.touched_items} items; hot re-keyed {swap['hot_rekeyed']} "
+        f"dropped {swap['hot_dropped']}, disk re-keyed "
+        f"{swap['disk_rekeyed']} dropped {swap['disk_dropped']}; bank kept "
+        f"{bank['kept']} dropped {bank['dropped']} of {bank_n}; 0 stale "
+        f"probes; kill -> resume bitwise; both rollbacks served bitwise; "
+        f"memory after each drain "
+        f"{[round(a / 2**20) for a in allocated]} MiB (one engine "
+        f"{one_engine / 2**20:.0f} MiB)")
+    return out, (m, svc, probes, inside, outside)
+
+
+def tied_accumulator(n: int) -> np.ndarray:
+    """Exact zeros everywhere, and runs of equal negative values across
+    the 4096- and 65536-wide segments' edges."""
+    acc = np.zeros(n, np.float32)
+    for edge in range(4096, n, 4096):
+        acc[edge - 3: edge + 3] = -1.0 if edge % 65536 else -2.0
+    return acc
+
+
+def selection_holds(acc, k: int, segment: int, what: str) -> None:
+    """The card's segmented selection is exactly the plain numpy one under
+    the (value, row id) order."""
+    ids, vals = audit_reverse._segmented_topk_negative(acc, k, segment,
+                                                       device=CARD)
+    order = np.lexsort((np.arange(len(acc)), acc))[:k]
+    check(np.array_equal(ids, order)
+          and vals.tobytes() == acc[order].tobytes(),
+          f"{what}: the card's selection is not the (value, id) order")
+
+
+def audit_sweep(family: str, state, train, pts, workdir: str) -> dict:
+    """11b: the reverse sweep on phase 4's data from 7b's weights."""
+    a = stream_model(family, train, os.path.join(workdir, f"{family}-audit"),
+                     f"audit-{family}", state=state)
+    ty = np.random.default_rng(43).integers(1, 6, len(pts)).astype(np.float32)
+    # every geometry of the stream built first, outside the sweep's time
+    a.engine().query_many(pts, batch_queries=SWEEP_BATCH)
+    reset_counts()
+    sweep = reverse_topk(a, pts, ty, k=SWEEP_K, batch_queries=SWEEP_BATCH)
+    launches = launch_counts()
+    check(launches[SOURCES[family]] > 0 and launches[SEGMENT_SOURCE] > 0,
+          f"{family} 11b: kernels not launched by the sweep: {launches}")
+    key = (sweep.row_ids.tobytes(), sweep.loss_deltas.tobytes(),
+           sweep.group_scores.tobytes())
+    for kw in SWEEP_ALT:
+        r = reverse_topk(a, pts, ty, k=SWEEP_K,
+                         **{"batch_queries": SWEEP_BATCH, **kw})
+        check((r.row_ids.tobytes(), r.loss_deltas.tobytes(),
+               r.group_scores.tobytes()) == key,
+              f"{family} 11b: the sweep differs under {kw}")
+    selection_holds(sweep.group_scores, SWEEP_K, audit_reverse.SEGMENT,
+                    f"{family} 11b sweep")
+    for seg in (audit_reverse.SEGMENT, 4096):
+        selection_holds(tied_accumulator(len(train.x)), 5000, seg,
+                        f"{family} 11b tied accumulator, segment {seg}")
+    plan = build_plan(a, sweep, action="remove", max_rows=PLAN_ROWS)
+    back = load_plan(save_plan(plan, os.path.join(workdir,
+                                                  f"{family}-plan.npz")))
+    check(back.plan_id == plan.plan_id
+          and back.row_ids.tobytes() == plan.row_ids.tobytes()
+          and back.per_row_delta.tobytes() == plan.per_row_delta.tobytes(),
+          f"{family} 11b: the plan did not round-trip")
+    no_recovery(f"11b {family} sweep")
+    out = {"rows_scored": sweep.rows_scored, "seconds": sweep.seconds,
+           "rows_per_s": sweep.rows_per_s, "launches": launches,
+           "negative_rows": int((sweep.group_scores < 0).sum()),
+           "plan_rows": plan.rows, "plan_predicted": plan.predicted_delta}
+    log(f"{family} 11b sweep: {len(pts)} test points, {sweep.rows_scored} "
+        f"row-scores in {sweep.seconds:.3f} s ({sweep.rows_per_s:,.0f} "
+        f"rows audited/s); bitwise under {list(SWEEP_ALT)}; selection = "
+        f"(value, id) order, tied accumulator too; launches {launches}")
+    return out, (a, sweep, ty)
+
+
+def audit_apply(family: str, stream, workdir: str) -> dict:
+    """11b: a reweight and then a removal plan under 11a's service, both
+    from one sweep over community 0's held-out pairs (a reweight keeps
+    the train rows, so the removal plan stays fresh); the reweight
+    through ``FIAModel.apply_removal``, the removal through
+    ``apply_plan``."""
+    m, svc, probes, inside, outside = stream
+    train = m.data_sets["train"]
+    tp = group_heldout(train.x, [0], AUDIT_GROUP_POINTS, seed=47)
+    ty = np.random.default_rng(53).integers(
+        1, 6, len(tp)).astype(np.float32)
+    sweep = reverse_topk(m, tp, ty, k=SWEEP_K, batch_queries=SWEEP_BATCH)
+    out = {}
+    for action in ("reweight", "remove"):
+        pre = serve_pairs(svc, probes, f"{action}-pre")
+        plan = build_plan(m, sweep, action=action, max_rows=PLAN_ROWS,
+                          reweight=REWEIGHT_W)
+        plan = load_plan(save_plan(plan, os.path.join(
+            workdir, f"{family}-{action}-plan.npz")))
+        fp = compute_footprint(train.x, train.x[plan.row_ids], USERS, ITEMS)
+        check(not any(fp.touched(*p) for p in outside),
+              f"{family} 11b {action}: the plan reaches the outside probes")
+        stats0 = dict(vars(svc.cache.stats))
+        n0 = len(train.x)
+        res = (apply_plan(m, plan, steps=APPLY_STEPS) if action == "remove"
+               else m.apply_removal(plan.row_ids, steps=APPLY_STEPS,
+                                    reweight=plan.reweight))
+        check(res.committed, f"{family} 11b {action}: {res}")
+        train = m.data_sets["train"]
+        check(len(train.x) == n0 - (plan.rows if action == "remove" else 0),
+              f"{family} 11b {action}: train rows {n0} -> {len(train.x)}")
+        post = serve_pairs(svc, probes, f"{action}-post")
+        fresh = serve_pairs(InfluenceService(
+            engine=m.engine(), config=ServeConfig(disk_cache=False,
+                                                  **STREAM_CONFIG)),
+            probes, f"{action}-fresh")
+        stale = sum(post[k].scores.tobytes() != fresh[k].scores.tobytes()
+                    for k in fresh)
+        check(stale == 0, f"{family} 11b {action}: {stale} stale probes")
+        for p in outside.tolist():
+            k = tuple(p)
+            check(post[k].cache_tier == "hot"
+                  and post[k].scores.tobytes() == pre[k].scores.tobytes(),
+                  f"{family} 11b {action}: untouched probe {k} not re-keyed")
+        st = vars(svc.cache.stats)
+        out[action] = {
+            "deletion_s": res.seconds, "staleness_ms": res.staleness_s * 1e3,
+            "rows": plan.rows, "touched_users": res.touched_users,
+            "touched_items": res.touched_items, "stale_probes": stale,
+            "hot_rekeyed": st["rekeyed"] - stats0["rekeyed"],
+            "hot_dropped": st["rekey_dropped"] - stats0["rekey_dropped"],
+            "sweep_rows_per_s": sweep.rows_per_s}
+        log(f"{family} 11b {action} plan ({plan.rows} rows, predicted "
+            f"{plan.predicted_delta:+.4f}): committed in {res.seconds:.2f} s, "
+            f"staleness {res.staleness_s * 1e3:.1f} ms, 0 stale probes, "
+            f"hot re-keyed {out[action]['hot_rekeyed']} dropped "
+            f"{out[action]['hot_dropped']}")
+    no_recovery(f"11b {family} apply")
+    return out
+
+
+def verify_small() -> dict:
+    """11c: ``verify_plan``'s lanes on the card against the same call on
+    the CPU (phase 4's small input, 7a's bar), and a journaled rerun."""
+    tiny = synthetic_splits(60, 40, 2000, 50, seed=3)
+    kw = dict(model="MF", num_users=60, num_items=40, embedding_size=8,
+              weight_decay=1e-3, batch_size=200,
+              data_sets={"train": tiny["train"]},
+              initial_learning_rate=1e-2, damping=1e-3, train_dir="",
+              model_name="verify-small")
+    card = FIAModel(**kw, device=CARD)
+    card.train(300, save_checkpoints=False, verbose=False)
+    cpu = FIAModel(**kw, device="cpu")
+    cpu.state = TrainState({k: v.cpu() for k, v in card.state.params.items()},
+                           cpu.state.opt_state, int(card.state.step))
+    tp = np.asarray(tiny["test"].x, np.int64)
+    ty = np.asarray(tiny["test"].y, np.float32)
+    sweep = reverse_topk(card, tp, ty, k=16)
+    plan = build_plan(card, sweep, action="remove",
+                      max_rows=VERIFY_SMALL["max_rows"])
+    controls = np.argsort(-sweep.group_scores.astype(np.float64),
+                          kind="stable")[:VERIFY_CONTROLS].astype(np.int64)
+    deltas = sweep.group_scores[controls].astype(np.float64)
+    runs, lanes = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for side, m in (("card", card), ("cpu", cpu)):
+            path = os.path.join(d, f"{side}.jsonl")
+            fp = audit_verify.verify_fingerprint(
+                m, plan, tp, control_rows=controls, **VERIFY_SMALL)
+            with Journal.open(path, fp, fsync=False) as j:
+                runs[side] = verify_plan(m, plan, tp, ty, journal=j,
+                                         control_rows=controls,
+                                         control_deltas=deltas,
+                                         **VERIFY_SMALL)
+            with Journal.open(path, fp, resume=True, fsync=False) as j:
+                lanes[side] = np.asarray(j.get("lanes:0"), np.float32)
+        err = close(torch.as_tensor(lanes["card"]),
+                    torch.as_tensor(lanes["cpu"]), TRAIN_RTOL, TRAIN_ATOL,
+                    "11c verify lanes, card vs CPU")
+        check(runs["card"].predicted.tobytes()
+              == runs["cpu"].predicted.tobytes(),
+              "11c: predicted deltas differ card vs CPU")
+        path = os.path.join(d, "card.jsonl")
+        size = os.path.getsize(path)
+        fp = audit_verify.verify_fingerprint(
+            card, plan, tp, control_rows=controls, **VERIFY_SMALL)
+        with Journal.open(path, fp, resume=True, fsync=False) as j:
+            again = verify_plan(card, plan, tp, ty, journal=j,
+                                control_rows=controls, control_deltas=deltas,
+                                **VERIFY_SMALL)
+        check(again.actual.tobytes() == runs["card"].actual.tobytes()
+              and os.path.getsize(path) == size,
+              "11c: the journaled rerun is not bitwise or appended")
+    out = {"lanes": int(lanes["card"].shape[0]), "max_abs_err": err,
+           "sign_agreement": runs["card"].sign_agreement,
+           "spearman": runs["card"].spearman}
+    log(f"11c verify, small input: {out['lanes']} lanes card vs CPU within "
+        f"{err:.3g} (rtol {TRAIN_RTOL:g}, atol {TRAIN_ATOL:g}); journaled "
+        "rerun bitwise, nothing appended")
+    return out
+
+
+def verify_full(audit) -> dict:
+    """11c: ``verify_plan`` at ML-1M shape at reduced depth, from 11b's
+    sweep (MF)."""
+    a, sweep, ty = audit
+    plan = build_plan(a, sweep, action="remove",
+                      max_rows=VERIFY_FULL["max_rows"])
+    controls = np.argsort(-sweep.group_scores.astype(np.float64),
+                          kind="stable")[:VERIFY_CONTROLS].astype(np.int64)
+    t0 = time.perf_counter()
+    res = verify_plan(a, plan, sweep.test_points, ty, control_rows=controls,
+                      control_deltas=sweep.group_scores[controls].astype(
+                          np.float64), **VERIFY_FULL)
+    seconds = time.perf_counter() - t0
+    check(bool(np.isfinite(res.actual).all()),
+          f"11c verify at ML-1M shape: non-finite actual {res.actual}")
+    lanes = (len(res.row_ids) + 1) * VERIFY_FULL["retrain_times"]
+    out = {"seconds": seconds, "lanes": lanes,
+           "steps": VERIFY_FULL["num_steps"],
+           "sign_agreement": res.sign_agreement, "spearman": res.spearman,
+           "predicted": res.predicted.tolist(), "actual": res.actual.tolist()}
+    log(f"11c verify at ML-1M shape: {lanes} lanes x "
+        f"{VERIFY_FULL['num_steps']} steps in {seconds:.1f} s; sign "
+        f"agreement {res.sign_agreement:.3f}, Spearman {res.spearman:.3f} "
+        "(printed, not gated)")
+    return out
+
+
+def debug_data_driver(workdir: str) -> dict:
+    """11d: ``cli.debug_data`` in process on the card with
+    ``scripts/unlearn_smoke.sh``'s arguments."""
+    import contextlib
+    import io
+
+    from fia_tpu_torch.cli import debug_data
+
+    out_json = os.path.join(workdir, "unlearn.json")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        debug_data.main(UNLEARN_SMOKE + [
+            "--train_dir", os.path.join(workdir, "debug_data"),
+            "--json_out", out_json])
+    seconds = time.perf_counter() - t0
+    with open(out_json) as f:
+        s = json.load(f)
+    check(set(s) == DEBUG_DATA_KEYS and s["apply_status"] == "committed"
+          and s["rows_scored"] > 0 and s["predicted_delta"] < 0
+          and math.isfinite(s["sign_agreement"])
+          and math.isfinite(s["spearman"]),
+          f"11d: cli.debug_data summary {s}")
+    out = {"rc": 0, "seconds": seconds, "rows_per_s": s["rows_per_s"],
+           "sign_agreement": s["sign_agreement"], "spearman": s["spearman"],
+           "gate_passed": s["gate_passed"],
+           "planted_hit_rate": s["planted_hit_rate"]}
+    log(f"11d cli.debug_data returned 0 in {seconds:.1f} s: gate sign "
+        f"agreement {s['sign_agreement']:.3f}, Spearman "
+        f"{s['spearman']:.3f} (passed {s['gate_passed']}), planted hit rate "
+        f"{s['planted_hit_rate']:.2f}, apply committed")
+    return out
+
+
+def phase4_reach(train) -> dict:
+    """How far STREAM_NEW held-out pairs reach on phase 4's data."""
+    nx = sample_heldout_pairs(train.x, USERS, ITEMS, STREAM_NEW, seed=23)
+    fp = compute_footprint(train.x, nx, USERS, ITEMS)
+    one = compute_footprint(train.x, nx[:1], USERS, ITEMS)
+    return {"read_users": int(fp.user_read.sum()),
+            "read_items": int(fp.item_read.sum()),
+            "one_pair_read_users": int(one.user_read.sum()),
+            "one_pair_read_items": int(one.item_read.sum())}
+
+
+def drive_stream_audit(states, train, pts, workdir: str) -> tuple:
+    """Phase 11 (11a, 11b per model; 11c, 11d once): the ``stream`` and
+    ``audit`` sections of the ``perf`` line."""
+    stream, audit = {}, {}
+    obs.REGISTRY.reset()
+    reach = phase4_reach(train)
+    log(f"11: on phase 4's data {STREAM_NEW} held-out pairs read-reach "
+        f"{reach['read_users']}/{USERS} users, {reach['read_items']}/"
+        f"{ITEMS} items (one pair: {reach['one_pair_read_users']} / "
+        f"{reach['one_pair_read_items']}); 11a runs on "
+        f"{STREAM_GROUPS} communities of the same shape")
+    kept = None
+    for family in ("mf", "ncf"):
+        t0 = time.perf_counter()
+        stream[family], served = stream_update(family, workdir, reach)
+        stream[family]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row = audit[family] = {}
+        row["sweep"], swept = audit_sweep(family, states[family], train,
+                                          pts, workdir)
+        row["apply"] = audit_apply(family, served, workdir)
+        row["seconds"] = time.perf_counter() - t0
+        log(f"{family} 11a: {stream[family]['seconds']:.1f} s; 11b: "
+            f"{row['seconds']:.1f} s")
+        kept = swept if family == "mf" else kept
+        del served, swept
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    audit["verify"] = {"small": verify_small(), "full": verify_full(kept)}
+    audit["verify"]["seconds"] = time.perf_counter() - t0
+    del kept
+    t0 = time.perf_counter()
+    audit["debug_data"] = debug_data_driver(workdir)
+    audit["debug_data"]["seconds"] = time.perf_counter() - t0
+    log(f"11c: {audit['verify']['seconds']:.1f} s; 11d: "
+        f"{audit['debug_data']['seconds']:.1f} s")
+    no_recovery("11c-11d")
+    return stream, audit
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -4243,11 +4970,13 @@ def main() -> int:
     # -- phase 7: training, checkpoints, RQ1 and RQ2 -------------------
     t7 = time.perf_counter()
     classes = {"mf": MF, "ncf": NCF}
-    seg_by_path = {}
+    seg_by_path, trained_states = {}, {}
     for row, (family, (eng, _)) in zip(rows, engines.items()):
         out = {"card_vs_cpu": train_small(family, classes[family])}
-        params, out["full"] = train_full(family, eng.model, train, pts)
-        trained = engine(eng.model, params, train, damping=DAMPING)
+        trained_states[family], out["full"] = train_full(family, eng.model,
+                                                         train, pts)
+        trained = engine(eng.model, trained_states[family].params, train,
+                         damping=DAMPING)
         out["rq1"] = drive_rq1(family, trained, train, pts)
         out["rq2"] = drive_rq2(family, classes[family], train, pts)
         perf["models"][family]["train"] = out
@@ -4371,6 +5100,21 @@ def main() -> int:
             f: serving[f]["10b"]["launches"][name] for f in engines}
     perf["phase10_seconds"] = time.perf_counter() - t10
     log(f"phase 10: {perf['phase10_seconds']:.1f} s")
+
+    # -- phase 11: streaming updates and the audit subsystem ------------
+    t11 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as stream_dir:
+        perf["stream"], perf["audit"] = drive_stream_audit(
+            trained_states, train, pts, stream_dir)
+    for family in engines:
+        a = perf["stream"][family]["launches"]
+        b = perf["audit"][family]["sweep"]["launches"]
+        by_name[SOURCES[family]]["launches_by_path"].update(
+            stream=a[SOURCES[family]], audit=b[SOURCES[family]])
+        seg_by_path[family].update(stream=a[SEGMENT_SOURCE],
+                                   audit=b[SEGMENT_SOURCE])
+    perf["phase11_seconds"] = time.perf_counter() - t11
+    log(f"phase 11: {perf['phase11_seconds']:.1f} s")
     ladder_dir.cleanup()
     envelope_dir.cleanup()
     perf["total_seconds"] = time.perf_counter() - t_main

@@ -12,11 +12,15 @@ the bank surgically.
 
 ``serve`` returns an online query service
 (:class:`fia_tpu_torch.serve.InfluenceService`) that tracks the model:
-every params or train-set change invalidates its caches. Not ported yet:
-``apply_updates`` and ``apply_removal`` (ROADMAP Queue A.12), and
-``mesh`` (A.13); each raises ``NotImplementedError``. Initial parameters come from the port's own
-generator (a ``torch.Generator`` seeded with ``seed``): they cannot equal
-the reference's ``jax.random`` draws (ROADMAP Queue C).
+every params or train-set change invalidates its caches.
+``apply_updates`` and ``apply_removal`` are the write path
+(:mod:`fia_tpu_torch.stream`): fine-tune on the grown or shrunk train
+set, project onto the footprint, and swap under each service's epoch
+fence, re-keying the untouched cache entries. Not ported yet: ``mesh``
+(ROADMAP Queue A.13), which raises ``NotImplementedError``. Initial
+parameters come from the port's own generator (a ``torch.Generator``
+seeded with ``seed``): they cannot equal the reference's ``jax.random``
+draws (ROADMAP Queue C).
 """
 
 from __future__ import annotations
@@ -411,11 +415,42 @@ class FIAModel:
     # -- streaming updates -------------------------------------------------
     def apply_updates(self, new_interactions, new_y=None, steps: int = 100,
                       checkpoint_every: int | None = None):
-        _unported("apply_updates: ROADMAP Queue A.12")
+        """Online model update: append interactions, fine-tune, swap.
+
+        ``new_interactions``: (N, 2) int ids with ``new_y`` (N,) ratings,
+        an (N, 3) combined [user, item, rating] array, or a
+        :class:`~fia_tpu_torch.data.dataset.RatingDataset`. Fine-tunes
+        ``steps`` minibatch steps on the grown train set (crash-safe:
+        a killed update resumes bit-identically from its rotated
+        checkpoints on the next identical call), then performs the
+        epoch-fenced swap — registered services keep answering in-flight
+        requests on the old params epoch, and only the touched (user,
+        item) blocks are invalidated across the serve/factor-bank tiers.
+        A classified failure rolls back to the old state and keeps
+        serving. Returns a
+        :class:`fia_tpu_torch.stream.update.UpdateResult`.
+        """
+        from fia_tpu_torch.stream.update import apply_updates as _apply
+
+        return _apply(self, new_interactions, new_y=new_y, steps=steps,
+                      checkpoint_every=checkpoint_every)
 
     def apply_removal(self, row_ids, steps: int = 100, reweight=None,
                       checkpoint_every: int | None = None):
-        _unported("apply_removal: ROADMAP Queue A.12")
+        """Live unlearning: drop (or soften) train rows, fine-tune, swap.
+
+        The removal counterpart of :meth:`apply_updates` (same
+        epoch-fenced loop, same crash-safety and rollback): ``row_ids``
+        index the CURRENT train set; with ``reweight=w`` in [0, 1) the
+        rows stay but their labels soften to ``w·y + (1-w)·ŷ`` instead
+        of being deleted. Typically reached through an audited
+        :func:`fia_tpu_torch.audit.plan.apply_plan` rather than called
+        raw. Returns a :class:`fia_tpu_torch.stream.update.UpdateResult`.
+        """
+        from fia_tpu_torch.stream.update import apply_removal as _apply
+
+        return _apply(self, row_ids, steps=steps, reweight=reweight,
+                      checkpoint_every=checkpoint_every)
 
     # -- dataset mutation (genericNeuralNet.py:870-891) ---------------------
     def update_train_x(self, new_x):

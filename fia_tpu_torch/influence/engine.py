@@ -304,6 +304,24 @@ def capturing(graph):
             gc.enable()
 
 
+# The side stream of every capture's warm-up, one a device. cuBLAS keeps
+# a workspace (32 MiB on an H100) for each (handle, stream) it has run
+# on, for the life of the process: a fresh stream a capture left one
+# workspace behind each graph, alive or dead, so device memory grew with
+# every engine a streaming update replaced.
+_WARMUP_STREAMS: dict[int, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device) -> "torch.cuda.Stream":
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    stream = _WARMUP_STREAMS.get(index)
+    if stream is None:
+        stream = _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
+    return stream
+
+
 class _FlatGraph:
     """One flat program geometry captured as a CUDA graph.
 
@@ -311,7 +329,8 @@ class _FlatGraph:
     program takes after ``args``: the (t_pad, 2) query block (3 wide for
     the bank program), and for the sampled program the (s_pad,) sample
     weights and (t_pad,) sample sizes too. The capture runs the program
-    once eagerly on a side stream (kernel builds, library handles), on
+    once eagerly on the device's warm-up stream (kernel builds, library
+    handles and their workspaces, :func:`_warmup_stream`), on
     zeroed static inputs (the query (0, 0), bank row 0, no row sampled:
     valid everywhere), then records it on the same static inputs. A call
     copies each input in, replays the graph and copies the outputs out,
@@ -323,7 +342,7 @@ class _FlatGraph:
     def __init__(self, fn, args, inputs, device):
         self.inputs = tuple(torch.zeros(shape, dtype=dtype, device=device)
                             for shape, dtype in inputs)
-        side = torch.cuda.Stream(device)
+        side = _warmup_stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         try:
             with torch.cuda.stream(side):

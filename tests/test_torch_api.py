@@ -5,9 +5,11 @@ Restates ``tests/test_api.py`` port against port on ``tiny_splits``
 related rows, the test block, retraining, the Hessian's extreme
 eigenvalues, the gradient of influence, a resumed run keeping the phase
 schedule, the dataset updaters, and the spectral tools. Nothing of that
-file needs ``serve`` or ``stream``, so none of it is left out; ``stream``
-raises here (ROADMAP Queue A.12), and so does ``serve`` over a mesh
-(A.13; ``serve`` itself is held in ``test_torch_serve.py``). Added: the
+file needs ``serve`` or ``stream``, so none of it is left out; ``serve``
+over a mesh raises (A.13; ``serve`` itself is held in
+``test_torch_serve.py``), and ``apply_updates`` / ``apply_removal``
+commit here, with the reference's signatures (the write path itself is
+held in ``test_torch_stream.py`` and ``test_torch_audit.py``). Added: the
 facade's
 influence is bitwise the engine's; the iHVP disk cache serves, and
 misses after a params change; the factor bank is refreshed by a params
@@ -144,12 +146,37 @@ class TestFacade:
 
     @pytest.mark.parametrize("call,item", [
         (lambda m: m.serve(config=ServeConfig(mesh=2)), "A.13"),
-        (lambda m: m.apply_updates(np.zeros((1, 2), np.int64)), "A.12"),
-        (lambda m: m.apply_removal([0]), "A.12"),
     ])
     def test_unported_surfaces_raise(self, fia, call, item):
         with pytest.raises(NotImplementedError, match=item):
             call(fia)
+
+    @pytest.mark.parametrize("call,rows", [
+        (lambda m: m.apply_updates(np.array([[1, 2], [3, 4]], np.int64),
+                                   np.array([5.0, 1.0], np.float32),
+                                   steps=4), +2),
+        (lambda m: m.apply_removal([0, 7], steps=4), -2),
+    ], ids=["apply_updates", "apply_removal"])
+    def test_write_path_commits(self, tiny_splits, tmp_path, call, rows):
+        m = _model(_port_splits(tiny_splits), tmp_path, damping=1e-3)
+        m.train(num_steps=20, verbose=False, save_checkpoints=False)
+        n, step = m.num_train_examples, int(m.state.step)
+        r = call(m)
+        assert r.committed, (r.status, r.reason)
+        assert m.num_train_examples == n + rows
+        assert int(m.state.step) == step + 4
+
+    @pytest.mark.parametrize("name", ["apply_updates", "apply_removal"])
+    def test_write_path_signature_is_the_references(self, name):
+        import inspect
+
+        from fia_tpu.api import FIAModel as RefFIAModel
+
+        port = inspect.signature(getattr(FIAModel, name)).parameters
+        ref = inspect.signature(getattr(RefFIAModel, name)).parameters
+        assert list(port) == list(ref)
+        for key, p in ref.items():
+            assert port[key].default == p.default, key
 
 
 class TestCachesAndBank:

@@ -77,6 +77,15 @@ SERVE_MODULES = ("fia_tpu_torch.serve",
                  "fia_tpu_torch.serve.metrics",
                  "fia_tpu_torch.serve.service",
                  "fia_tpu_torch.cli.serve")
+# streaming updates, the audit subsystem and their driver
+STREAM_MODULES = ("fia_tpu_torch.stream",
+                  "fia_tpu_torch.stream.footprint",
+                  "fia_tpu_torch.stream.update",
+                  "fia_tpu_torch.audit",
+                  "fia_tpu_torch.audit.reverse",
+                  "fia_tpu_torch.audit.plan",
+                  "fia_tpu_torch.audit.verify",
+                  "fia_tpu_torch.cli.debug_data")
 
 
 def _forbidden(name: str) -> bool:
@@ -118,6 +127,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(LADDER_MODULES) <= set(names)
     assert set(OBS_MODULES) <= set(names)
     assert set(SERVE_MODULES) <= set(names)
+    assert set(STREAM_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -151,7 +161,7 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
 
 @pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
                          + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES
-                         + OBS_MODULES + SERVE_MODULES)
+                         + OBS_MODULES + SERVE_MODULES + STREAM_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""
@@ -285,3 +295,17 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch):
     finally:
         sys.path.remove(REPO)
     assert chip_smoke.main() != 0
+
+
+def test_audit_selection_defaults_to_cuda(monkeypatch):
+    """The sweep's segmented selection runs on the card unless asked for
+    the CPU, and raises without one (``reverse_topk`` passes the model's
+    device)."""
+    from fia_tpu_torch.audit.reverse import _segmented_topk_negative
+
+    acc = np.array([0.0, -1.0, 0.0, -1.0], np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _segmented_topk_negative(acc, 2)
+    ids, vals = _segmented_topk_negative(acc, 3, segment=2, device="cpu")
+    assert ids.tolist() == [1, 3, 0] and vals.tolist() == [-1.0, -1.0, 0.0]
