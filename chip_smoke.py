@@ -60,7 +60,8 @@ Phases, each of which makes the script exit non-zero when it fails:
   6. drive the padded per-query program, first MF, then NCF, on 256 of
      the same queries: ``impl="padded"`` with the direct solve, then
      ``solver="cg"``, ``"schulz"`` and ``"lissa"`` (spectral tuning,
-     depth 10,000). Require that every result was computed on the card,
+     depth 5,000, half the reference's 10,000). Require that every result
+     was computed on the card,
      that neither score kernel launched (the padded path scores by
      matvec), that two identical calls give the same bytes, and that
      counts and related rows equal the flat path's; hold padded-direct,
@@ -307,14 +308,60 @@ Phases, each of which makes the script exit non-zero when it fails:
         summary has the reference's keys and the apply committed.
      The score and Hessian rows of the ``kernels`` line gain ``stream``
      (11a's serving after the swap) and ``audit`` (11b's sweep) paths.
+ 12. the data-axis device mesh (``fia_tpu_torch.parallel.mesh``), first
+     MF, then NCF, on phase 4's engines and data and phase 8's held-out
+     queries, over meshes of virtual slots laid over ``cuda:0`` (they
+     share the card: their walls measure the mesh's overhead, not a
+     speedup), under ``mesh`` in the ``perf`` line:
+     a. over 1, 2 and 4 slots, ``query_batch`` at T = 256 and 1024,
+        ``query_many`` over 1,024 at 300 a batch (ragged) and a batch of
+        256 of 8d's banked pairs each bitwise the single-device engine
+        (counts, packed scores, iHVPs, test vectors), and
+        ``block_hessians`` of 256 queries, every shard of a dispatch
+        queued with no host wait;
+        ``precompile_flat`` over the mesh geometries, then nothing
+        captured by those runs; the geometry keys of two mesh sizes
+        disjoint; the state the single-device engine's (one replica a
+        physical device, nothing on a card outside the mesh) and
+        ``memory_allocated`` of each card at most that state plus the
+        graph pools of the engine's programs on it; a program on each
+        card of the mesh; ``query_batch(1024)`` wall per size printed
+        beside the single-device engine's;
+     b. a 4-slot service over 512 requests of 10a's stream at 128 a
+        batch: a ``serve.dispatch`` device loss at batch 1 shrinks the
+        mesh to 3 slots (``device_loss_recoveries`` 1), every answer
+        bitwise the single-device service's, the same traffic again
+        captures nothing; a ``mesh.rebuild`` fault during the recovery
+        sheds that batch classified while the rest serves bitwise; a mesh
+        naming a dead slot (``live_device_ids`` patched) fails
+        construction with ``DeviceLost``;
+     c. ``Trainer.fit`` on a 2-slot mesh (60 steps at batch 3,020) within
+        rtol 2e-4 / atol 1e-5 of single-device; ``loo_retrain_many`` with
+        8 lanes on a 3-slot mesh (lanes padded) lane for lane at that bar;
+        ``FullInfluenceEngine``'s HVP on a 2-slot mesh within rtol 1e-3 /
+        atol 1e-6; ``reverse_topk`` over 256 queries bitwise over 1, 2
+        and 4 slots and the meshless engine;
+     d. (once) ``cli.rq2 --mesh 2`` and ``cli.serve --mesh 2`` in process
+        on 10d's synthetic set over two virtual slots.
+     With two or more CUDA devices, a-c run again over the real cards
+     (meshes of 2 and of all of them, up to 4; the service over all of
+     them, the lanes over up to 3), where each shard runs on its own
+     card and the walls measure a speedup; with one, the script prints
+     that they did not run. ``python3 chip_smoke.py --phase 12`` runs
+     phases 1 and 2, the set-up and 8d's banks, then phase 12 alone: the
+     mesh's check on a host of several cards.
+     The score and Hessian rows of the ``kernels`` line gain a ``mesh``
+     path (12a's, 12b's and 12c's launches).
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
      (``reliability.retries_total``), no device-state reset
      (``engine.device_resets``), no batch on the CPU rung
      (``engine.cpu_fallback_batches``) and no reliability diagnostic;
-     so must 10a and 10b (the registry is emptied after phase 9), and
-     phase 11 outside the faults 11a injects (counted, then emptied).
+     so must 10a and 10b (the registry is emptied after phase 9),
+     phase 11 outside the faults 11a injects (counted, then emptied), and
+     phase 12 outside 12b's injected losses (no retry, reset or CPU rung
+     there either; counted, then emptied).
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -391,6 +438,7 @@ from fia_tpu_torch.influence.kernels import ncf as kncf
 from fia_tpu_torch.influence.kernels import segment as kseg
 from fia_tpu_torch.models import MF, NCF
 from fia_tpu_torch.obs.export import perfetto, prometheus, span_fields
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.reliability.journal import Journal
 from fia_tpu_torch.serve import (HealthConfig, InfluenceService, Request,
@@ -437,11 +485,15 @@ FP32_FLOP_PER_S = 67e12
 PADDED_T = 256
 PADDED_SOLVERS = ("direct", "cg", "schulz", "lissa")
 PADDED_RTOL, PADDED_ATOL, PADDED_RHO = 1e-3, 1e-5, 0.999
-# LiSSA is held to the same truncated recursion in float64 on this many
-# queries; a first call slower than LISSA_SLOW_S seconds times the rest
-# at LISSA_SMALL_T queries; the per-step time is over LISSA_TIMED_STEPS
-# steps; the profiled call runs LISSA_PROFILE_DEPTH steps (a 10,000-step
-# trace is too large for the profiler)
+# LiSSA runs at LISSA_DEPTH steps (half the reference's 10,000, to keep
+# the script inside its limit: each step's cost does not depend on the
+# depth) and is held to the same truncated recursion in float64 on
+# LISSA_GATE_Q queries; a first call slower than LISSA_SLOW_S seconds
+# times the rest at LISSA_SMALL_T queries, else one timed call at the
+# same queries is compared with the first; the per-step time is over
+# LISSA_TIMED_STEPS steps; the profiled call runs LISSA_PROFILE_DEPTH
+# steps (a full-depth trace is too large for the profiler)
+LISSA_DEPTH = 5_000
 LISSA_GATE_Q, LISSA_SLOW_S, LISSA_SMALL_T = 32, 30.0, 64
 LISSA_TIMED_STEPS, LISSA_PROFILE_DEPTH = 200, 200
 # every configuration of the padded program, on the small input of phase
@@ -1496,9 +1548,9 @@ def spy_devices(eng) -> list:
     seen = []
     assemble = eng._assemble_packed
 
-    def spy(test_points, counts, out, pad, iterations=None):
-        seen.extend(o.device.type for o in out)
-        return assemble(test_points, counts, out, pad, iterations)
+    def spy(test_points, counts, outs, pad, iterations=None, q=None):
+        seen.extend(o.device.type for out in outs for o in out)
+        return assemble(test_points, counts, outs, pad, iterations, q=q)
 
     eng._assemble_packed = spy
     return seen
@@ -1574,8 +1626,9 @@ def hold_float32_slack(got, exact, plain32, counts, rtol: float,
     k = 128: kernel and plain 1.48e-6 apart on a score whose bar was
     1.0e-6, H100 80GB HBM3 at 700 W), as phase 3 found for NCF.
 
-    Why the slack, for LiSSA (float64 argument): 10,000 float32 steps round the
-    running sum to ~1e-6 of the iHVP's norm, and that error reaches every
+    Why the slack, for LiSSA (float64 argument): thousands of float32
+    steps (10,000 measured) round the running sum to ~1e-6 of the iHVP's
+    norm, and that error reaches every
     score of the query through one dot product as an ABSOLUTE error, so
     a score that is small by cancellation misses a relative bar whatever
     float32 recursion computes it: the plain float32 recursion, which
@@ -1704,7 +1757,9 @@ def drive_padded(family: str, eng, train, pts) -> dict:
     for m in KERNEL_MODULES.values():
         m.launches = 0
     for solver in PADDED_SOLVERS:
-        p_eng = padded_engine(eng, train, solver)
+        p_eng = padded_engine(eng, train, solver,
+                              **({"lissa_depth": LISSA_DEPTH}
+                                 if solver == "lissa" else {}))
         devices = spy_devices(p_eng)
         t0 = time.perf_counter()
         res = p_eng.query_batch(q)  # the warm-up
@@ -1722,7 +1777,9 @@ def drive_padded(family: str, eng, train, pts) -> dict:
         row = {"first_call_ms": first_s * 1e3, "iterations": res.iterations}
         if solver == "lissa":
             lt = T if first_s <= LISSA_SLOW_S else min(T, LISSA_SMALL_T)
-            walls, results = query_walls(p_eng, pts[:lt], 2)
+            walls, results = query_walls(p_eng, pts[:lt], 2 if lt < T else 1)
+            if lt == T:
+                results.append(res)
             same_bytes(*results, f"{family} padded lissa")
             row["T"] = lt
             row["vs_flat_direct"] = rank_agreement(res, flat)  # recorded
@@ -3043,23 +3100,30 @@ def library_times(eng, H, v) -> dict:
     }
 
 
+def publish_hot_bank(family: str, eng, train, workdir: str) -> tuple:
+    """8d's bank: BANK_ENTRIES hot pairs built and published under
+    ``workdir`` as ``smoke-<family>``'s; ``(bank, builder, build_s)``."""
+    name = f"smoke-{family}"
+    builder = ladder_engine(eng, train, cache_dir=workdir, model_name=name)
+    pairs = fbank.select_hot_pairs(builder.index, BANK_ENTRIES)
+    t0 = time.perf_counter()
+    bank = fbank.build_bank(builder, pairs, batch_queries=512)
+    build_s = time.perf_counter() - t0
+    fbank.publish_bank(bank, builder.factor_bank_path(), fbank.bank_fingerprint(
+        name, eng.model.block_size, DAMPING, *builder._train_host))
+    return bank, builder, build_s
+
+
 def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
     """8d: a bank of BANK_ENTRIES hot pairs built, published and loaded;
     hits against direct, misses bitwise direct, a hit alone and in the
     batch, all-hit batches timed beside direct, and a surgical refresh."""
     name = f"smoke-{family}"
-    builder = ladder_engine(eng, train, cache_dir=workdir, model_name=name)
-    pairs = fbank.select_hot_pairs(builder.index, BANK_ENTRIES)
     reset_counts()
-    t0 = time.perf_counter()
-    bank = fbank.build_bank(builder, pairs, batch_queries=512)
-    build_s = time.perf_counter() - t0
+    bank, builder, build_s = publish_hot_bank(family, eng, train, workdir)
     build_launches = launch_counts()
     check(build_launches[SEGMENT_SOURCE] > 0, f"{family} bank build never "
           f"launched {SEGMENT_SOURCE}")
-    path = builder.factor_bank_path()
-    fbank.publish_bank(bank, path, fbank.bank_fingerprint(
-        name, eng.model.block_size, DAMPING, *builder._train_host))
     kinds = {"cholesky": int((bank.kind == fbank.KIND_CHOLESKY).sum()),
              "inverse": int((bank.kind == fbank.KIND_INVERSE).sum())}
     log(f"{family} bank: {len(bank)} entries built in {build_s:.2f} s "
@@ -3165,7 +3229,8 @@ def drive_bank(family: str, eng, train, pts, workdir: str) -> dict:
     check(0 < stale.sum() < len(bank), f"{family} bank refresh: user {u0} "
           f"touches {int(stale.sum())} of {len(bank)} entries")
     out = fbank.refresh_bank(eng.model, host, *builder._train_host,
-                             builder.index, DAMPING, path, name)
+                             builder.index, DAMPING,
+                             builder.factor_bank_path(), name)
     check(out == {"kept": int((~stale).sum()), "dropped": int(stale.sum())},
           f"{family} bank refresh {out}, want dropped {int(stale.sum())}")
     log(f"{family} bank refresh after user {u0}'s row moved: {out}")
@@ -4835,6 +4900,504 @@ def drive_stream_audit(states, train, pts, workdir: str) -> tuple:
     no_recovery("11c-11d")
     return stream, audit
 
+# -- phase 12: the data-axis device mesh ----------------------------------
+# 12a: meshes of MESH_SIZES virtual slots over cuda:0 (and a 2-slot mesh of
+# the real devices when two or more are visible): query_batch at BATCHES,
+# query_many at MESH_MANY_BATCH a batch (ragged) and a batch of MESH_BANK_T
+# of 8d's banked pairs, each bitwise the single-device engine; 12b: a
+# MESH_SERVE_SLOTS-slot service over phase 10's stream cut to MESH_SERVE_N
+# requests at MESH_SERVE_BATCH a batch, a device loss injected at batch 1;
+# 12c: Trainer.fit on a 2-slot mesh for MESH_FIT_STEPS steps at FULL_BATCH,
+# loo_retrain_many with MESH_LANES lanes on a MESH_LANE_SLOTS-slot mesh, the
+# full engine's HVP on a 2-slot mesh, reverse_topk over MESH_SWEEP_T queries
+# over MESH_SIZES slots; 12d: cli.rq2 and cli.serve with --mesh 2.
+MESH_SIZES = (1, 2, 4)
+MESH_MANY_BATCH, MESH_BANK_T = 300, 256
+MESH_SERVE_SLOTS, MESH_SERVE_N, MESH_SERVE_BATCH = 4, 512, 128
+MESH_FIT_STEPS, MESH_LANES, MESH_LANE_SLOTS = 60, 8, 3
+MESH_SWEEP_T = 256
+# the reference's mesh bars (tests/test_parallel.py:134-196, 199-225)
+MESH_TRAIN_RTOL, MESH_TRAIN_ATOL = 2e-4, 1e-5
+MESH_HVP_RTOL, MESH_HVP_ATOL = 1e-3, 1e-6
+
+
+def same_result(got, want, what: str) -> None:
+    """Counts, packed scores, iHVPs and test vectors the same bytes."""
+    check(np.array_equal(got.counts, want.counts)
+          and got._packed.tobytes() == want._packed.tobytes()
+          and got.ihvp.tobytes() == want.ihvp.tobytes()
+          and got.test_grad.tobytes() == want.test_grad.tobytes(),
+          f"{what}: not bitwise the single-device engine")
+
+
+def mesh_engine(eng, train, mesh, **kw) -> InfluenceEngine:
+    """An engine on ``eng``'s model and weights over ``mesh``."""
+    kw.setdefault("damping", DAMPING)
+    return engine(eng.model, eng.params, train, mesh=mesh, **kw)
+
+
+def add_counts(total: dict, got: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in got.items()}
+
+
+def mesh_slots(real: int, n: int):
+    """The context a mesh of up to ``n`` slots is made in: virtual slots
+    over cuda:0 (``real`` 0), or the real cards."""
+    return contextlib.nullcontext() if real else pmesh.virtual_devices(n)
+
+
+def card_allocated() -> list[int]:
+    """``memory_allocated`` of every visible card, settled."""
+    gc.collect()
+    n = torch.cuda.device_count()
+    for i in range(n):
+        torch.cuda.synchronize(i)
+    return [torch.cuda.memory_allocated(i) for i in range(n)]
+
+
+def dispatch_baselines(family: str, eng, train, pts, workdir: str) -> dict:
+    """12a's single-device side: ``query_batch`` at BATCHES,
+    ``query_many`` at MESH_MANY_BATCH, ``block_hessians``, MESH_BANK_T
+    hits of 8d's bank, the state a single-device engine places and its
+    ``query_batch`` wall at the largest batch."""
+    pre1 = ladder_engine(eng, train, solver="precomputed", cache_dir=workdir,
+                         model_name=f"smoke-{family}")
+    check(pre1.ensure_factor_bank() >= MESH_BANK_T,
+          f"{family} 12a: 8d's bank did not load")
+    hits = pre1._bank.pairs[:MESH_BANK_T].astype(np.int64)
+    out = {"batch": {T: eng.query_batch(pts[:T]) for T in BATCHES},
+           "many": eng.query_many(pts, batch_queries=MESH_MANY_BATCH),
+           "hessians": eng.block_hessians(pts[:BATCHES[0]]),
+           "hits": hits, "bank": pre1.query_batch(hits)}
+    del pre1
+    a0 = settled_allocated()
+    single = engine(eng.model, eng.params, train, damping=DAMPING)
+    out["state"] = settled_allocated() - a0
+    del single
+    out["ms"] = wall_ms(lambda: eng.query_batch(pts[:BATCHES[-1]]), reps=3)
+    return out
+
+
+def mesh_dispatch(family: str, eng, train, pts, workdir: str, base: dict,
+                  real: int = 0) -> dict:
+    """12a: the flat dispatch, query_many, block_hessians and bank hits
+    over meshes of MESH_SIZES virtual slots over cuda:0 (``real`` 0) or
+    of 2 and ``real`` real cards, bitwise the single-device engine
+    (``base``, :func:`dispatch_baselines`); a program on each card of the
+    mesh; no capture after ``precompile_flat``; one replica of the state
+    a card of the mesh, and nothing on a card outside it."""
+    name = f"smoke-{family}"
+    sizes = sorted({2, real}) if real else MESH_SIZES
+    kind = "real card(s)" if real else "virtual slot(s)"
+    tag = f"{family} 12a{' real' if real else ''}"
+    state1 = base["state"]
+    many_batches = [pts[i: i + MESH_MANY_BATCH]
+                    for i in range(0, len(pts), MESH_MANY_BATCH)]
+    out, keys, launches = {"sizes": {}, "single_ms": base["ms"]}, {}, {}
+    with mesh_slots(real, max(sizes)):
+        for n in sizes:
+            gc.collect()
+            torch.cuda.empty_cache()
+            a0 = card_allocated()
+            m = pmesh.make_mesh(n)
+            me = mesh_engine(eng, train, m)
+            cards = [d.index for d in pmesh.physical_devices(m)]
+            state = [b - a for a, b in zip(a0, card_allocated())]
+            check(all(x <= state1 if i in cards else x <= 0
+                      for i, x in enumerate(state)),
+                  f"{tag} n={n}: the state took {state} B by card, the "
+                  f"single-device engine's {state1} B: not one replica a "
+                  "card of the mesh")
+            geoms = sorted({me.flat_geometry(pts[:T]) for T in BATCHES}
+                           | {me.flat_geometry(b) for b in many_batches})
+            armed = me.precompile_flat(geoms)
+            check(len(armed["compiled"]) == len(geoms),
+                  f"{tag} n={n}: precompile built {armed}")
+            on = sorted({p.inputs[0].device.index
+                         for p in me._programs.values()})
+            check(on == cards, f"{tag} n={n}: programs on cards {on}, the "
+                  f"mesh's are {cards}")
+            c0 = compilemon.count()
+            dispatch_without_waits(me)  # every shard queued, no host wait
+            reset_counts()
+            got = {T: me.query_batch(pts[:T]) for T in BATCHES}
+            many = me.query_many(pts, batch_queries=MESH_MANY_BATCH)
+            counted = launch_counts()
+            captured = compilemon.count() - c0
+            check(captured == 0, f"{tag} n={n}: {captured} captures after "
+                  "precompile_flat")
+            check(counted[SOURCES[family]] > 0 and counted[SEGMENT_SOURCE] > 0,
+                  f"{tag} n={n}: kernels not launched: {counted}")
+            launches = add_counts(launches, counted)
+            for T in BATCHES:
+                same_result(got[T], base["batch"][T], f"{tag} n={n} T={T}")
+            check(len(many) == len(base["many"]),
+                  f"{tag} n={n}: query_many batches")
+            for k, (a, b) in enumerate(zip(many, base["many"])):
+                same_result(a, b, f"{tag} n={n} query_many batch {k}")
+            check(np.array_equal(me.block_hessians(pts[:BATCHES[0]]),
+                                 base["hessians"]),
+                  f"{tag} n={n}: block_hessians not bitwise single-device")
+            alloc = [b - a for a, b in zip(a0, card_allocated())]
+            held = [sum(p.pool_bytes + sum(x.nbytes for x in p.inputs)
+                        for p in me._programs.values()
+                        if p.inputs[0].device.index == i)
+                    for i in range(len(alloc))]
+            check(all(x <= state1 + h for x, h in zip(alloc, held)),
+                  f"{tag} n={n}: {alloc} B allocated by card, more than "
+                  f"the single-device state {state1} B plus the graphs' "
+                  f"{held} B")
+            keys[n] = set(me._aot)
+            ms = wall_ms(lambda: me.query_batch(pts[:BATCHES[-1]]), reps=3)
+            del me, got, many
+            pm = ladder_engine(eng, train, solver="precomputed",
+                               cache_dir=workdir, model_name=name,
+                               mesh=pmesh.make_mesh(n))
+            reset_counts()
+            same_result(pm.query_batch(base["hits"]), base["bank"],
+                        f"{tag} n={n} bank hits")
+            bank_counted = launch_counts()
+            check(bank_counted[SOURCES[family]] > 0,
+                  f"{tag} n={n}: bank hits never launched "
+                  f"{SOURCES[family]}")
+            launches = add_counts(launches, bank_counted)
+            del pm
+            out["sizes"][n] = {"state_bytes": state, "allocated": alloc,
+                               "graph_bytes": held,
+                               "geometries": [list(g) for g in geoms],
+                               "query_batch_ms": ms}
+            log(f"{tag}: a mesh of {n} {kind}: query_batch {BATCHES}, "
+                f"query_many at {MESH_MANY_BATCH}, block_hessians and "
+                f"{MESH_BANK_T} bank hits bitwise single-device; 0 captures "
+                f"after precompile_flat ({len(geoms)} geometries); state "
+                f"{[round(x / 2**20, 1) for x in state]} MiB by card "
+                f"(single-device {state1 / 2**20:.1f} MiB), allocated "
+                f"{[round(x / 2**20, 1) for x in alloc]} MiB <= state + "
+                f"graphs; query_batch({BATCHES[-1]}) {ms:.2f} ms wall, "
+                f"{base['ms']:.2f} ms single-device"
+                + ("" if real else " (virtual slots share the card: "
+                   "overhead, not speedup)"))
+    sizes = list(keys)
+    for i, a in enumerate(sizes):
+        for b in sizes[i + 1:]:
+            check(not keys[a] & keys[b], f"{tag}: meshes of {a} and {b} "
+                  "slots share a geometry key")
+    out["launches"] = launches
+    return out
+
+
+def mesh_serving(family: str, eng, train, pts, real: int = 0) -> dict:
+    """12b: a MESH_SERVE_SLOTS-slot mesh service of virtual slots
+    (``real`` 0; else over ``real`` real cards) loses a device at batch 1
+    and shrinks by one slot, every answer bitwise the single-device
+    service's."""
+    reqs = serve_stream(pts)[:MESH_SERVE_N]
+    slots = real or MESH_SERVE_SLOTS
+    tag = f"{family} 12b{' real' if real else ''}"
+
+    def config(**kw):
+        return serve_config(max_batch=MESH_SERVE_BATCH, **kw)
+
+    want = {r.id: r for r in InfluenceService(engine=eng,
+                                              config=config()).run(reqs)}
+    check(all(r.ok for r in want.values()), f"{tag}: single-device "
+          "service shed requests")
+    seen, misses = set(), []
+    for r in reqs:
+        if r.key() not in seen:
+            seen.add(r.key())
+            misses.append(r.key())
+    misses = np.asarray(misses, np.int64)
+
+    def same_answers(got, what):
+        for r in got:
+            check(r.ok and r.scores.tobytes() == want[r.id].scores.tobytes(),
+                  f"{what}: request {r.id} not bitwise the single-device "
+                  "service's")
+
+    with mesh_slots(real, slots):
+        m = pmesh.make_mesh(slots)
+        me = mesh_engine(eng, train, m)
+        svc = InfluenceService(engine=me, config=config(mesh=m))
+        warm = svc.warmup(misses)
+        check(warm["all_planned_compiled"], f"{tag} warmup: {warm}")
+        reset_counts()
+        with inject.active(inject.Fault(sites.SERVE_DISPATCH, at=1,
+                                        kind=taxonomy.DEVICE_LOST),
+                           strict=True, validate=True):
+            got = svc.run(list(reqs))
+        launches = launch_counts()
+        same_answers(got, f"{tag} after the loss")
+        check(svc.mesh.devices.size == slots - 1
+              and me.mesh.devices.size == slots - 1
+              and svc.rollup()["device_loss_recoveries"] == 1,
+              f"{tag}: mesh {svc.mesh} after the loss, "
+              f"{svc.rollup()['device_loss_recoveries']} recoveries")
+        armed, c0 = set(me._aot), compilemon.count()
+        svc.invalidate()
+        same_answers(svc.run(list(reqs)), f"{tag} traffic after")
+        check(compilemon.count() == c0 and set(me._aot) == armed,
+              f"{tag}: traffic at the same geometries after the "
+              f"shrink captured {compilemon.count() - c0} program(s)")
+        # a fault inside the rebuild sheds that batch, classified
+        me2 = mesh_engine(eng, train, pmesh.make_mesh(slots))
+        svc2 = InfluenceService(engine=me2, config=config(mesh=me2.mesh))
+        with inject.active(inject.Fault(sites.SERVE_DISPATCH, at=1,
+                                        kind=taxonomy.DEVICE_LOST),
+                           inject.Fault(sites.MESH_REBUILD, at=0,
+                                        kind=taxonomy.OOM),
+                           strict=True, validate=True):
+            got2 = svc2.run(list(reqs))
+        shed = [r for r in got2 if not r.ok]
+        check(shed and all(r.reason in (taxonomy.DEVICE_LOST, taxonomy.OOM)
+                           for r in shed),
+              f"{tag} rebuild fault: shed {[r.reason for r in shed]}")
+        served = [r for r in got2 if r.ok]
+        check(served, f"{tag} rebuild fault: nothing served")
+        same_answers(served, f"{tag} rebuild fault")
+        # a mesh naming a dead slot fails construction, classified
+        live = pmesh.live_device_ids
+        pmesh.live_device_ids = lambda: frozenset(range(slots - 1))
+        try:
+            InfluenceService(engine=me2, config=config(mesh=me2.mesh))
+            dead = None
+        except taxonomy.DeviceLost as e:
+            dead = e
+        finally:
+            pmesh.live_device_ids = live
+        check(dead is not None and dead.devices == [slots - 1],
+              f"{tag}: a dead slot did not fail construction: {dead}")
+    got_counts = recovery_counts()
+    check(not got_counts["retries"] and not got_counts["resets"]
+          and not got_counts["cpu_rung_batches"],
+          f"{tag}: a recovery ladder beyond the shrink: {got_counts}")
+    obs.REGISTRY.reset()  # the injected losses and their sheds, counted
+    log(f"{tag}: a {slots}-slot service over "
+        f"{MESH_SERVE_N} requests lost a device at batch 1 and shrank to "
+        f"{slots - 1} slots, every answer bitwise the "
+        f"single-device service; traffic after captured nothing; a "
+        f"rebuild fault shed {len(shed)} request(s) classified, "
+        f"{len(served)} served; a dead slot failed construction "
+        "(DeviceLost)")
+    return {"launches": launches, "shed_on_rebuild_fault": len(shed),
+            "recoveries": 1}
+
+
+def training_baselines(family: str, eng, train, pts, workdir: str) -> dict:
+    """12c's single-device side: ``Trainer.fit``, MESH_LANES
+    leave-one-out lanes, the full engine's HVP of a seeded vector, and a
+    ``reverse_topk`` sweep of MESH_SWEEP_T queries on a streaming model
+    (with the model, its labels and queries)."""
+    model, x, y = eng.model, train.x, train.y
+    cfg = TrainConfig(batch_size=FULL_BATCH, num_steps=MESH_FIT_STEPS,
+                      learning_rate=TRAIN_LR, seed=0)
+    t1 = Trainer(model, cfg, device=CARD)
+    out = {"cfg": cfg, "fit": t1.fit(t1.init_state(eng.params), x, y).params,
+           "removed": np.asarray([3, 1_000, 77_777, -1, 250_000, 500_000,
+                                  900_000, 975_459][:MESH_LANES], np.int64),
+           "seeds": np.arange(MESH_LANES, dtype=np.uint32)}
+    out["lanes"] = loo_retrain_many(model, eng.params, x, y, out["removed"],
+                                    MESH_FIT_STEPS, FULL_BATCH, TRAIN_LR,
+                                    seeds=out["seeds"], device=CARD)
+    full1 = FullInfluenceEngine(model, eng.params, train, damping=DAMPING,
+                                device=CARD)
+    out["num_train"] = full1.num_train
+    out["v"] = torch.randn(full1.num_params,
+                           generator=torch.Generator().manual_seed(5)).to(CARD)
+    out["hvp"] = full1._hvp(out["v"])
+    del full1
+    a = out["stream"] = stream_model(
+        family, train, os.path.join(workdir, f"{family}-mesh"),
+        f"mesh-{family}")
+    out["ty"] = np.random.default_rng(47).integers(1, 6, MESH_SWEEP_T).astype(
+        np.float32)
+    r = reverse_topk(a, pts[:MESH_SWEEP_T], out["ty"], k=SWEEP_K,
+                     batch_queries=SWEEP_BATCH)
+    out["sweep"] = (r.row_ids.tobytes(), r.loss_deltas.tobytes(),
+                    r.group_scores.tobytes())
+    return out
+
+
+def mesh_training(family: str, eng, train, pts, base: dict,
+                  real: int = 0) -> dict:
+    """12c: data-parallel training, sharded lanes, the sharded full HVP
+    and the audit sweep on meshes of virtual slots (``real`` 0) or of
+    real cards, against the single-device side ``base``
+    (:func:`training_baselines`)."""
+    model, x, y = eng.model, train.x, train.y
+    tag = f"{family} 12c{' real' if real else ''}"
+    lane_slots = min(MESH_LANE_SLOTS, real) if real else MESH_LANE_SLOTS
+    sweep_sizes = sorted({2, real}) if real else MESH_SIZES
+
+    def close_params(a, b, rtol, atol, what):
+        worst = 0.0
+        for k in a:
+            d = (a[k] - b[k]).abs() - atol - rtol * b[k].abs()
+            worst = max(worst, float(d.max()))
+            check(a[k].shape == b[k].shape and worst <= 0,
+                  f"{tag} {what}: {k} beyond rtol {rtol} / atol {atol}")
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    a, ty = base["stream"], base["ty"]
+    sweep_pts = pts[:MESH_SWEEP_T]
+    with mesh_slots(real, max(*sweep_sizes, lane_slots)):
+        t2 = Trainer(model, base["cfg"], mesh=pmesh.make_mesh(2))
+        t0 = time.perf_counter()
+        s2 = t2.fit(t2.init_state(eng.params), x, y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_err = close_params(s2.params, base["fit"], MESH_TRAIN_RTOL,
+                               MESH_TRAIN_ATOL, "fit on a 2-slot mesh")
+        lanes2 = loo_retrain_many(model, eng.params, x, y, base["removed"],
+                                  MESH_FIT_STEPS, FULL_BATCH, TRAIN_LR,
+                                  seeds=base["seeds"],
+                                  mesh=pmesh.make_mesh(lane_slots))
+        lane_err = close_params(lanes2, base["lanes"], MESH_TRAIN_RTOL,
+                                MESH_TRAIN_ATOL,
+                                f"{MESH_LANES} lanes on {lane_slots} slots")
+        full2 = FullInfluenceEngine(model, eng.params, train,
+                                    damping=DAMPING, mesh=pmesh.make_mesh(2))
+        check(full2.num_train == base["num_train"],
+              f"{tag}: the 2-slot full engine kept {full2.num_train}")
+        h1, h2 = base["hvp"], full2._hvp(base["v"])
+        hvp_err = float((h2 - h1).abs().max())
+        check(bool(((h2 - h1).abs() <= MESH_HVP_ATOL
+                    + MESH_HVP_RTOL * h1.abs()).all()),
+              f"{tag}: the sharded HVP is beyond rtol {MESH_HVP_RTOL} / "
+              f"atol {MESH_HVP_ATOL} ({hvp_err})")
+        del full2, h2
+        launches = {}
+        for n in sweep_sizes:
+            me = engine(a.model, a.state.params, train, damping=DAMPING,
+                        mesh=pmesh.make_mesh(n))
+            me.query_many(sweep_pts, batch_queries=SWEEP_BATCH)  # captures
+            reset_counts()
+            r = reverse_topk(a, sweep_pts, ty, k=SWEEP_K, engine=me,
+                             batch_queries=SWEEP_BATCH)
+            launches = add_counts(launches, launch_counts())
+            check((r.row_ids.tobytes(), r.loss_deltas.tobytes(),
+                   r.group_scores.tobytes()) == base["sweep"],
+                  f"{tag}: the sweep over {n} slot(s) differs")
+            del me
+    check(launches[SOURCES[family]] > 0 and launches[SEGMENT_SOURCE] > 0,
+          f"{tag}: the mesh sweep launched {launches}")
+    log(f"{tag}: fit on a 2-slot mesh ({MESH_FIT_STEPS} steps at "
+        f"{FULL_BATCH}, {fit_s:.2f} s) max |diff| {fit_err:.3g} within "
+        f"rtol {MESH_TRAIN_RTOL} / atol {MESH_TRAIN_ATOL} of single-device; "
+        f"{MESH_LANES} lanes on {lane_slots} slots max |diff| "
+        f"{lane_err:.3g}; the 2-slot HVP max |diff| {hvp_err:.3g} "
+        f"(rtol {MESH_HVP_RTOL}); reverse_topk over {MESH_SWEEP_T} queries "
+        f"bitwise over {sweep_sizes} slots")
+    return {"fit_max_abs_diff": fit_err, "fit_s": fit_s,
+            "lanes_max_abs_diff": lane_err, "hvp_max_abs_diff": hvp_err,
+            "launches": launches}
+
+
+def mesh_drivers(workdir: str) -> dict:
+    """12d: ``cli.rq2 --mesh 2`` and ``cli.serve --mesh 2`` in process
+    over two virtual slots."""
+    import contextlib
+    import io
+
+    from fia_tpu_torch.cli import rq2 as cli_rq2
+    from fia_tpu_torch.cli import serve as cli_serve
+
+    base = ["--dataset", "synthetic", "--model", "MF",
+            "--num_steps_train", "300", "--batch_size", "3000", "--mesh",
+            "2"]
+    with pmesh.virtual_devices(2):
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            timing = cli_rq2.main(base + [
+                "--num_test", "64", "--train_dir",
+                os.path.join(workdir, "mesh-rq2")])
+        rq2_s = time.perf_counter() - t0
+        check(timing.num_queries == 64 and timing.num_scores > 0,
+              f"12d: cli.rq2 --mesh 2: {buf.getvalue().splitlines()[-3:]}")
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_serve.main(base + [
+                "--warmup", "64", "--smoke_requests", "512",
+                "--train_dir", os.path.join(workdir, "mesh-serve")])
+        serve_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"12d: cli.serve --mesh 2 returned {rc}: {lines[-3:]}")
+    smoke = next(json.loads(x) for x in lines if '"serve.smoke"' in x)
+    log(f"12d: cli.rq2 --mesh 2 returned ({timing.num_queries} queries, "
+        f"{timing.num_scores} scores) in {rq2_s:.1f} s; cli.serve --mesh 2 "
+        f"returned 0 ({smoke['ok']}/512 ok) in {serve_s:.1f} s")
+    return {"rq2_s": rq2_s, "rq2_queries": timing.num_queries,
+            "serve_rc": rc, "serve_s": serve_s, "serve_ok": smoke["ok"]}
+
+
+def drive_mesh(engines, train, pts, workdir: str) -> dict:
+    """Phase 12 (each model: 12a, 12b, 12c over virtual slots, and again
+    over the real cards, up to 4, where two or more are visible; 12d
+    once)."""
+    out = {}
+    real = min(4, torch.cuda.device_count())
+    real = real if real >= 2 else 0
+    obs.REGISTRY.reset()  # phase 11's injected faults are its own
+    for family, (eng, _) in engines.items():
+        t0 = time.perf_counter()
+        dispatched = dispatch_baselines(family, eng, train, pts, workdir)
+        trained = training_baselines(family, eng, train, pts, workdir)
+        for r in (0, real) if real else (0,):
+            row = out.setdefault(family, {}).setdefault(
+                "real" if r else "virtual", {})
+            row["12a"] = mesh_dispatch(family, eng, train, pts, workdir,
+                                       dispatched, real=r)
+            no_recovery(f"12a {family}")
+            row["12b"] = mesh_serving(family, eng, train, pts, real=r)
+            row["12c"] = mesh_training(family, eng, train, pts, trained,
+                                       real=r)
+            no_recovery(f"12c {family}")
+        if not real:
+            log(f"{family} 12: {torch.cuda.device_count()} CUDA device "
+                "visible: the mesh over real cards was not run")
+        out[family]["real_cards"] = real
+        out[family]["seconds"] = time.perf_counter() - t0
+        del dispatched, trained
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["12d"] = mesh_drivers(workdir)
+    no_recovery("12d")
+    return out
+
+
+def mesh_only(engines, train, pts, card: str, kind: str,
+              t_main: float) -> int:
+    """``--phase 12``: after the build and the set-up, 8d's banks, then
+    phase 12 alone (over the real cards too where two or more are
+    visible), its results on the ``perf`` line."""
+    with tempfile.TemporaryDirectory() as workdir:
+        for family, (eng, _) in engines.items():
+            publish_hot_bank(family, eng, train, workdir)
+        t12 = time.perf_counter()
+        perf = {"card": card, "mesh": drive_mesh(engines, train, pts,
+                                                 workdir)}
+    perf["phase12_seconds"] = time.perf_counter() - t12
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"phase 12: {perf['phase12_seconds']:.1f} s; chip_smoke --phase 12 "
+        f"total: {perf['total_seconds']:.1f} s")
+    log("perf " + json.dumps(perf, sort_keys=True))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def mesh_launches(row: dict, source: str) -> dict:
+    """A kernel's launches in phase 12's parts, over virtual slots and
+    (where they ran) real cards."""
+    return {mode: {part: row[mode][part]["launches"][source]
+                   for part in ("12a", "12b", "12c")}
+            for mode in ("virtual", "real") if mode in row}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -4876,6 +5439,8 @@ def main() -> int:
     longest_rq2 = int(index.counts_batch(pts[:RQ2_Q]).max())
     log(f"set-up: {time.perf_counter() - t0:.2f} s; longest related set "
         f"{longest} rows (RQ2's 64 queries: {longest_rq2})")
+    if sys.argv[1:] == ["--phase", "12"]:
+        return mesh_only(engines, train, pts, card, kind, t_main)
 
     # -- phases 3 and 4, per model: kernels, then main path --------------
     checked, driven = {}, {}
@@ -5115,6 +5680,17 @@ def main() -> int:
                                    audit=b[SEGMENT_SOURCE])
     perf["phase11_seconds"] = time.perf_counter() - t11
     log(f"phase 11: {perf['phase11_seconds']:.1f} s")
+
+    # -- phase 12: the data-axis device mesh ----------------------------
+    t12 = time.perf_counter()
+    mesh = perf["mesh"] = drive_mesh(engines, train, pts, ladder_dir.name)
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["mesh"] = mesh_launches(
+            mesh[family], SOURCES[family])
+        seg_by_path[family]["mesh"] = mesh_launches(mesh[family],
+                                                    SEGMENT_SOURCE)
+    perf["phase12_seconds"] = time.perf_counter() - t12
+    log(f"phase 12: {perf['phase12_seconds']:.1f} s")
     ladder_dir.cleanup()
     envelope_dir.cleanup()
     perf["total_seconds"] = time.perf_counter() - t_main

@@ -16,8 +16,9 @@ every params or train-set change invalidates its caches.
 ``apply_updates`` and ``apply_removal`` are the write path
 (:mod:`fia_tpu_torch.stream`): fine-tune on the grown or shrunk train
 set, project onto the footprint, and swap under each service's epoch
-fence, re-keying the untouched cache entries. Not ported yet: ``mesh``
-(ROADMAP Queue A.13), which raises ``NotImplementedError``. Initial
+fence, re-keying the untouched cache entries. With ``mesh`` (a
+:class:`fia_tpu_torch.parallel.mesh.Mesh`) training is data parallel and
+the engines shard their query batches over it. Initial
 parameters come from the port's own generator (a ``torch.Generator``
 seeded with ``seed``): they cannot equal the reference's ``jax.random``
 draws (ROADMAP Queue C).
@@ -34,21 +35,17 @@ import torch
 from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.index import InteractionIndex
-from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence.engine import InfluenceEngine
 from fia_tpu_torch.influence.full import FullInfluenceEngine
 from fia_tpu_torch.influence.spectral import extreme_eigvals
 from fia_tpu_torch.models import MF, NCF
+from fia_tpu_torch.parallel.mesh import mesh_device
 from fia_tpu_torch.reliability.policy import FULL_SOLVERS, resolve_solver
 from fia_tpu_torch.train import checkpoint
 from fia_tpu_torch.train.trainer import Trainer, TrainConfig, TrainState
 
 MODELS = {"MF": MF, "NCF": NCF}
-
-
-def _unported(item: str):
-    raise NotImplementedError(f"not ported yet — {item}")
 
 
 class FIAModel:
@@ -60,7 +57,8 @@ class FIAModel:
       data_sets: {'train', 'validation', 'test': RatingDataset},
       initial_learning_rate, damping, avextol, train_dir, model_name,
       solver (the engines' default rung), seed (initial params and batch
-      schedules), mesh (not ported: ROADMAP Queue A.13), device
+      schedules), mesh (a ``data``-axis mesh the trainer and the engines
+      run over; the model's device is then its first slot's), device
       (``None``: the CUDA device, raising without one; ``"cpu"``).
     """
 
@@ -83,13 +81,11 @@ class FIAModel:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            _unported("mesh: ROADMAP Queue A.13")
         if isinstance(model, str):
             model = MODELS[model](num_users, num_items, embedding_size,
                                   weight_decay)
         self.model = model
-        self.device = resolve_device(device)
+        self.device = mesh_device(mesh, device)
         self.data_sets = dict(data_sets)
         self.batch_size = int(batch_size)
         self.damping = float(damping)
@@ -104,7 +100,7 @@ class FIAModel:
             model,
             TrainConfig(batch_size=batch_size, num_steps=0,
                         learning_rate=initial_learning_rate, seed=seed),
-            device=self.device,
+            mesh=mesh, device=self.device,
         )
         params = model.init_params(torch.Generator().manual_seed(seed),
                                    device=self.device)
@@ -142,14 +138,15 @@ class FIAModel:
         key = (name, tuple(sorted(extra.items())))
         eng = self._engines.get(key)
         if eng is None:
-            if extra.get("mesh") is not None:
-                _unported("mesh: ROADMAP Queue A.13")
-            extra.pop("mesh", None)
+            # an explicit mesh in extra (ServeConfig.mesh through
+            # from_model) overrides the model's; the key was built before
+            # the pop, so engines on different meshes coexist
+            mesh = extra.pop("mesh", self.mesh)
             eng = self._engines[key] = InfluenceEngine(
                 self.model, self.state.params, self.data_sets["train"],
                 damping=self.damping, solver=name,
                 cache_dir=self.train_dir, model_name=self.model_name,
-                device=self.device, **extra,
+                mesh=mesh, device=self.device, **extra,
             )
         return eng
 
@@ -361,7 +358,7 @@ class FIAModel:
         the full-parameter engine supports (``direct`` → CG)."""
         full = FullInfluenceEngine(
             self.model, self.state.params, self.data_sets["train"],
-            damping=self.damping, device=self.device,
+            damping=self.damping, mesh=self.mesh, device=self.device,
             solver=resolve_solver(approx_type, default=self.solver,
                                   supported=FULL_SOLVERS),
             **(approx_params or {}),

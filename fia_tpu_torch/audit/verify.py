@@ -140,11 +140,10 @@ def verify_plan(model, plan, test_points, test_y, *, num_steps: int = 3000,
     ``journal``: an open reliability Journal (fingerprint from
     :func:`verify_fingerprint`) — finished lane chunks are recorded
     and skipped on resume. ``artifact_path``: publish the verdict as
-    a checksummed npz artifact. ``mesh`` (lanes sharded over devices)
-    is not ported: anything but None raises (ROADMAP Queue A.13).
+    a checksummed npz artifact. ``mesh``: the lanes are sharded over
+    its ``data`` slots (:func:`~fia_tpu_torch.train.trainer.
+    loo_retrain_many`).
     """
-    if mesh is not None:
-        raise NotImplementedError("not ported yet — mesh: ROADMAP Queue A.13")
     train = model.data_sets["train"]
     if plan.train_rows != len(train.x):
         raise ValueError(
@@ -206,7 +205,8 @@ def verify_plan(model, plan, test_points, test_y, *, num_steps: int = 3000,
                 padded_removed[c : c + lane_chunk],
                 num_steps=num_steps, batch_size=batch_size,
                 learning_rate=learning_rate,
-                seeds=padded_seeds[c : c + lane_chunk], device=dev,
+                seeds=padded_seeds[c : c + lane_chunk], mesh=mesh,
+                device=dev,
             )
             preds = np.asarray(pred_fn(params_stack), np.float32)
             if journal is not None:

@@ -8,8 +8,10 @@ wrote under a ``--train_dir`` loads in the other's.
 
 What differs: ``--backend`` selects the torch device — none (the
 default) runs on the CUDA device and raises without one, ``cpu`` runs
-on the CPU; ``--mesh`` raises ``NotImplementedError`` naming ROADMAP
-Queue A.13. Fresh weights come from a ``torch.Generator`` seeded with
+on the CPU; ``--mesh N`` lays a 1-D ``data`` mesh over the first N
+slots of that backend (virtual slots, ``parallel.mesh.virtual_devices``,
+when fewer devices are visible), and ``--model_parallel > 1`` raises
+``NotImplementedError`` naming ROADMAP Queue A.13b. Fresh weights come from a ``torch.Generator`` seeded with
 ``--seed``, which cannot reproduce ``jax.random``'s draws: a run that
 trains from scratch starts elsewhere than the reference's (ROADMAP
 Queue C), while one that loads the reference's checkpoint starts where
@@ -197,13 +199,23 @@ def engine_kwargs(args) -> dict:
 
 
 def mesh_for(args):
-    """None without ``--mesh``; the port's multi-device paths are ROADMAP
-    Queue A.13, so ``--mesh N`` raises."""
-    if not getattr(args, "mesh", 0):
-        if getattr(args, "model_parallel", 1) > 1:
+    """A 1-D ``data`` mesh over the first ``--mesh`` slots of the
+    ``--backend`` device (None when 0). Row-sharded tables
+    (``--model_parallel > 1``, the 2-D ``('data', 'model')`` mesh) are
+    ROADMAP Queue A.13b and raise."""
+    if getattr(args, "model_parallel", 1) > 1:
+        if not getattr(args, "mesh", 0):
             raise SystemExit("--model_parallel > 1 requires --mesh N")
+        raise NotImplementedError(
+            "not ported yet — --model_parallel > 1: ROADMAP Queue A.13b")
+    if not getattr(args, "mesh", 0):
         return None
-    raise NotImplementedError("not ported yet — --mesh: ROADMAP Queue A.13")
+    from fia_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        return make_mesh(args.mesh, device=args.backend)
+    except ValueError as e:  # fewer slots visible than asked for
+        raise SystemExit(f"--mesh {args.mesh} requested: {e}")
 
 
 def event_log_for(args, driver: str):
@@ -346,7 +358,7 @@ def train_fingerprint(args, name, num_steps, batch) -> dict:
 
 
 def train_or_load(args, model, params, splits, num_steps=None, verbose=True,
-                  event_log=None):
+                  event_log=None, mesh=None):
     """Reference RQ2.py:102-109 train-or-load behavior, crash-safe.
 
     Restore ladder: (1) the terminal checkpoint when valid; (2) the
@@ -366,7 +378,8 @@ def train_or_load(args, model, params, splits, num_steps=None, verbose=True,
     cfg = TrainConfig(batch_size=batch, num_steps=num_steps,
                       learning_rate=args.lr, seed=args.seed,
                       log_every=10_000 if verbose else 0)
-    trainer = Trainer(model, cfg, event_log=event_log, device=args.backend)
+    trainer = Trainer(model, cfg, event_log=event_log, mesh=mesh,
+                      device=args.backend)
     state = trainer.init_state(params)
 
     name = model_name_for(args, splits=splits)

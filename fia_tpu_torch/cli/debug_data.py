@@ -28,7 +28,8 @@ Plain runs compose with every shared knob, e.g.::
         --reweight 0.3 --verify 0 --apply 1
 
 Everything runs on the CUDA device (raising without one) unless
-``--backend cpu`` is given; ``--mesh`` raises (ROADMAP Queue A.13).
+``--backend cpu`` is given; ``--mesh N`` runs over a ``data`` mesh of N
+slots.
 """
 
 from __future__ import annotations

@@ -65,14 +65,14 @@ def build_engine(args):
     splits = common.load_splits(args)
     model, params = common.build_model(args, splits)
     name = common.model_name_for(args, splits=splits)
-    common.mesh_for(args)  # --mesh raises (ROADMAP Queue A.13)
+    mesh = common.mesh_for(args)
     _, state, _ = common.train_or_load(args, model, params, splits,
                                        verbose=False)
     kwargs = common.engine_kwargs(args)
     kwargs["solver"] = "direct"
     engine = InfluenceEngine(model, state.params, splits["train"],
                              cache_dir=args.train_dir, model_name=name,
-                             **kwargs)
+                             mesh=mesh, **kwargs)
     return engine, splits, name
 
 

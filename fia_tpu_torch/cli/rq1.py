@@ -135,20 +135,20 @@ def main(argv=None):
           f"train={train.num_examples} test={test.num_examples} "
           f"params={model.num_params()}")
 
-    common.mesh_for(args)  # --mesh raises (ROADMAP Queue A.13)
+    mesh = common.mesh_for(args)
     log = common.event_log_for(args, "rq1")
     log.log("run_start", driver="rq1", **{
         k: v for k, v in vars(args).items() if not k.startswith("_")
     })
     trainer, state, batch = common.train_or_load(
-        args, model, params, splits, event_log=log
+        args, model, params, splits, event_log=log, mesh=mesh
     )
 
     engine = InfluenceEngine(
         model, state.params, train,
         cache_dir=args.train_dir,
         model_name=common.model_name_for(args, splits=splits),
-        **common.engine_kwargs(args),
+        mesh=mesh, **common.engine_kwargs(args),
     )
     test_indices = common.pick_test_points(args, splits, engine.index)
     print(f"test indices: {list(map(int, test_indices))}")
@@ -270,7 +270,7 @@ def main(argv=None):
                 remove_type="maxinf" if args.maxinf else "random",
                 lane_chunk=args.lane_chunk,
                 steps_per_dispatch=args.steps_per_dispatch,
-                event_log=log,
+                mesh=mesh, event_log=log,
             )
             r = pearson(res.actual_y_diffs, res.predicted_y_diffs)
             print(f"test {int(t)}: pearson r = {r:.4f} "

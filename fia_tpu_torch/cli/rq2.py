@@ -28,20 +28,20 @@ def main(argv=None):
     splits = common.load_splits(args)
     train, test = splits["train"], splits["test"]
     model, params = common.build_model(args, splits)
-    common.mesh_for(args)  # --mesh raises (ROADMAP Queue A.13)
+    mesh = common.mesh_for(args)
     log = common.event_log_for(args, "rq2")
     log.log("run_start", driver="rq2", **{
         k: v for k, v in vars(args).items() if not k.startswith("_")
     })
     trainer, state, batch = common.train_or_load(
-        args, model, params, splits, event_log=log
+        args, model, params, splits, event_log=log, mesh=mesh
     )
 
     engine = InfluenceEngine(
         model, state.params, train,
         cache_dir=args.train_dir,
         model_name=common.model_name_for(args, splits=splits),
-        **common.engine_kwargs(args),
+        mesh=mesh, **common.engine_kwargs(args),
     )
 
     test_idx = common.explicit_test_indices(args, test)

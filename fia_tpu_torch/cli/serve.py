@@ -7,7 +7,7 @@ line (``{"user": u, "item": i, "id": ..., "deadline_s": ...}`` — bare
 ``u i`` pairs are accepted too), one response object per output line
 (the ``serve.request`` schema of fia_tpu_torch/serve/metrics.py plus the
 score payload). It runs on the card unless ``--backend cpu`` is given;
-``--mesh`` raises (ROADMAP Queue A.13).
+``--mesh N`` serves over a ``data`` mesh of N slots.
 
 Modes (checked in this order; ``--warmup`` composes with the others):
 
@@ -122,7 +122,7 @@ def build_service(args):
 
         obs.configure(trace=True)
     common.apply_backend(args)
-    common.mesh_for(args)  # --mesh raises (ROADMAP Queue A.13)
+    mesh = common.mesh_for(args)
     splits = common.load_splits(args)
     model, params = common.build_model(args, splits)
     name = common.model_name_for(args, splits=splits)
@@ -131,7 +131,7 @@ def build_service(args):
     engine = InfluenceEngine(
         model, state.params, splits["train"],
         cache_dir=args.train_dir, model_name=name,
-        **common.engine_kwargs(args),
+        mesh=mesh, **common.engine_kwargs(args),
     )
     metrics = args.metrics
     if metrics == "none":
@@ -147,6 +147,7 @@ def build_service(args):
         cache_entries=args.cache_entries, coalesce=args.coalesce,
         default_deadline_s=args.request_deadline or None,
         disk_cache=bool(args.disk_cache), metrics_path=metrics,
+        mesh=mesh,
         class_quotas=_parse_class_kv(
             getattr(args, "class_quota", None), float),
         class_weights=_parse_class_kv(
@@ -155,14 +156,19 @@ def build_service(args):
     try:
         svc = InfluenceService(engine=engine, config=cfg)
     except Exception as e:
-        # report a classified construction failure as an
-        # operator-readable line and a clean nonzero exit, never a raw
-        # backend traceback
+        # construction validates mesh liveness + fingerprint; report a
+        # classified failure as an operator-readable line and a clean
+        # nonzero exit, never a raw backend traceback
         kind = taxonomy.classify(e)
         if kind is None:
             raise
         line = {"event": "serve.construct_failed", "kind": kind,
                 "error": str(e)}
+        # the liveness probe names the dead mesh slots (and whole hosts)
+        if getattr(e, "devices", None):
+            line["devices"] = [int(d) for d in e.devices]
+        if getattr(e, "hosts", None):
+            line["hosts"] = [int(h) for h in e.hosts]
         print(json.dumps(line), file=sys.stderr)
         raise SystemExit(1)
     return svc, splits

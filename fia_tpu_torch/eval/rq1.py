@@ -56,6 +56,7 @@ def test_retraining(
     lane_chunk: int = 32,
     steps_per_dispatch: int = 2000,
     verbose: bool = True,
+    mesh=None,
     event_log=None,
 ) -> RetrainResult:
     """Run the RQ1 experiment for one test point, on ``engine``'s
@@ -64,7 +65,8 @@ def test_retraining(
     remove_type: 'maxinf' picks the |influence|-largest related rows
     (reference ``experiments.py:36-48``); 'random' samples uniformly from
     the related set (numpy ``default_rng(random_seed)``, as the
-    reference).
+    reference). ``mesh``: the retraining lanes are sharded over its
+    ``data`` slots (:func:`~fia_tpu_torch.train.trainer.loo_retrain_many`).
     """
 
     def stage(msg):
@@ -133,7 +135,8 @@ def test_retraining(
             model, params0, train.x, train.y, padded_removed[c : c + lane_chunk],
             num_steps=num_steps, batch_size=batch_size,
             learning_rate=learning_rate, seeds=padded_seeds[c : c + lane_chunk],
-            steps_per_dispatch=steps_per_dispatch, device=engine.device,
+            steps_per_dispatch=steps_per_dispatch, mesh=mesh,
+            device=engine.device,
         )
         with torch.no_grad():
             preds = torch.func.vmap(lambda p: model.predict(p, tx)[0])(

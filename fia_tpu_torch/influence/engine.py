@@ -5,8 +5,8 @@ single-device branch, ``_query_pad``/``_s_pad_for``, ``_dispatch_flat``/
 ``_finalize_flat``, ``_assemble_packed``), its geometry API
 (``flat_geometry``, ``precompile_flat``, ``compiled_geometries``,
 ``_flat_exec``), ``query_many`` with its journal helpers, the padded
-per-query program (``_query_one``, ``_batched_packed``, the
-single-device ``_query_padded``), the dispatch choice
+per-query program (``_query_one``, ``_batched_packed``,
+``_query_padded``), the dispatch choice
 (``_flat_eligible``, ``_query_batch_impl``), the NaN solver ladder
 (``_nan_ladder``), the factor-bank rung (``block_hessians``, the bank
 load/unload methods, ``_bank_fn``, ``_query_bank_hits``,
@@ -73,7 +73,14 @@ counters ``engine.aot_hits``/``aot_misses``, ``engine.bank_hits``/
 ``engine.solver_escalations{from,to}``, and the port's
 ``engine.device_resets`` and ``engine.cpu_fallback_batches``.
 
-Options of the reference that the port does not run yet raise
+Over a device mesh (``mesh=``, :mod:`fia_tpu_torch.parallel.mesh`) the
+query axis is sharded along ``data`` as in the reference (docs/design.md
+§15): each contiguous query shard runs the unchanged single-device
+program on its slot's device, with no collective, and the host stitches
+the packed outputs, so every mesh size gives the single-device bits.
+:meth:`InfluenceEngine.rebuild_mesh` re-homes the engine on a shrunk mesh
+after device loss (``engine.mesh_rebuilds``, the ``mesh.rebuild`` site and
+event). Options of the reference that the port does not run yet raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -92,7 +99,6 @@ import torch
 from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.data.index import InteractionIndex, bucketed_pad
-from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence import grads as G
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence import kernels as K
@@ -102,6 +108,7 @@ from fia_tpu_torch.influence.kernels import certificate as Kcert
 from fia_tpu_torch.influence.kernels import common as Kc
 from fia_tpu_torch.influence.kernels import eigmin as Keig
 from fia_tpu_torch.influence.kernels import segment as Kseg
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, policy, sites, taxonomy
 from fia_tpu_torch.utils import compilemon, memlimits
 
@@ -273,19 +280,60 @@ def _in_pieces(fn, *xs):
 
 
 def _to_host(outs) -> list[np.ndarray]:
-    """Float32 device tensors as host arrays, in one transfer (one host
-    wait, where a fetch each would wait once a tensor)."""
-    flat = torch.cat([o.reshape(-1) for o in outs]).cpu().numpy()
-    parts, at = [], 0
-    for o in outs:
-        parts.append(flat[at: at + o.numel()].reshape(tuple(o.shape)))
-        at += o.numel()
+    """Float32 device tensors as host arrays, in one transfer a device
+    (one host wait each, where a fetch each would wait once a tensor)."""
+    by_dev: dict = {}
+    for j, o in enumerate(outs):
+        by_dev.setdefault(o.device, []).append(j)
+    parts: list = [None] * len(outs)
+    for idx in by_dev.values():
+        flat = torch.cat([outs[j].reshape(-1) for j in idx]).cpu().numpy()
+        at = 0
+        for j in idx:
+            n = outs[j].numel()
+            parts[j] = flat[at: at + n].reshape(tuple(outs[j].shape))
+            at += n
     return parts
 
 
+def _home_state(j: int, doc: str) -> property:
+    """Entry ``j`` of ``(params, train_x, train_y, postings)`` on the
+    engine's own device, read from its ``_replicas``. A write replaces
+    the engine's own entry in a dict of its own, so the delegates that
+    shared the old one keep it."""
+
+    def get(self):
+        return self._replicas[self.device][j]
+
+    def put(self, value) -> None:
+        state = list(self._replicas[self.device])
+        state[j] = value
+        self._replicas = {**self._replicas, self.device: tuple(state)}
+
+    return property(get, put, doc=doc)
+
+
+def _fetch_shards(outs) -> list[list[np.ndarray]]:
+    """Each shard's output tensors as host arrays, in shard order, in one
+    transfer a device (:func:`_to_host`)."""
+    n = len(outs[0])
+    host = _to_host([o for shard in outs for o in shard])
+    return [host[k * n:(k + 1) * n] for k in range(len(outs))]
+
+
+def _on(dev):
+    """``dev`` as the current CUDA device (a mesh shard's programs are
+    captured and replayed on its own device's current stream); nothing
+    on the CPU."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
 @contextlib.contextmanager
-def capturing(graph):
-    """``torch.cuda.graph(graph)`` with Python's cyclic collector paused.
+def capturing(graph, stream=None):
+    """``torch.cuda.graph(graph)`` (on ``stream``, where given) with
+    Python's cyclic collector paused.
     A collection in the middle of a capture can free a dead graph (one
     of a dropped engine's, held in a reference cycle), and destroying a
     graph while a stream captures invalidates the capture.
@@ -297,29 +345,38 @@ def capturing(graph):
     enabled = gc.isenabled()
     gc.disable()
     try:
-        with torch.cuda.graph(graph):
+        with (torch.cuda.graph(graph) if stream is None
+              else torch.cuda.graph(graph, stream=stream)):
             yield
     finally:
         if enabled:
             gc.enable()
 
 
-# The side stream of every capture's warm-up, one a device. cuBLAS keeps
-# a workspace (32 MiB on an H100) for each (handle, stream) it has run
-# on, for the life of the process: a fresh stream a capture left one
-# workspace behind each graph, alive or dead, so device memory grew with
-# every engine a streaming update replaced.
+# The side stream of every capture's warm-up, and the stream it captures
+# on, one each a device. cuBLAS keeps a workspace (32 MiB on an H100) for
+# each (handle, stream) it has run on, for the life of the process: a
+# fresh stream a capture left one workspace behind each graph, alive or
+# dead, so device memory grew with every engine a streaming update
+# replaced. The capture stream is the device's own: torch.cuda.graph's
+# default is one stream of the process, on the device current when it was
+# made, which cannot capture a mesh shard's program on another device.
 _WARMUP_STREAMS: dict[int, "torch.cuda.Stream"] = {}
+_CAPTURE_STREAMS: dict[int, "torch.cuda.Stream"] = {}
 
 
-def _warmup_stream(device) -> "torch.cuda.Stream":
+def _device_stream(streams: dict, device) -> "torch.cuda.Stream":
     index = torch.device(device).index
     if index is None:
         index = torch.cuda.current_device()
-    stream = _WARMUP_STREAMS.get(index)
+    stream = streams.get(index)
     if stream is None:
-        stream = _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
+        stream = streams[index] = torch.cuda.Stream(index)
     return stream
+
+
+def _warmup_stream(device) -> "torch.cuda.Stream":
+    return _device_stream(_WARMUP_STREAMS, device)
 
 
 class _FlatGraph:
@@ -357,7 +414,7 @@ class _FlatGraph:
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with capturing(graph):
+            with capturing(graph, _device_stream(_CAPTURE_STREAMS, device)):
                 out = fn(*args, *self.inputs)
         except Exception as e:
             # the partial graph and its private pool go now, not when
@@ -430,6 +487,13 @@ class InfluenceEngine:
         chunk, the reference's ``body_onehot``). Only ``auto`` on the
         card is the same bits under any batch split; on the CPU
         ``auto`` and ``scan`` are.
+      mesh: a :class:`fia_tpu_torch.parallel.mesh.Mesh` with a ``data``
+        axis, or ``None``. Query batches are split into contiguous query
+        shards, each run by the single-device program on its slot's
+        device (the flat program at one ``(t_loc, s_loc)`` geometry per
+        dispatch: the same bits as the single-device engine at every mesh
+        size); the state is replicated once per physical device. The
+        engine's own device is the mesh's first slot's.
       cache_dir: where the factor bank's default path hangs
         (``<cache_dir>/factor/<model_name>-bank.npz``) and where
         :meth:`get_influence_on_test_loss` caches iHVPs as npz files keyed
@@ -497,13 +561,15 @@ class InfluenceEngine:
                 f"{type(model).__name__} defines no closed-form block_hessian"
             )
         for unported, item in (
-            (mesh is not None, "mesh: ROADMAP Queue A.13"),
-            (shard_tables, "shard_tables: ROADMAP Queue A.13"),
+            (shard_tables, "shard_tables: ROADMAP Queue A.13b"),
             (row_features == "on", "row_features='on': ROADMAP Queue A.6b"),
         ):
             if unported:
                 raise NotImplementedError(f"not ported yet — {item}")
-        self.device = resolve_device(device)
+        if mesh is not None and "data" not in mesh.axis_names:
+            raise ValueError("a mesh needs a 'data' axis")
+        self.mesh = mesh
+        self.device = pmesh.mesh_device(mesh, device)
         self.model = model
         self.kernel = kernel
         self._kernel_variant = K.resolve_variant(kernel, model, self.device)
@@ -561,16 +627,61 @@ class InfluenceEngine:
         """(Re)build every device-resident tensor from the host copies:
         the params, the train tensors and the CSR postings (related sets
         are gathered on the device, so a dispatch uploads only its query
-        block). Called at construction, and again by
-        :meth:`_reset_device_state` after a device failure."""
+        block), one replica on each physical device the engine's shards
+        run on (slots that share a device share one replica). The engine
+        adopts them only once every replica is placed, so a failed upload
+        leaves the previous placement whole. Called at construction, and
+        again by :meth:`_reset_device_state` after a device failure and
+        by :meth:`rebuild_mesh`."""
         inject.fire(sites.ENGINE_UPLOAD)
-        self.params = {k: torch.as_tensor(v).to(self.device)
-                       for k, v in self._params_host.items()}
-        self.train_x = torch.as_tensor(self._train_host[0]).to(self.device)
-        self.train_y = torch.as_tensor(self._train_host[1]).to(self.device)
-        self._postings = tuple(
-            torch.as_tensor(a).to(self.device) for a in self.index.postings()
-        )
+        postings = self.index.postings()
+        self._adopt_state({
+            dev: ({k: torch.as_tensor(v).to(dev)
+                   for k, v in self._params_host.items()},
+                  torch.as_tensor(self._train_host[0]).to(dev),
+                  torch.as_tensor(self._train_host[1]).to(dev),
+                  tuple(torch.as_tensor(a).to(dev) for a in postings))
+            for dev in self._devices()})
+
+    def _adopt_state(self, replicas: dict) -> None:
+        """Point the engine at ``replicas``, the device state
+        ``(params, train_x, train_y, postings)`` by physical device."""
+        self._replicas = replicas
+
+    params = _home_state(0, "The params on the engine's own device.")
+    train_x = _home_state(1, "The train pairs on the engine's own device.")
+    train_y = _home_state(2, "The train ratings on the engine's own device.")
+    _postings = _home_state(3, "The CSR postings on the engine's own device.")
+
+    def _devices(self) -> list:
+        """The physical devices the engine's state lives on, its own
+        device first: one replica each."""
+        if self.mesh is None:
+            return [self.device]
+        return pmesh.physical_devices(self.mesh)
+
+    def _shard_devices(self) -> list:
+        """The device of each query shard, in shard order: the mesh's
+        ``data`` slots', or the engine's own (one shard) without a
+        mesh."""
+        if self.mesh is None:
+            return [self.device]
+        return [slot.device for slot in pmesh.data_slots(self.mesh)]
+
+    def _state_on(self, dev=None) -> tuple:
+        """``(params, train_x, train_y, postings)`` on ``dev`` (None: the
+        engine's own device)."""
+        return self._replicas[self.device if dev is None else dev]
+
+    def _bank_on(self, dev=None) -> tuple:
+        """The device bank ``(factor, kind)`` on ``dev``."""
+        return self._bank_replicas[self.device if dev is None else dev]
+
+    @property
+    def _bank_device(self):
+        """The device bank ``(factor, kind)`` on the engine's own device,
+        or None with no bank loaded."""
+        return self._bank_replicas.get(self.device)
 
     def _reset_device_state(self, max_wait_s: float = 120.0) -> None:
         """Recover the device state after a classified device failure
@@ -592,7 +703,13 @@ class InfluenceEngine:
         """
         obs.REGISTRY.counter("engine.device_resets").inc()
         obs.event("engine.reset")
-        engines = self._delegates_deep()
+        self._rehome(self._delegates_deep(), max_wait_s)
+
+    def _rehome(self, engines: list, max_wait_s: float) -> None:
+        """Drop the programs of this engine and of ``engines`` (its
+        delegates), upload the device state again under the retry
+        policy, place the bank, and re-point every delegate at the new
+        tensors."""
         for eng in (self, *engines):
             eng._programs.clear()
             eng._aot.clear()
@@ -605,10 +722,52 @@ class InfluenceEngine:
                 deadline=policy.Deadline(max_wait_s))
         self._place_bank()
         for eng in engines:
-            eng.params = dict(self.params)
-            eng.train_x, eng.train_y = self.train_x, self.train_y
-            eng._postings = self._postings
+            eng._adopt_state(self._replicas)
             eng._place_bank()
+
+    def rebuild_mesh(self, mesh, max_wait_s: float = 120.0) -> None:
+        """Re-home the engine on a different (usually shrunken) mesh.
+
+        The ``device_lost`` recovery move: unlike a worker death
+        (:meth:`_reset_device_state`, same topology), the dead device is
+        not coming back — the service hands over the surviving mesh
+        (:func:`fia_tpu_torch.parallel.mesh.surviving_mesh`) and every
+        device-resident tensor is placed again on it from the host
+        copies, of this engine and of its delegates. Every built program
+        is dropped (geometry keys embed the mesh fingerprint,
+        :meth:`_aot_key`), so the caller re-arms the planned geometries
+        with :meth:`precompile_flat` and steady state stays free of
+        captures on the new topology. Results are unchanged by
+        construction: ``_mesh_plan`` gives each shard the single-device
+        program, so scores are the same bits at every mesh size
+        (docs/design.md §15).
+
+        ``mesh=None`` re-homes onto the engine's single device, the last
+        rung before giving up."""
+        inject.fire(sites.MESH_REBUILD)
+        nhosts = 0 if mesh is None else len(pmesh.mesh_hosts(mesh))
+        if nhosts > 1:
+            inject.fire(sites.MESH_REBUILD_MULTIHOST)
+        obs.REGISTRY.counter("engine.mesh_rebuilds").inc()
+        obs.event("mesh.rebuild",
+                  ndev=1 if mesh is None else int(mesh.devices.size),
+                  nhosts=nhosts)
+        engines = self._delegates_deep()
+        home = self.device if mesh is None else pmesh.mesh_device(mesh)
+        before = [(eng, eng.mesh, eng.device, eng._replicas,
+                   eng._bank_replicas) for eng in (self, *engines)]
+        for eng in (self, *engines):
+            eng.mesh, eng.device = mesh, home
+        try:
+            self._rehome(engines, max_wait_s)
+        except BaseException:
+            # the previous placement stays whole (its tensors are still
+            # held here): a failed re-home costs the dropped programs only
+            for eng, old_mesh, old_device, replicas, banks in before:
+                eng.mesh, eng.device = old_mesh, old_device
+                eng._adopt_state(replicas)
+                eng._bank_replicas = banks
+            raise
 
     def _delegates(self) -> list:
         """The engines this one hands queries to (the bank's miss
@@ -643,7 +802,8 @@ class InfluenceEngine:
         # to a config-identical delegate at the next rung
         self._bank = None
         self._bank_lookup: dict | None = None
-        self._bank_device = None  # (factor (N, d, d), kind (N,)) on device
+        # (factor (N, d, d), kind (N,)) by physical device
+        self._bank_replicas: dict = {}
         self._bank_load_attempted = False
         self._bank_dropped_stale = 0
         self._bank_hits = 0
@@ -864,7 +1024,9 @@ class InfluenceEngine:
         return fn
 
     def _query_pad(self, T: int) -> int:
-        """Query-axis pad of a flat dispatch (see ``query_bucket``)."""
+        """Query-axis pad of a flat dispatch (see ``query_bucket``).
+        Under a mesh this is the PER-SHARD pad: ``_mesh_plan`` calls it
+        on the shard's query count."""
         if self.query_bucket <= 0:
             return T
         return bucketed_pad(T, self.query_bucket)
@@ -872,37 +1034,139 @@ class InfluenceEngine:
     def _s_pad_for(self, total: int) -> int:
         """Flat-axis pad for ``total`` related rows: geometric bucketing
         (~12.5% granule) above a 2048 floor, so S stays a multiple of
-        every power-of-two chunk up to 2048."""
+        every power-of-two chunk up to 2048. Under a mesh this buckets
+        each shard's own row total (``_mesh_plan`` takes the max)."""
         return bucketed_pad(total, 2048)
+
+    def _mesh_plan(self, counts: np.ndarray, T: int):
+        """Query-axis shard plan of one flat dispatch.
+
+        The batch splits into ``ndev`` contiguous shards of ``q`` real
+        queries (the last possibly ragged or empty; one shard of the
+        whole batch without a mesh); every shard pads its query axis to a
+        common ``t_loc`` and its flat row axis to a common ``s_loc`` —
+        the max over shards of the single-device bucketing — so each
+        shard runs exactly the single-device program at one geometry.
+        Returns ``(ndev, q, t_loc, s_loc)``."""
+        ndev = len(self._shard_devices())
+        q = -(-max(int(T), 1) // ndev)
+        t_loc = self._query_pad(q)
+        counts = np.asarray(counts, np.int64)
+        s_loc = 1
+        for k in range(ndev):
+            tot = int(counts[k * q: (k + 1) * q].sum())
+            s_loc = max(s_loc, self._s_pad_for(max(tot, 1)))
+        return ndev, q, t_loc, s_loc
+
+    @staticmethod
+    def _shard_blocks(tx_np: np.ndarray, ndev: int, q: int,
+                      rows: int) -> list[np.ndarray]:
+        """Each shard's int32 query block: shard k takes rows
+        ``[k q, (k+1) q)`` of ``tx_np`` (the (T, 2) pairs, or (T, 3) with
+        the bank rows), a short or empty shard duplicating its trailing
+        row (the batch's last when the shard lies past the ragged end) up
+        to ``rows``: the single-device query padding, so pad rows' flat
+        positions land past each shard's real total."""
+        blocks = []
+        for k in range(ndev):
+            block = tx_np[k * q: (k + 1) * q]
+            if block.shape[0] == 0:
+                block = tx_np[-1:]
+            if block.shape[0] < rows:
+                block = np.concatenate(
+                    [block, np.repeat(block[-1:], rows - block.shape[0],
+                                      axis=0)])
+            blocks.append(np.ascontiguousarray(block, np.int32))
+        return blocks
+
+    def _mesh_blocks(self, tx_np: np.ndarray, counts):
+        """``(plan, blocks)``: :meth:`_mesh_plan` and each shard's query
+        block (:meth:`_shard_blocks`), padded to ``t_loc`` rows."""
+        plan = self._mesh_plan(counts, tx_np.shape[0])
+        ndev, q, t_loc, _ = plan
+        return plan, self._shard_blocks(tx_np, ndev, q, t_loc)
+
+    def _run_shards(self, blocks, t_loc: int, s_loc: int,
+                    mode: str = "direct") -> list:
+        """Enqueue every shard's program on its slot's device, each at
+        ``(t_loc, s_loc)``; returns each shard's outputs in shard order.
+        No host wait: every shard is queued before any result is
+        fetched, so shards on real devices overlap. A direct dispatch
+        counts one AOT hit or miss, whatever its shard count."""
+        if mode == "direct":
+            obs.REGISTRY.counter(
+                "engine.aot_hits" if self._aot_key(t_loc, s_loc) in self._aot
+                else "engine.aot_misses").inc()
+        outs = []
+        for dev, block in zip(self._shard_devices(), blocks):
+            with _on(dev):
+                tx = self._upload(block, dev)
+                outs.append(self._flat_exec(t_loc, s_loc, mode, dev)(tx))
+        return outs
+
+    @staticmethod
+    def _stitch(shards: list, counts, q: int, flat: int) -> list:
+        """The host-side inverse of :meth:`_shard_blocks`: ``shards``
+        holds each shard's fetched outputs (:func:`_fetch_shards`), the
+        first ``flat`` of them over the flat row axis and the rest over
+        the query axis. Each shard's real prefix (its own row total, its
+        own query count) is cut out and concatenated back into query
+        order; an empty trailing shard (duplicate work) is skipped."""
+        counts = np.asarray(counts, np.int64)
+        T = counts.shape[0]
+        cum = np.concatenate([[0], np.cumsum(counts)])
+        parts: list = [[] for _ in shards[0]]
+        for k, got in enumerate(shards):
+            lo, hi = min(k * q, T), min((k + 1) * q, T)
+            if k and hi == lo:
+                continue
+            for j, a in enumerate(got):
+                parts[j].append(a[: int(cum[hi] - cum[lo]) if j < flat
+                                  else hi - lo])
+        return [p[0] if len(p) == 1 else np.concatenate(p) for p in parts]
 
     def flat_geometry(self, test_points: np.ndarray) -> tuple[int, int]:
         """``(t_pad, s_pad)`` of the flat dispatch these points would
         issue: what :meth:`precompile_flat` must arm so that the dispatch
-        itself captures nothing."""
+        itself captures nothing. Under a mesh both are per shard."""
         test_points = np.asarray(test_points)
         if test_points.ndim == 1:
             test_points = test_points[None, :]
         counts = self.index.counts_batch(test_points)
-        return (self._query_pad(int(test_points.shape[0])),
-                self._s_pad_for(int(counts.sum())))
+        _, _, t_loc, s_loc = self._mesh_plan(counts, int(test_points.shape[0]))
+        return (t_loc, s_loc)
 
-    def _flat_key(self, t_pad: int, s_pad: int, mode: str = "direct"):
+    def _mesh_fp(self):
+        return pmesh.mesh_fingerprint(self.mesh)
+
+    def _aot_key(self, t_pad: int, s_pad: int):
+        """The identity of an armed geometry: the geometry, the
+        score-kernel variant, the Hessian form, and the mesh fingerprint
+        LAST (``compiled_geometries`` reads the geometry as ``(k[1],
+        k[2])``)."""
+        return ("flat", t_pad, s_pad, self._kernel_variant, self.flat_accum,
+                self._mesh_fp())
+
+    def _flat_key(self, t_pad: int, s_pad: int, mode: str = "direct",
+                  dev=None):
         """A flat program's cache key: its mode and geometry, the
-        score-kernel variant, the Hessian form, and the addresses of the
-        tensors it reads (a captured graph reads them by address; a bank
-        program its factors too)."""
-        tensors = (*self.params.values(), self.train_x, self.train_y,
-                   *self._postings)
+        score-kernel variant, the Hessian form, the addresses of the
+        tensors it reads on ``dev`` (a captured graph reads them by
+        address; a bank program its factors too), and the mesh
+        fingerprint. Slots that share a device share its programs."""
+        params, train_x, train_y, postings = self._state_on(dev)
+        tensors = (*params.values(), train_x, train_y, *postings)
         if mode == "bank":
-            tensors += self._bank_device
+            tensors += self._bank_on(dev)
         return ("flat" if mode == "direct" else mode, t_pad, s_pad,
                 self._kernel_variant, self.flat_accum,
-                tuple(x.data_ptr() for x in tensors))
+                tuple(x.data_ptr() for x in tensors), self._mesh_fp())
 
     def precompile_flat(self, geometries) -> dict:
         """Build the flat programs of ``(t_pad, s_pad)`` geometries ahead
-        of any dispatch (on the card, capture each as a CUDA graph), so a
-        warmed engine never builds on the hot path. Geometries come from
+        of any dispatch (on the card, capture each as a CUDA graph; under
+        a mesh, once on each physical device), so a warmed engine never
+        builds on the hot path. Geometries come from
         :meth:`flat_geometry` over the planned batches or an explicit
         list. No-op when the flat path is ineligible. Returns
         ``{"compiled": [[t, s], ...], "cached": [...], "seconds": float}``.
@@ -916,13 +1180,16 @@ class InfluenceEngine:
         with obs.span("engine.precompile") as sp:
             for t_pad, s_pad in geometries:
                 t_pad, s_pad = int(t_pad), int(s_pad)
-                key = self._flat_key(t_pad, s_pad)
-                if key in self._programs:
-                    cached.append([t_pad, s_pad])
-                else:
-                    self._programs[key] = self._build_flat(t_pad, s_pad)
-                    compiled.append([t_pad, s_pad])
-                self._aot.add(key)
+                built = False
+                for dev in self._devices():
+                    key = self._flat_key(t_pad, s_pad, dev=dev)
+                    if key not in self._programs:
+                        with _on(dev):
+                            self._programs[key] = self._build_flat(
+                                t_pad, s_pad, dev=dev)
+                        built = True
+                (compiled if built else cached).append([t_pad, s_pad])
+                self._aot.add(self._aot_key(t_pad, s_pad))
             sp.set(compiled=len(compiled), cached=len(cached))
         return {"compiled": compiled, "cached": cached,
                 "seconds": time.perf_counter() - t0}
@@ -931,26 +1198,29 @@ class InfluenceEngine:
         """The built flat programs: ``"aot"``, the ``[t_pad, s_pad]``
         pairs :meth:`precompile_flat` armed, and ``"jit"``, the keys of
         those built on their first dispatch."""
+        armed = {(k[1], k[2]) for k in self._aot}
         return {
             "aot": sorted([k[1], k[2]] for k in self._aot),
             "jit": sorted(str(k) for k in self._programs
-                          if k not in self._aot),
+                          if k[0] != "flat" or (k[1], k[2]) not in armed),
         }
 
-    def _build_flat(self, t_pad: int, s_pad: int, mode: str = "direct"):
-        """One geometry's program: ``run(tx) -> (scores, ihvp, v)``
-        (``mode`` "direct" or "bank"), ``run(tx, ws, m) -> (scores,
-        ihvp, v, err_bound)`` ("sampled"). On the card a captured CUDA
-        graph (raising with the cause if the program cannot be
-        captured), on the CPU the program closure. Each build is counted
-        by :mod:`fia_tpu_torch.utils.compilemon`, with its capture
-        time."""
+    def _build_flat(self, t_pad: int, s_pad: int, mode: str = "direct",
+                    dev=None):
+        """One geometry's program on ``dev`` (None: the engine's device):
+        ``run(tx) -> (scores, ihvp, v)`` (``mode`` "direct" or "bank"),
+        ``run(tx, ws, m) -> (scores, ihvp, v, err_bound)`` ("sampled").
+        On the card a captured CUDA graph (raising with the cause if the
+        program cannot be captured), on the CPU the program closure. Each
+        build is counted by :mod:`fia_tpu_torch.utils.compilemon`, with
+        its capture time."""
+        dev = self.device if dev is None else dev
         fn = self._flat_fn(s_pad, mode=mode)
-        args = (self.params, self.train_x, self.train_y, self._postings)
+        args = self._state_on(dev)
         inputs = [((t_pad, 2), torch.int32)]
         if mode == "bank":
             inner = fn
-            args += self._bank_device
+            args += self._bank_on(dev)
             inputs = [((t_pad, 3), torch.int32)]
 
             def fn(params, train_x, train_y, postings, bfac, bknd, tx):
@@ -958,11 +1228,11 @@ class InfluenceEngine:
                              bknd)
         elif mode == "sampled":
             inputs += [((s_pad,), torch.float32), ((t_pad,), torch.int32)]
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             compilemon.record()
             return lambda *xs: fn(*args, *xs)
         try:
-            prog = _FlatGraph(fn, args, inputs, self.device)
+            prog = _FlatGraph(fn, args, inputs, dev)
         except Exception as e:
             raise RuntimeError(
                 f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
@@ -970,18 +1240,17 @@ class InfluenceEngine:
         compilemon.record(prog.capture_s)
         return prog
 
-    def _flat_exec(self, t_pad: int, s_pad: int, mode: str = "direct"):
-        """The program for one dispatch geometry: the one
+    def _flat_exec(self, t_pad: int, s_pad: int, mode: str = "direct",
+                   dev=None):
+        """The program for one dispatch geometry on ``dev``: the one
         :meth:`precompile_flat` or an earlier dispatch built, else built
         now (captured on its first dispatch, as ``jit`` compiles on its
         first call)."""
-        key = self._flat_key(t_pad, s_pad, mode)
-        if mode == "direct":
-            obs.REGISTRY.counter("engine.aot_hits" if key in self._aot
-                                 else "engine.aot_misses").inc()
+        key = self._flat_key(t_pad, s_pad, mode, dev)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = self._build_flat(t_pad, s_pad, mode)
+            prog = self._programs[key] = self._build_flat(t_pad, s_pad, mode,
+                                                          dev)
         return prog
 
     def _pad_queries(self, tx_np: np.ndarray) -> np.ndarray:
@@ -996,72 +1265,97 @@ class InfluenceEngine:
                 [tx_np, np.repeat(tx_np[-1:], t_pad - T, axis=0)])
         return tx_np
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """A host array on the engine's device. On the card a pageable
-        upload would wait for the card to drain its queue, and with it
-        for every batch query_many keeps in flight; a pinned one is
-        queued like a kernel."""
+    def _upload(self, a: np.ndarray, dev=None) -> torch.Tensor:
+        """A host array on ``dev`` (None: the engine's device). On the
+        card a pageable upload would wait for the card to drain its
+        queue, and with it for every batch query_many keeps in flight; a
+        pinned one is queued like a kernel."""
+        dev = self.device if dev is None else dev
         x = torch.as_tensor(a)
-        if self.device.type == "cuda":
-            return x.pin_memory().to(self.device, non_blocking=True)
+        if dev.type == "cuda":
+            return x.pin_memory().to(dev, non_blocking=True)
         return x
 
-    def _flat_inputs(self, test_points: np.ndarray, bank_rows=None):
-        """``(counts, tx, s_pad)`` of one flat dispatch: host-side
-        related counts, the (t_pad, 2) int32 query block on the device
-        (padded by duplicating the trailing pair; (t_pad, 3) with each
-        query's bank row for the bank program), and the flat pad (pad
-        rows past s_pad are truncated)."""
+    def _query_block(self, test_points: np.ndarray, bank_rows=None):
+        """``(counts, tx_np)``: host-side related counts and the (T, 2)
+        int64 query block ((T, 3) with each query's bank row for the
+        bank program)."""
         test_points = np.asarray(test_points)
         counts = self.index.counts_batch(test_points)
         tx_np = np.ascontiguousarray(np.asarray(test_points, np.int64))
         if bank_rows is not None:
             tx_np = np.concatenate(
                 [tx_np, np.asarray(bank_rows, np.int64)[:, None]], axis=1)
+        return counts, tx_np
+
+    def _flat_inputs(self, test_points: np.ndarray, bank_rows=None):
+        """``(counts, tx, s_pad)``: the operands of the flat program over
+        the whole batch on the engine's device, as one shard would take
+        them: host-side related counts, the query block
+        (:meth:`_query_block`) padded by duplicating the trailing pair to
+        ``t_pad`` rows as int32 on the device, and the flat pad (pad rows
+        past s_pad are truncated)."""
+        counts, tx_np = self._query_block(test_points, bank_rows)
         tx = self._upload(self._pad_queries(tx_np).astype(np.int32))
         return counts, tx, self._s_pad_for(int(counts.sum()))
 
+    def _enqueue_flat(self, test_points, mode: str = "direct",
+                      bank_rows=None):
+        """Enqueue one flat dispatch in ``mode`` ("direct" or "bank"):
+        ``(counts, outputs, plan)``. The batch is packed into query
+        shards (:meth:`_mesh_blocks`; one without a mesh), each run by the
+        single-device program on its slot's device; ``outputs`` holds
+        each shard's, ``plan`` is :meth:`_mesh_plan`'s."""
+        counts, tx_np = self._query_block(test_points, bank_rows)
+        plan, blocks = self._mesh_blocks(tx_np, counts)
+        return counts, self._run_shards(blocks, *plan[2:], mode), plan
+
     def _dispatch_flat(self, test_points: np.ndarray, pad_to: int | None):
         """Enqueue one flat query program; returns a handle for
-        :meth:`_finalize_flat`. Work is queued on the current stream and
-        the host moves on (the ``engine.dispatch_flat`` span times the
-        enqueue)."""
-        with obs.span("engine.dispatch_flat", n=int(len(test_points))):
+        :meth:`_finalize_flat`. Work is queued on the current stream of
+        each shard's device and the host moves on (the
+        ``engine.dispatch_flat`` span times the enqueue)."""
+        with obs.span("engine.dispatch_flat", n=int(len(test_points))) as sp:
             inject.fire(sites.ENGINE_DISPATCH_FLAT)
-            counts, tx, s_pad = self._flat_inputs(test_points)
+            counts, out, plan = self._enqueue_flat(test_points)
             pad = bucketed_pad(
                 counts.max() if counts.size else 1, self.pad_bucket, pad_to
             )
-            out = self._flat_exec(tx.shape[0], s_pad)(tx)
-            return (test_points, counts, out, pad)
+            if self.mesh is not None:
+                sp.set(ndev=plan[0], t_loc=plan[2])
+            return (test_points, counts, out, pad, plan[1])
 
     def _finalize_flat(self, handle) -> InfluenceResult:
-        test_points, counts, out, pad = handle
-        return self._assemble_packed(test_points, counts, out, pad)
+        test_points, counts, out, pad, q = handle
+        return self._assemble_packed(test_points, counts, out, pad, q=q)
 
-    def _assemble_packed(self, test_points, counts, out, pad: int,
-                         iterations: int | None = None) -> InfluenceResult:
-        """Fetch a dispatch's outputs ``(packed, ihvp, v)``, and the
-        sampled program's ``err_bound`` after them, to the host in one
-        transfer (:func:`_to_host`: the dispatch's one read) and wrap
-        them as a packed result. Query-axis pad rows slice away here;
-        their flat rows already sit past the real total in the packed
-        scores."""
-        packed, ihvp, v, *err = _to_host(out)
+    def _assemble_packed(self, test_points, counts, outs, pad: int,
+                         iterations: int | None = None,
+                         q: int | None = None) -> InfluenceResult:
+        """Fetch a dispatch's outputs ``(packed, ihvp, v)`` of each query
+        shard, and the sampled program's ``err_bound`` after them, to
+        the host in one transfer a device (:func:`_fetch_shards`: the
+        dispatch's one read), stitch the shards back into query order
+        (:meth:`_stitch`, ``q`` real queries a shard; None: one shard),
+        and wrap them as a packed result. Query-axis pad rows slice away
+        here; their flat rows already sit past each shard's real total in
+        its packed scores."""
         T = int(np.asarray(counts).shape[0])
         total = int(counts.sum())
+        packed, ihvp, v, *err = self._stitch(
+            _fetch_shards(outs), counts, max(T, 1) if q is None else q, 1)
         # the payload seam every rung shares (the fetched iHVP host buffer)
-        ihvp = inject.corrupt(sites.ENGINE_SOLVE, ihvp[:T])
+        ihvp = inject.corrupt(sites.ENGINE_SOLVE, ihvp)
         return InfluenceResult(
             counts=counts,
             ihvp=ihvp,
-            test_grad=v[:T],
+            test_grad=v,
             packed=packed[:total],
             test_points=np.asarray(test_points),
             index=self.index,
             pad=pad,
             iterations=iterations,
-            err_bound=err[0][:T] if err else None,
+            err_bound=err[0] if err else None,
             approx=bool(err),
         )
 
@@ -1114,6 +1408,8 @@ class InfluenceEngine:
         so the caller surfaces the failure."""
         if not self.cpu_fallback or self._is_cpu_fallback:
             return None
+        if self.mesh is not None:
+            return None  # as the reference: a mesh engine has no CPU rung
         obs.REGISTRY.counter("engine.cpu_fallback_batches").inc()
         obs.diag("reliability", "device-side recovery exhausted; "
                  "degrading to the CPU backend for this query")
@@ -1177,10 +1473,17 @@ class InfluenceEngine:
         return out[0] if len(out) == 1 else np.concatenate(out)
 
     def _block_hessians_flat(self, chunk: np.ndarray) -> np.ndarray:
-        counts, tx, s_pad = self._flat_inputs(chunk)
-        H = self._flat_fn(s_pad, "hessian")(
-            self.params, self.train_x, self.train_y, self._postings, tx)
-        return H[: len(chunk)].cpu().numpy()
+        """The flat program's Hessian stage over the dispatch's query
+        shards (one without a mesh): every shard queued on its slot's
+        device, then fetched and stitched."""
+        counts, tx_np = self._query_block(chunk)
+        (_, q, _, s_loc), blocks = self._mesh_blocks(tx_np, counts)
+        fn = self._flat_fn(s_loc, "hessian")
+        hs = []
+        for dev, block in zip(self._shard_devices(), blocks):
+            with _on(dev):
+                hs.append((fn(*self._state_on(dev), self._upload(block, dev)),))
+        return self._stitch(_fetch_shards(hs), counts, q, 0)[0]
 
     def _block_hessians_padded(self, chunk: np.ndarray) -> np.ndarray:
         idx, mask, _ = self.index.related_padded(chunk,
@@ -1230,7 +1533,7 @@ class InfluenceEngine:
         self._bank_load_attempted = True
         self._bank = None
         self._bank_lookup = None
-        self._bank_device = None
+        self._bank_replicas = {}
         if path is None:
             path = self.factor_bank_path()
         if path is None or not os.path.exists(path):
@@ -1257,14 +1560,16 @@ class InfluenceEngine:
         return len(bank)
 
     def _place_bank(self) -> None:
-        """The loaded bank's factors and kinds on the device."""
+        """The loaded bank's factors and kinds on every physical device
+        the engine's shards run on, so a bank hit on any query shard
+        reads its factors where it runs."""
         if self._bank is None:
-            self._bank_device = None
+            self._bank_replicas = {}
             return
-        self._bank_device = (
-            torch.as_tensor(self._bank.factor).to(self.device),
-            torch.as_tensor(self._bank.kind.astype(np.int32)).to(self.device),
-        )
+        factor = torch.as_tensor(self._bank.factor)
+        kind = torch.as_tensor(self._bank.kind.astype(np.int32))
+        self._bank_replicas = {dev: (factor.to(dev), kind.to(dev))
+                               for dev in self._devices()}
 
     def ensure_factor_bank(self) -> int:
         """Load the bank once, lazily; returns the servable entry count."""
@@ -1280,7 +1585,7 @@ class InfluenceEngine:
         miss delegate restarts its solver ladder."""
         self._bank = None
         self._bank_lookup = None
-        self._bank_device = None
+        self._bank_replicas = {}
         self._bank_load_attempted = False
         self._bank_hits = 0
         self._bank_misses = 0
@@ -1323,11 +1628,12 @@ class InfluenceEngine:
         re-route through the miss delegate."""
         try:
             inject.fire(sites.ENGINE_DISPATCH_FLAT)
-            counts, tx, s_pad = self._flat_inputs(points, bank_rows=rows)
+            counts, out, plan = self._enqueue_flat(points, "bank",
+                                                   bank_rows=rows)
             pad = bucketed_pad(counts.max() if counts.size else 1,
                                self.pad_bucket, pad_to)
-            out = self._flat_exec(tx.shape[0], s_pad, "bank")(tx)
-            return self._assemble_packed(points, counts, out, pad)
+            return self._assemble_packed(points, counts, out, pad,
+                                         q=plan[1])
         except Exception as e:
             if taxonomy.classify(e) is None:
                 raise
@@ -1458,9 +1764,7 @@ class InfluenceEngine:
         a query whose bound exceeds ``sampled_tol`` is recomputed one rung
         down and merged back in its place."""
         T = test_points.shape[0]
-        # the sampled program is the flat program with weighted Hessian
-        # sums: it needs the flat path's conditions
-        if not self._gn_hooks():
+        if not self._sampled_eligible():
             self._count_escalations("ineligible", T)
             return self._sampled_fallback().query_batch(test_points,
                                                         pad_to=pad_to)
@@ -1494,6 +1798,14 @@ class InfluenceEngine:
         sub = self._result_take(res, keep, test_points)
         return self._merge_stream(test_points, (keep, sub), (over, res_e),
                                   pad_to)
+
+    def _sampled_eligible(self) -> bool:
+        """The sampled program is the single-device flat program with
+        weighted Hessian sums: it needs the flat path's conditions, and
+        a mesh engine escalates one rung through the delegate (as the
+        reference: the rung serves cheap bounded answers, which a
+        mesh-size batch does not need)."""
+        return self.mesh is None and self._gn_hooks()
 
     def _sampled_inputs(self, test_points: np.ndarray):
         """``(counts, tx, ws, m, s_pad)`` of one sampled dispatch: the
@@ -1530,7 +1842,7 @@ class InfluenceEngine:
             counts, out = self._enqueue_sampled(test_points)
             pad = bucketed_pad(counts.max() if counts.size else 1,
                                self.pad_bucket, pad_to)
-            return self._assemble_packed(test_points, counts, out, pad)
+            return self._assemble_packed(test_points, counts, [out], pad)
 
     # -- padded per-query path -------------------------------------------
     def _solve_blocks(self, params, u, i, rel_x, rel_y, w, v):
@@ -1655,17 +1967,27 @@ class InfluenceEngine:
         if pad_to is None and self.pad_policy == "dataset":
             m = self.index.max_related_count()
         pad = bucketed_pad(m, self.pad_bucket, pad_to)
-        tx = torch.as_tensor(
-            np.asarray(test_points, np.int64).astype(np.int32)
-        ).to(self.device)
-        total = int(counts.sum())
-        s = bucketed_pad(total, 1024) if s_pad is None else int(s_pad)
-        *out, iterations = self._padded_fn(pad)(
-            self.params, self.train_x, self.train_y, self._postings, tx,
-            total, s,
-        )
-        return self._assemble_packed(test_points, counts, out, pad,
-                                     iterations)
+        # the flat dispatch's query shards (one without a mesh), each at
+        # the batch's pad on its slot's device, fetched and stitched
+        T = len(counts)
+        ndev, q = self._mesh_plan(counts, T)[:2]
+        blocks = self._shard_blocks(np.asarray(test_points, np.int64), ndev,
+                                    q, q)
+        fn = self._padded_fn(pad)
+        outs, its = [], []
+        for dev, block in zip(self._shard_devices(), blocks):
+            tot = int(self.index.counts_batch(block).sum())
+            s = (int(s_pad) if s_pad is not None and tot <= s_pad
+                 else bucketed_pad(tot, 1024))
+            with _on(dev):
+                *out, it = fn(*self._state_on(dev), self._upload(block, dev),
+                              tot, s)
+            outs.append(out)
+            its.append(it)
+        # iterations: the longest shard's loop count
+        iterations = None if its[0] is None else max(int(i) for i in its)
+        return self._assemble_packed(test_points, counts, outs, pad,
+                                     iterations, q=q)
 
     # -- the padded path's memory envelope -----------------------------------
     def _memlimits_seed(self) -> None:
@@ -1674,7 +1996,8 @@ class InfluenceEngine:
             return
         backend = ("cuda:" + torch.cuda.get_device_name(self.device)
                    if self.device.type == "cuda" else "torch-cpu")
-        self._memkey = memlimits.key(backend, 1, self.model_name,
+        ndev = 1 if self.mesh is None else int(self.mesh.devices.size)
+        self._memkey = memlimits.key(backend, ndev, self.model_name,
                                      int(self.model.block_size))
         ok, bad = memlimits.load(self._memkey)
         self._cells_ok = max(self._cells_ok, ok)

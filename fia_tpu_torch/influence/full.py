@@ -28,9 +28,10 @@ import torch
 
 from fia_tpu_torch import obs
 from fia_tpu_torch.data.dataset import RatingDataset
-from fia_tpu_torch.device import resolve_device
 from fia_tpu_torch.influence import solvers
+from fia_tpu_torch.influence.engine import _on
 from fia_tpu_torch.influence.hvp import ravel_params
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites
 from fia_tpu_torch.reliability import policy as rpolicy
 
@@ -50,7 +51,15 @@ class FullInfluenceEngine:
       lissa_samples: averaged recursions (> 1 only with lissa_batch).
       hvp_batch: rows a chunk of the HVP and the scoring jvp (0: one
         full-batch program).
-      mesh: not ported (ROADMAP Queue A.13).
+      mesh: a :class:`fia_tpu_torch.parallel.mesh.Mesh` with a ``data``
+        axis: the train rows are sharded along it (contiguous, equal
+        shards; ``n % ndata`` trailing rows are dropped, as the
+        reference does, so the influence is over the kept rows), each
+        slot takes its shard's partial HVP and scores on its device, and
+        the partial HVPs are summed in slot order on the first slot's
+        device (no collective, no atomics). ``hvp_batch`` then rounds up
+        to a multiple of ``ndata``, each slot's chunk being
+        ``hvp_batch / ndata`` of its rows.
       residual_guard: a solve whose relative residual exceeds this (or is
         non-finite) escalates ``lissa → cg``; ``None`` screens NaNs only.
       device: ``None`` (the CUDA device; raises without one), ``"cuda"``
@@ -83,11 +92,9 @@ class FullInfluenceEngine:
                 f"unknown solver {solver!r} for the full-parameter engine "
                 f"(supported: {rpolicy.FULL_SOLVERS}); route requests "
                 "through policy.resolve_solver")
-        if mesh is not None:
-            raise NotImplementedError("not ported yet — mesh: ROADMAP "
-                                      "Queue A.13")
         self.model = model
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = pmesh.mesh_device(mesh, device)
         self.damping = float(damping)
         self.solver = solver
         self.cg_maxiter = int(cg_maxiter)
@@ -102,30 +109,51 @@ class FullInfluenceEngine:
                        .to(self.device) for k, v in params.items()}
         self._flat0, self._unravel = ravel_params(self.params)
         self.num_params = int(self._flat0.shape[0])
-        self.train_x = torch.as_tensor(np.asarray(train.x)).to(self.device)
-        self.train_y = torch.as_tensor(np.asarray(train.y)).to(self.device)
+        x, y = np.asarray(train.x), np.asarray(train.y)
+        ndata = 1 if mesh is None else int(mesh.shape["data"])
+        keep = len(x) - len(x) % ndata  # equal shards: drop the remainder
+        self.train_x = torch.as_tensor(x[:keep]).to(self.device)
+        self.train_y = torch.as_tensor(y[:keep]).to(self.device)
         self.num_train = int(self.train_x.shape[0])
         self.hvp_batch = int(hvp_batch)
         if self.hvp_batch > 0:
             # a chunk larger than the train set would only add dead rows
-            self.hvp_batch = max(1, min(self.hvp_batch, self.num_train))
+            b = max(1, min(self.hvp_batch, self.num_train))
+            self.hvp_batch = -(-b // ndata) * ndata
+        # the row shards, each (x, y, flat0) on its data slot's device (a
+        # contiguous view of the rows where the slot shares the engine's
+        # device); without a mesh, one shard of every row
+        self._shards = [(self.train_x, self.train_y, self._flat0)]
+        if mesh is not None:
+            m = self.num_train // ndata
+            flat0 = {dev: self._flat0.to(dev)
+                     for dev in pmesh.physical_devices(mesh)}
+            self._shards = [
+                (self.train_x[k * m:(k + 1) * m].to(s.device),
+                 self.train_y[k * m:(k + 1) * m].to(s.device),
+                 flat0[s.device])
+                for k, s in enumerate(pmesh.data_slots(mesh))]
         #: CG's loop count of the last solve (None after LiSSA)
         self.last_iterations: int | None = None
         self._warm: set = set()
 
     # -- core pieces -------------------------------------------------------
-    def _chunks(self):
-        """``(x, y, w)`` row chunks of ``hvp_batch`` rows; the ragged tail
+    @staticmethod
+    def _chunks(x, y, b: int):
+        """``(x, y, w)`` row chunks of ``b`` rows; the ragged tail
         re-reads row 0 at weight 0."""
-        n, b = self.num_train, self.hvp_batch
+        n = x.shape[0]
         for c0 in range(0, n, b):
-            gidx = c0 + torch.arange(b, device=self.device)
+            gidx = c0 + torch.arange(b, device=x.device)
             idx = torch.where(gidx < n, gidx, 0)
-            yield (self.train_x[idx], self.train_y[idx],
-                   (gidx < n).to(torch.float32))
+            yield x[idx], y[idx], (gidx < n).to(torch.float32)
 
-    def _jvp_of_grad(self, f, v):
-        return torch.func.jvp(torch.func.grad(f), (self._flat0,), (v,))[1]
+    def _chunked(self) -> bool:
+        return 0 < self.hvp_batch < self.num_train
+
+    def _jvp_of_grad(self, f, v, flat0=None):
+        flat0 = self._flat0 if flat0 is None else flat0
+        return torch.func.jvp(torch.func.grad(f), (flat0,), (v,))[1]
 
     def _total(self, f):
         return self.model.loss(self._unravel(f), self.train_x, self.train_y)
@@ -134,7 +162,7 @@ class FullInfluenceEngine:
         """:meth:`_hvp` with the full-batch jvp traced once
         (``torch.func.linearize``), for LiSSA's thousands of steps; the
         chunked HVP stays eager."""
-        if self.hvp_batch > 0 and self.hvp_batch < self.num_train:
+        if self._chunked() or self.mesh is not None:
             return self._hvp
         _, jvp_fn = torch.func.linearize(torch.func.grad(self._total),
                                          self._flat0)
@@ -144,15 +172,46 @@ class FullInfluenceEngine:
         """H v + damping v of the total training loss (mean squared error
         + L2) over all rows, for a flat (D,) direction."""
         model, unravel = self.model, self._unravel
-        if self.hvp_batch <= 0 or self.hvp_batch >= self.num_train:
+        if self.mesh is None and not self._chunked():
             return self._jvp_of_grad(self._total, v) + self.damping * v
-        err_hv = torch.zeros_like(v)
-        for x, y, w in self._chunks():
-            err_hv = err_hv + self._jvp_of_grad(
-                lambda f: torch.sum(model.indiv_loss(unravel(f), x, y) * w),
-                v)
+        err_hv = self._shard_hvp(v)
         reg_hv = self._jvp_of_grad(lambda f: model.reg_loss(unravel(f)), v)
         return err_hv / self.num_train + reg_hv + self.damping * v
+
+    def _shard_b(self) -> int | None:
+        """Rows a chunk of one shard (``hvp_batch / ndata``), or None
+        when unchunked."""
+        if not self._chunked():
+            return None
+        return self.hvp_batch // len(self._shards)
+
+    def _shard_hvp(self, v: torch.Tensor) -> torch.Tensor:
+        """Σ_j ∇²L_j v over the row shards: each shard's partial on its
+        device (its rows in chunks of ``hvp_batch / ndata`` when
+        chunked), every shard queued before any partial is read back, the
+        partials summed in shard order on the engine's device."""
+        model, unravel = self.model, self._unravel
+        b = self._shard_b()
+        parts = []
+        for x, y, flat0 in self._shards:
+            vd = v.to(flat0.device)
+            with _on(flat0.device):
+                if b is None:
+                    part = self._jvp_of_grad(
+                        lambda f: torch.sum(model.indiv_loss(unravel(f), x,
+                                                             y)), vd, flat0)
+                else:
+                    part = torch.zeros_like(vd)
+                    for cx, cy, w in self._chunks(x, y, b):
+                        part = part + self._jvp_of_grad(
+                            lambda f: torch.sum(
+                                model.indiv_loss(unravel(f), cx, cy) * w),
+                            vd, flat0)
+            parts.append(part)
+        total = parts[0].to(self.device)
+        for part in parts[1:]:
+            total = total + part.to(self.device)
+        return total
 
     def _lissa_sample_hvp(self, generator: torch.Generator):
         """The j-th LiSSA step's HVP on a fresh minibatch of
@@ -245,18 +304,31 @@ class FullInfluenceEngine:
         model, unravel, n = self.model, self._unravel, self.num_train
         reg_dot = torch.func.jvp(lambda f: model.reg_loss(unravel(f)),
                                  (self._flat0,), (u,))[1]
-        if self.hvp_batch <= 0 or self.hvp_batch >= n:
-            dots = torch.func.jvp(
-                lambda f: model.indiv_loss(unravel(f), self.train_x,
-                                           self.train_y),
-                (self._flat0,), (u,))[1]
-        else:
-            dots = torch.cat([
-                torch.func.jvp(lambda f: model.indiv_loss(unravel(f), x, y),
-                               (self._flat0,), (u,))[1]
-                for x, y, _ in self._chunks()
-            ])[:n]  # the ragged tail's re-reads of row 0 drop here
-        return (dots + reg_dot) / n
+        return (self._shard_dots(u) + reg_dot) / n
+
+    def _shard_dots(self, u: torch.Tensor) -> torch.Tensor:
+        """∇L_j · u of every kept row, each shard's on its device (in
+        chunks when chunked; the ragged tail's re-reads of row 0 drop),
+        concatenated in shard order on the engine's device."""
+        model, unravel = self.model, self._unravel
+        b = self._shard_b()
+        out = []
+        for x, y, flat0 in self._shards:
+            ud = u.to(flat0.device)
+            with _on(flat0.device):
+                if b is None:
+                    d = torch.func.jvp(
+                        lambda f: model.indiv_loss(unravel(f), x, y),
+                        (flat0,), (ud,))[1]
+                else:
+                    d = torch.cat([
+                        torch.func.jvp(
+                            lambda f: model.indiv_loss(unravel(f), cx, cy),
+                            (flat0,), (ud,))[1]
+                        for cx, cy, _ in self._chunks(x, y, b)
+                    ])[: x.shape[0]]
+            out.append(d)
+        return torch.cat([d.to(self.device) for d in out])
 
     # -- public API --------------------------------------------------------
     def get_influence_on_test_loss(self, test_x, test_y, seed: int = 0

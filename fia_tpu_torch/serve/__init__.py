@@ -22,9 +22,9 @@ Layers (each its own module, composable without the service):
 - :mod:`fia_tpu_torch.serve.service`   — :class:`InfluenceService`, the
   event loop tying the above to an :class:`InfluenceEngine`.
 
-The reference's ``hostshard`` module and the service's mesh, host-role
-and topology-shrink paths wait for the multi-device slice (ROADMAP Queue
-A.13).
+The service serves over a local device mesh and shrinks it on device
+loss; the reference's ``hostshard`` module, the host role and host-loss
+recovery are ROADMAP Queue A.13b.
 """
 
 from fia_tpu_torch.serve.admission import (  # noqa: F401

@@ -45,14 +45,15 @@ Differences from the reference:
   carried over: :meth:`InfluenceService._overlap_eligible` and
   :meth:`~InfluenceService.warmup` drop it, as the port's
   ``InfluenceEngine.query_many`` does.
-- Multi-host serving (the ``_multihost`` term of those two checks,
-  ``ServeConfig.host_role``, the journal-sharded dispatch and its
-  host-loss adoption) and serving over a device mesh (``ServeConfig.mesh``,
-  an engine built over a mesh, the mesh-shrink recovery) wait for the
-  port's multi-device slice (ROADMAP Queue A.13): asking for either
-  raises ``NotImplementedError``. Device and host loss keep the
-  reference's meshless form: there is no mesh to shrink, so the batch
-  sheds with the classified kind.
+- Serving over a local device mesh is ported (``ServeConfig.mesh``,
+  engines over a mesh, the construction-time liveness and fingerprint
+  checks, and the mesh shrink on device loss,
+  :meth:`InfluenceService._recover_device_loss`). Multi-host serving
+  (the ``_multihost`` term of the eligibility checks,
+  ``ServeConfig.host_role`` and ``host_merge_timeout_s``, the
+  journal-sharded dispatch and host-loss adoption) is ROADMAP Queue
+  A.13b: asking for a host role raises ``NotImplementedError``, and a
+  host loss sheds the batch with its classified kind.
 - :meth:`~InfluenceService.warmup` reads the port's build records, the
   engine's :meth:`compiled_geometries` and the program builds counted by
   :mod:`fia_tpu_torch.utils.compilemon` (CUDA graph captures on the
@@ -109,7 +110,7 @@ _TOPOLOGY_KINDS = (taxonomy.DEVICE_LOST, taxonomy.HOST_LOST)
 # Failure kinds that kill every dispatch in flight: the windowed loop
 # rebuilds the device state before the survivors re-dispatch.
 _RESET_KINDS = (taxonomy.WORKER, taxonomy.PREEMPTION)
-_A13 = "ROADMAP Queue A.13"
+_A13B = "ROADMAP Queue A.13b"
 
 
 @dataclass
@@ -135,8 +136,10 @@ class ServeConfig:
     # sequential guarded path; >1 applies wherever the engine's flat
     # path is eligible.
     dispatch_window: int = 2
-    # Serve over a device mesh: not ported yet (ROADMAP Queue A.13);
-    # anything but None raises NotImplementedError at construction.
+    # Serve over a device mesh: an int (shard the flat dispatch over the
+    # first N devices' 'data' axis; <= 1 means no mesh) or a
+    # parallel.mesh.Mesh (validated at construction against the
+    # engine's); from_model builds its engines over it.
     mesh: object | None = None
     # Factor-bank tier: warmup() preloads the engine's published bank
     # device-resident (solver='precomputed' engines only; a no-op
@@ -175,9 +178,23 @@ class ServeConfig:
     # "about to miss" horizon tracks the strictest promise made.
     class_deadlines: dict | bool | None = None
     # Host-sharded dispatch, a (host, n_hosts, journal_dir) triple: not
-    # ported yet (ROADMAP Queue A.13); anything but None raises
+    # ported yet (ROADMAP Queue A.13b); anything but None raises
     # NotImplementedError at construction.
     host_role: tuple | None = None
+
+
+def _resolve_mesh(mesh, device=None):
+    """ServeConfig.mesh → a Mesh (int = the first N slots' 'data' mesh
+    on ``device``'s kind, <= 1 or None = no mesh)."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, int):
+        if mesh <= 1:
+            return None
+        from fia_tpu_torch.parallel.mesh import make_mesh
+
+        return make_mesh(mesh, device=device)
+    return mesh
 
 
 def _approx_extra(res, row: int) -> dict:
@@ -221,12 +238,9 @@ class InfluenceService:
         self.config = config or ServeConfig()
         # a policy.Clock (e.g. VirtualClock) normalises to its reader
         self.clock = getattr(clock, "monotonic", clock)
-        if self.config.mesh is not None:
-            raise NotImplementedError(
-                f"not ported yet — ServeConfig.mesh: {_A13}")
         if self.config.host_role is not None:
             raise NotImplementedError(
-                f"not ported yet — ServeConfig.host_role: {_A13}")
+                f"not ported yet — ServeConfig.host_role: {_A13B}")
         self.cache = HotBlockCache(self.config.cache_entries,
                                    self.config.cache_bytes)
         self.metrics = ServeMetrics(self.config.metrics_path)
@@ -239,9 +253,10 @@ class InfluenceService:
         self.scheduler = FairScheduler(self.batcher,
                                        self.config.class_weights)
         eng = self._peek_engine()
-        if getattr(eng, "mesh", None) is not None:
-            raise NotImplementedError(
-                f"not ported yet — an engine over a mesh: {_A13}")
+        self.mesh = _resolve_mesh(self.config.mesh,
+                                  getattr(eng, "device", None))
+        if self.mesh is not None:
+            self._check_mesh(eng)
         self.health = HealthController(self.config.health)
         # SLO-derived deadline defaults: resolve the class_deadlines
         # knob (True = the published CLASS_SLOS; dict = overrides
@@ -296,6 +311,43 @@ class InfluenceService:
         # deterministic across runs of the same request stream
         self._drain_seq = 0
 
+    def _check_mesh(self, eng) -> None:
+        """The construction-time checks of a configured mesh. Liveness
+        first: a mesh naming dead slots fails with a CLASSIFIED error
+        (the operator restarted onto a shrunk slice), not at the first
+        dispatch; the error names the dead slot ids (and whole hosts when
+        every slot behind one is dark) and carries them as ``devices`` /
+        ``hosts``. Then the engine must be built over the same mesh."""
+        from fia_tpu_torch.parallel.mesh import (
+            lost_device_ids,
+            lost_host_ids,
+            mesh_fingerprint,
+            mesh_hosts,
+        )
+
+        dead = lost_device_ids(self.mesh)
+        if dead:
+            dead_hosts = (lost_host_ids(self.mesh)
+                          if len(mesh_hosts(self.mesh)) > 1 else ())
+            host_note = (f" (host(s) {list(dead_hosts)} lost entirely)"
+                         if dead_hosts else "")
+            err = taxonomy.HostLost if dead_hosts else taxonomy.DeviceLost
+            e = err(
+                f"ServeConfig.mesh references device id(s) {list(dead)} "
+                f"the backend cannot see{host_note}; rebuild the mesh over "
+                "live devices (parallel.mesh.make_mesh / surviving_mesh) "
+                "before constructing the service")
+            e.devices = list(dead)
+            e.hosts = list(dead_hosts)
+            raise e
+        if mesh_fingerprint(getattr(eng, "mesh", None)) != \
+                mesh_fingerprint(self.mesh):
+            raise ValueError(
+                "ServeConfig.mesh does not match the engine's mesh; build "
+                "the engine over the same mesh (InfluenceEngine(mesh=...) "
+                "/ cli mesh_for) or use from_model, which builds its "
+                "engines over it")
+
     # -- wiring ------------------------------------------------------------
     @classmethod
     def from_model(cls, model, config: ServeConfig | None = None,
@@ -307,8 +359,12 @@ class InfluenceService:
         one solver-resolution path), so ``model.retrain`` /
         ``update_train_x_y`` — which clear the model's engines and
         notify derived services — leave the service answering from
-        fresh state, never a stale hot block.
+        fresh state, never a stale hot block. A ``config.mesh`` is
+        resolved once here and handed to every engine the model builds.
         """
+        m = _resolve_mesh((config or ServeConfig()).mesh, model.device)
+        if m is not None:
+            engine_extra.setdefault("mesh", m)
         svc = cls(
             engine_provider=lambda: model.engine(solver, **engine_extra),
             config=config, clock=clock,
@@ -657,7 +713,8 @@ class InfluenceService:
         """Windowed dispatch applies only where query_batch would run
         one flat dispatch per batch anyway — so the overlapped stream
         is dispatch-for-dispatch the program sequence the byte-identity
-        contract pins. (The reference's ``_wide_block_cap`` and
+        contract pins. Local meshes qualify (the flat path shards the
+        query axis in process). (The reference's ``_wide_block_cap`` and
         ``_multihost`` terms are dropped: see the module docstring.)"""
         return (
             int(self.config.dispatch_window) > 1
@@ -720,10 +777,11 @@ class InfluenceService:
                         raise
                     if kind in _TOPOLOGY_KINDS:
                         # a lost device/host poisons the in-flight
-                        # handles too: with a mesh to shrink (A.13),
-                        # re-dispatch this batch, the in-flight ones and
-                        # the remainder on the survivors. Meshless, no
-                        # shrink is possible and this batch sheds.
+                        # handles too: shrink the mesh, then re-dispatch
+                        # this batch, the in-flight ones and the
+                        # remainder on the survivors — nothing sheds and
+                        # the stream completes bit-identically. Only if
+                        # no shrink is possible does this batch shed.
                         if self._recover_topology(kind, eng, [
                             points[b] for (b, _, _, _) in inflight
                         ] + [bpts] + [points[b] for b in plan[bi:]]):
@@ -750,9 +808,10 @@ class InfluenceService:
                     if kind is None:
                         raise
                     if kind in _TOPOLOGY_KINDS:
-                        # best-effort shrink before rerouting (meshless:
-                        # none, so the guarded path below sheds
-                        # classified, batch by batch)
+                        # best-effort shrink before rerouting: on
+                        # success the guarded path below re-dispatches
+                        # everything on the surviving mesh; on failure
+                        # it sheds classified, batch by batch
                         self._recover_topology(kind, eng, [
                             points[b] for (b, _, _, _) in inflight
                         ] + [bpts] + [points[b] for b in plan[bi:]])
@@ -801,8 +860,9 @@ class InfluenceService:
                 # the guarded sequential path, whose engine-side ladder
                 # (reset → retry → halve → CPU rung) owns the recovery.
                 # DEVICE_LOST differs: the ladder cannot fix a dead
-                # device, so a mesh would shrink first, and the faulted
-                # batch re-dispatch too (meshless, it sheds).
+                # device, so the mesh shrinks first, and on a successful
+                # shrink the faulted batch re-dispatches too instead of
+                # shedding (its inputs are host-side).
                 recovered = (
                     kind in _TOPOLOGY_KINDS
                     and self._recover_topology(kind, eng, [
@@ -866,8 +926,9 @@ class InfluenceService:
             if kind in _TOPOLOGY_KINDS and self._recover_topology(
                 kind, eng, [points[batch]]
             ):
-                # a shrink succeeded (never, meshless): this very batch
-                # re-dispatches on the surviving mesh
+                # the shrink succeeded: this very batch re-dispatches on
+                # the surviving mesh (bounded: every recovery drops a
+                # slot, and with none left the batch sheds below)
                 self._dispatch_one(eng, fp, misses, responses, keys,
                                    counts, points, batch, bid=bid)
                 return
@@ -1052,20 +1113,63 @@ class InfluenceService:
 
     # -- device-loss recovery (docs/design.md §18) -------------------------
     def _recover_device_loss(self, eng, pending_points) -> bool:
-        """Shrink the serving mesh over the surviving devices — the
-        reference's recovery for a ``device_lost`` dispatch failure.
-        The port serves without a mesh (ROADMAP Queue A.13), so there is
-        nothing to shrink: returns False and the caller sheds the batch
-        with the classified kind, as the reference does for a
-        single-device engine. On the card a sticky CUDA error classifies
-        ``device_lost``: every later batch sheds the same way, and the
-        brownout ladder walks the service to ``cache_only``."""
-        return False
+        """Shrink the serving mesh over the surviving slots.
+
+        Called when a dispatch failure classified ``device_lost``: asks
+        which mesh slots are still visible
+        (:func:`~fia_tpu_torch.parallel.mesh.lost_device_ids`; an
+        injected loss names none, so the deterministic last-slot drop
+        applies), re-homes the engine on the survivors
+        (:meth:`~fia_tpu_torch.influence.engine.InfluenceEngine.
+        rebuild_mesh`) and re-arms the still-pending dispatch geometries
+        (``precompile_flat``), so steady state captures nothing on the
+        new topology. Results are unchanged by construction: every mesh
+        size runs the single-device program per shard (docs/design.md
+        §15).
+
+        Returns False — the caller sheds classified — when there is no
+        mesh to shrink (a single-device engine; on the card a sticky
+        CUDA error classifies ``device_lost`` and every later batch sheds
+        the same way), no survivor to shrink to, or the rebuild itself
+        failed with a classified fault.
+        """
+        from fia_tpu_torch.parallel import mesh as pmesh
+
+        cur = getattr(eng, "mesh", None)
+        if cur is None:
+            return False
+        new = pmesh.surviving_mesh(cur, pmesh.lost_device_ids(cur))
+        if new is None:
+            return False
+        try:
+            seed = f"device-loss-{self.metrics.device_loss_recoveries}"
+            with obs.span("serve.device_loss_recovery", trace_seed=seed,
+                          ndev=int(new.devices.size)) as sp:
+                eng.rebuild_mesh(new)
+                if eng.impl in ("auto", "flat") and eng._flat_eligible():
+                    geoms = {tuple(eng.flat_geometry(np.asarray(p)))
+                             for p in pending_points if len(p)}
+                    eng.precompile_flat(sorted(geoms))
+                    sp.set(rearmed=len(geoms))
+        except Exception as e:
+            if taxonomy.classify(e) is None:
+                raise
+            # the mesh the engine is on: the old one where the rebuild
+            # failed (it keeps its placement), the new one where only
+            # the re-arming did
+            self.mesh = eng.mesh
+            return False
+        self.mesh = new
+        self.metrics.record_device_loss_recovery()
+        obs.REGISTRY.counter("serve.device_loss_recoveries").inc()
+        return True
 
     # -- host-loss recovery (docs/design.md §25) ---------------------------
     def _recover_host_loss(self, eng, pending_points) -> bool:
-        """The ``host_lost`` analogue of :meth:`_recover_device_loss`:
-        meshless, it returns False and the batch sheds classified."""
+        """The ``host_lost`` analogue of :meth:`_recover_device_loss`,
+        one granularity up: a multi-host mesh, its host liveness and
+        shrink are ROADMAP Queue A.13b, so it returns False and the batch
+        sheds classified."""
         return False
 
     def _recover_topology(self, kind, eng, pending_points) -> bool:

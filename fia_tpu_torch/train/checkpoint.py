@@ -27,8 +27,8 @@ last-K ``ckpt-<step>.npz`` directory), :func:`restore_latest_valid`
 (newest generation that passes validation; corrupt ones quarantined)
 and :class:`PeriodicCheckpointer` (the trainer's hook). The reference's
 orbax variant (``checkpoint_orbax.py``) is JAX-only; its counterpart
-here is ``torch.distributed.checkpoint``, with the multi-device paths of
-ROADMAP Queue A.13.
+here is ``torch.distributed.checkpoint``, with the multi-process paths
+of ROADMAP Queue A.13b.
 """
 
 from __future__ import annotations

@@ -36,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fia_tpu_torch.device import resolve_device
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.reliability import policy as rpolicy
 
@@ -182,29 +182,87 @@ def _fence(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("not ported yet — mesh: ROADMAP Queue A.13")
+def _on_devices(tensors: tuple, devices) -> dict:
+    """``tensors`` on each device of ``devices`` (no copy where they
+    already are): the per-physical-device replicas of a mesh."""
+    return {dev: tuple(t.to(dev) for t in tensors) for dev in devices}
+
+
+def _mesh_loss_and_grads(model, params: dict, reps: dict, slots, idx,
+                         batch_p: int):
+    """(loss, grads) of ``model.loss`` on the minibatch ``idx``, data
+    parallel over the mesh's ``data`` slots: the batch is padded to
+    ``batch_p`` (a multiple of the slot count) with zero-weight
+    positions, slot k takes positions ``[k b, (k+1) b)`` (b = batch_p /
+    slots) and computes, on its device, the gradient of its rows'
+    weighted error sum; the partial gradients, error sums and weight sums
+    are added in slot order on the params' device, then divided by the
+    batch's weight (``_weighted_mean``'s clamp at 1) and the L2 term's
+    gradient added. Every slot is queued before any partial is summed."""
+    home = next(iter(params.values())).device
+    n = idx.shape[0]
+    pad = batch_p - n
+    idx = torch.cat([idx, idx.new_zeros(pad)])
+    posw = torch.cat([torch.ones(n, device=home),
+                      torch.zeros(pad, device=home)])
+    b = batch_p // len(slots)
+    on_dev = {dev: params if dev == home
+              else {k: v.to(dev) for k, v in params.items()}
+              for dev in reps}
+    parts = []
+    for k, slot in enumerate(slots):
+        dev = slot.device
+        x, y, w = reps[dev]
+        sl = idx[k * b:(k + 1) * b].to(dev)
+        bw = w[sl] * posw[k * b:(k + 1) * b].to(dev)
+        leaves = {kk: v.detach().requires_grad_(True)
+                  for kk, v in on_dev[dev].items()}
+        err = torch.sum(model.indiv_loss(leaves, x[sl], y[sl]) * bw)
+        g = torch.autograd.grad(err, list(leaves.values()),
+                                allow_unused=True)
+        parts.append((err.detach(), torch.sum(bw),
+                      {kk: torch.zeros_like(leaves[kk]) if gi is None else gi
+                       for kk, gi in zip(leaves, g)}))
+    err, wsum, grads = parts[0][0].to(home), parts[0][1].to(home), \
+        {kk: gi.to(home) for kk, gi in parts[0][2].items()}
+    for e, ws, g in parts[1:]:
+        err, wsum = err + e.to(home), wsum + ws.to(home)
+        grads = {kk: grads[kk] + g[kk].to(home) for kk in grads}
+    wsum = torch.clamp(wsum, min=1.0)
+    leaves = {kk: v.detach().requires_grad_(True) for kk, v in params.items()}
+    reg = model.reg_loss(leaves)
+    greg = torch.autograd.grad(reg, list(leaves.values()), allow_unused=True)
+    grads = {kk: grads[kk] / wsum + (0.0 if gr is None else gr)
+             for kk, gr in zip(leaves, greg)}
+    return err / wsum + reg.detach(), grads
 
 
 class Trainer:
-    """Minibatch trainer on one device (``device=None``: the CUDA
-    device, raising without one; ``"cpu"`` when asked). ``last_losses``
-    holds, after :meth:`fit`, the loss of every step it ran, in order,
-    as a tensor on the device. ``mesh`` takes the reference's place in
-    the signature; data parallelism over a mesh is not ported (ROADMAP
-    Queue A.13), so a non-None mesh raises."""
+    """Minibatch trainer (``device=None``: the CUDA device, raising
+    without one; ``"cpu"`` when asked). ``last_losses`` holds, after
+    :meth:`fit`, the loss of every step it ran, in order, as a tensor on
+    the device.
+
+    With ``mesh`` (a :class:`fia_tpu_torch.parallel.mesh.Mesh` with a
+    ``data`` axis) each minibatch step is data parallel over the mesh's
+    ``data`` slots (:func:`_mesh_loss_and_grads`): params stay on the
+    mesh's first slot's device, the train rows are replicated once per
+    physical device, and a batch size that does not divide the slot
+    count (the reference's exact divisors, 3020 / 3009) is padded with
+    zero-weight positions, which the weighted mean ignores exactly. The
+    full-batch phases run on the first slot's device, as the
+    reference's do."""
 
     def __init__(self, model, config: TrainConfig, event_log=None, mesh=None,
                  retry_policy: "rpolicy.RetryPolicy | None" = None,
                  clock: "rpolicy.Clock | None" = None, device=None):
-        _no_mesh(mesh)
         self.model = model
         self.config = config
         self.retry_policy = _TRAIN_RETRY if retry_policy is None else retry_policy
         self.clock = rpolicy.WALL if clock is None else clock
         self.event_log = event_log  # utils.logging.EventLog or None
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = pmesh.mesh_device(mesh, device)
         self.last_losses = None
 
     # -- state -------------------------------------------------------------
@@ -218,11 +276,21 @@ class Trainer:
 
     # -- the step loops ----------------------------------------------------
     def _minibatch_steps(self, params, opt, x, y, w, rows):
-        """Adam over the batches ``rows`` ((steps, batch) indices)."""
+        """Adam over the batches ``rows`` ((steps, batch) indices), data
+        parallel over the mesh's slots with one."""
         losses = []
+        if self.mesh is not None:
+            slots = pmesh.data_slots(self.mesh)
+            reps = _on_devices((x, y, w), pmesh.physical_devices(self.mesh))
+            nd = len(slots)
+            batch_p = -(-rows.shape[1] // nd) * nd
         for idx in rows:
-            loss, g = _loss_and_grads(self.model, params, x[idx], y[idx],
-                                      w[idx])
+            if self.mesh is None:
+                loss, g = _loss_and_grads(self.model, params, x[idx],
+                                          y[idx], w[idx])
+            else:
+                loss, g = _mesh_loss_and_grads(self.model, params, reps,
+                                               slots, idx, batch_p)
             params, opt = adam_update(g, opt, params,
                                       self.config.learning_rate)
             losses.append(loss)
@@ -370,11 +438,18 @@ def loo_retrain_many(
     ``steps_per_dispatch`` sets where the dispatch boundaries fall
     (whole epochs, at least one): each is one retried unit with the
     ``trainer.loo_segment`` injection site. It does not change the
-    result. A non-None ``mesh`` (the reference's lane sharding) raises:
-    ROADMAP Queue A.13.
+    result.
+
+    With ``mesh`` (a ``data`` axis) the lane axis is sharded over the
+    mesh's ``data`` slots with no collective: the lanes are padded to a
+    multiple of the slot count with copies of the last lane, slot k
+    steps its contiguous group of lanes on its device, and the padding
+    lanes are sliced away; the stacked params come back on the mesh's
+    first slot's device, each lane the single-device run's lane up to
+    float reassociation (a slot steps fewer lanes at once: ~1e-7 at
+    ML-1M shape).
     """
-    _no_mesh(mesh)
-    dev = resolve_device(device)
+    dev = pmesh.mesh_device(mesh, device)
     x, y = _put(x, dev), _put(y, dev)
     n = x.shape[0]
     nb = n // batch_size
@@ -384,37 +459,65 @@ def loo_retrain_many(
     R = removed.shape[0]
     seeds = (np.full(R, 17, np.uint32) if seeds is None
              else np.asarray(seeds).astype(np.uint32).reshape(-1))
-    uniq, slot = np.unique(seeds, return_inverse=True)
-    lane_slot = torch.as_tensor(slot.reshape(-1), dtype=torch.int64).to(dev)
-    removed_t = torch.as_tensor(removed).to(dev)
+    if mesh is None:
+        groups = [(dev, removed, seeds)]
+    else:
+        nd = int(mesh.shape["data"])
+        pad = (-R) % nd
+        removed = np.concatenate([removed, np.repeat(removed[-1:], pad)])
+        seeds = np.concatenate([seeds, np.repeat(seeds[-1:], pad)])
+        q = len(removed) // nd
+        groups = [(s.device, removed[k * q:(k + 1) * q],
+                   seeds[k * q:(k + 1) * q])
+                  for k, s in enumerate(pmesh.data_slots(mesh))]
+    data = _on_devices((x, y), {g[0] for g in groups})
+    params0 = _place(params0, dev)
 
     n_epochs = -(-num_steps // nb)
     seg_epochs = max(1, min(n_epochs, steps_per_dispatch // nb or 1))
-    params0 = _place(params0, dev)
-    params = {k: v.expand((R, *v.shape)).clone() for k, v in params0.items()}
-    opt = adam_init(params, lanes=(R,))
 
-    def run_epochs(params, opt, start: int):
+    def lanes(gdev, rem, sd):
+        """One group's schedule keys and its stacked params and Adam
+        state on ``gdev``."""
+        uniq, slot = np.unique(sd, return_inverse=True)
+        p = {k: v.to(gdev).expand((len(rem), *v.shape)).clone()
+             for k, v in params0.items()}
+        return (uniq, torch.as_tensor(slot.reshape(-1),
+                                      dtype=torch.int64).to(gdev),
+                torch.as_tensor(rem).to(gdev)), (p, adam_init(p,
+                                                             (len(rem),)))
+
+    keys, states = zip(*(lanes(*g) for g in groups))
+
+    def run_epochs(gdev, key, params, opt, start: int):
+        uniq, lane_slot, removed_t = key
+        gx, gy = data[gdev]
         for e in range(start, min(start + seg_epochs, n_epochs)):
             # (D, nb, batch): one schedule per distinct seed
-            sched = torch.stack([_schedule(int(s), e, n, nb, batch_size, dev)
-                                 for s in uniq])
+            sched = torch.stack([_schedule(int(s), e, n, nb, batch_size,
+                                           gdev) for s in uniq])
             for r in range(min(nb, num_steps - e * nb)):
                 idx = sched[:, r][lane_slot]  # (R, batch)
                 bw = (idx != removed_t[:, None]).to(torch.float32)
-                _, g = _lane_loss_and_grads(model, params, x[idx], y[idx], bw)
+                _, g = _lane_loss_and_grads(model, params, gx[idx], gy[idx],
+                                            bw)
                 params, opt = adam_update(g, opt, params, learning_rate)
         return params, opt
 
     pol = _TRAIN_RETRY if retry_policy is None else retry_policy
     for start in range(0, n_epochs, seg_epochs):
 
-        def dispatch_seg(params=params, opt=opt, start=start):
+        def dispatch_seg(states=states, start=start):
             inject.fire(sites.TRAINER_LOO_SEGMENT)
-            out = run_epochs(params, opt, start)
-            _fence(dev)
+            out = tuple(run_epochs(g[0], key, p, o, start)
+                        for g, key, (p, o) in zip(groups, keys, states))
+            for gdev in data:
+                _fence(gdev)
             return out
 
-        params, opt = pol.run(dispatch_seg, retry_on=taxonomy.TRANSIENT,
-                              clock=clock)
-    return params
+        states = pol.run(dispatch_seg, retry_on=taxonomy.TRANSIENT,
+                         clock=clock)
+    if len(states) == 1:
+        return states[0][0]
+    return {k: torch.cat([p[k].to(dev) for p, _ in states])[:R]
+            for k in states[0][0]}

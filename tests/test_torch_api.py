@@ -6,7 +6,7 @@ related rows, the test block, retraining, the Hessian's extreme
 eigenvalues, the gradient of influence, a resumed run keeping the phase
 schedule, the dataset updaters, and the spectral tools. Nothing of that
 file needs ``serve`` or ``stream``, so none of it is left out; ``serve``
-over a mesh raises (A.13; ``serve`` itself is held in
+with a host role raises (A.13b; ``serve`` itself is held in
 ``test_torch_serve.py``), and ``apply_updates`` / ``apply_removal``
 commit here, with the reference's signatures (the write path itself is
 held in ``test_torch_stream.py`` and ``test_torch_audit.py``). Added: the
@@ -15,6 +15,11 @@ influence is bitwise the engine's; the iHVP disk cache serves, and
 misses after a params change; the factor bank is refreshed by a params
 change. The eigenvalues are held to a float64 eigendecomposition of the
 materialised full Hessian, and the facade's iHVP to the full engine's.
+Over a 2-slot mesh of virtual CPU slots (``TestMesh``) the facade trains
+data parallel within the reference's training bar (rtol 2e-4 / atol
+1e-5) of the meshless facade, its influence is the meshless engine's on
+the same params bit for bit, and ``serve(config=ServeConfig(mesh=2))``
+builds its engine over a mesh of that fingerprint.
 """
 
 import os
@@ -28,6 +33,7 @@ from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.influence import factor as fbank
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence.engine import InfluenceEngine
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.serve import ServeConfig
 from fia_tpu_torch.influence.spectral import (block_hessian_eigvals,
                                               extreme_eigvals)
@@ -145,9 +151,12 @@ class TestFacade:
         assert "Norm of the mean of gradients:" in out
 
     @pytest.mark.parametrize("call,item", [
-        (lambda m: m.serve(config=ServeConfig(mesh=2)), "A.13"),
+        (lambda m: m.serve(config=ServeConfig(host_role=(0, 2, "/tmp/j"))),
+         "A.13"),
     ])
     def test_unported_surfaces_raise(self, fia, call, item):
+        """A host role (multi-host serving) names ROADMAP Queue A.13b;
+        a mesh is ported (``TestMesh``)."""
         with pytest.raises(NotImplementedError, match=item):
             call(fia)
 
@@ -177,6 +186,52 @@ class TestFacade:
         assert list(port) == list(ref)
         for key, p in ref.items():
             assert port[key].default == p.default, key
+
+
+class TestMesh:
+    @pytest.fixture(autouse=True)
+    def slots(self):
+        with pmesh.virtual_devices(2):
+            yield
+
+    def test_mesh_facade_trains_and_queries(self, tiny_splits, tmp_path):
+        m = pmesh.make_mesh(2, device="cpu")
+        a = _model(_port_splits(tiny_splits), tmp_path / "a", damping=1e-3)
+        b = _model(_port_splits(tiny_splits), tmp_path / "b", damping=1e-3,
+                   mesh=m)
+        assert b._trainer.mesh is m and b.device == torch.device("cpu")
+        for f in (a, b):
+            f.train(num_steps=40, verbose=False, save_checkpoints=False)
+        for k in a.params:
+            np.testing.assert_allclose(b.params[k], a.params[k], rtol=2e-4,
+                                       atol=1e-5)
+        eng = b.engine()
+        assert eng.mesh is m
+        single = InfluenceEngine(b.model, b.params, b.data_sets["train"],
+                                 damping=b.damping, device="cpu")
+        pt = b.data_sets["test"].x[3][None].astype(np.int64)
+        assert b.get_influence_on_test_loss([3]).tobytes() == \
+            single.query_batch(pt).scores_of(0).tobytes()
+        # an explicit mesh in extra builds another engine beside it
+        other = b.engine(mesh=None)
+        assert other is not eng and other.mesh is None
+
+    def test_serve_config_mesh_builds_mesh_engines(self, tiny_splits,
+                                                   tmp_path):
+        f = _model(_port_splits(tiny_splits), tmp_path, damping=1e-3)
+        f.train(num_steps=20, verbose=False, save_checkpoints=False)
+        svc = f.serve(config=ServeConfig(mesh=2, disk_cache=False))
+        eng = svc._peek_engine()
+        assert pmesh.mesh_fingerprint(eng.mesh) == pmesh.mesh_fingerprint(
+            pmesh.make_mesh(2, device="cpu"))
+        pts = np.asarray(f.data_sets["test"].x[:4], np.int64)
+        want = f.engine(mesh=None).query_batch(pts)
+        from fia_tpu_torch.serve import Request
+
+        got = svc.run([Request(int(u), int(i), id=str(k))
+                       for k, (u, i) in enumerate(pts)])
+        for k, r in enumerate(got):
+            assert r.ok and np.array_equal(r.scores, want.scores_of(k))
 
 
 class TestCachesAndBank:

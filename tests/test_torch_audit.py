@@ -6,9 +6,11 @@ random data (U = 30, I = 20, K = 4, 240 rows): the sweep bitwise under
 chunking, batching, padding and segment width, the journal's record and
 bitwise resume, plan filters, validation and round trips, the fenced
 apply (remove, reweight, swap rollback, entry-site rollback, stale
-plans) and verify's rank helpers, journal and artifact. Its
-``test_mesh_shard_bitwise_invariant`` waits for the multi-device slice
-(ROADMAP Queue A.13) and is listed there.
+plans) and verify's rank helpers, journal and artifact, and
+``test_mesh_shard_bitwise_invariant``: the sweep the same bytes over 1,
+2 and 4 virtual CPU slots. ``verify_plan`` over a 2-slot mesh shards its
+lanes and meets the reference's lane bar (rtol 2e-4 / atol 1e-5) of the
+meshless run.
 
 Port against the JAX package, on the same params and rows:
 
@@ -29,7 +31,8 @@ Port against the JAX package, on the same params and rows:
 And the driver: ``python -m fia_tpu_torch.cli.debug_data`` with
 ``scripts/unlearn_smoke.sh``'s arguments and ``--backend cpu``, in a
 process where ``import jax`` fails, returns 0 and writes the reference's
-``--json_out`` keys, and ``--mesh`` raises naming A.13.
+``--json_out`` keys; with ``--mesh 2`` it runs over two virtual slots
+(armed in the driver's process), and without them it exits naming them.
 """
 
 import json
@@ -65,7 +68,9 @@ from fia_tpu_torch.audit.verify import (
     verify_plan,
 )
 from fia_tpu_torch.data.dataset import RatingDataset
+from fia_tpu_torch.influence.engine import InfluenceEngine
 from fia_tpu_torch.models import params_from_numpy
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.reliability import policy as rpolicy
 from fia_tpu_torch.reliability.artifacts import load_npz, read_manifest
@@ -152,6 +157,22 @@ class TestReverseSweepInvariance:
             r = reverse_topk(fm, pts, ty, k=12, **kwargs)
             assert r.sweep_id == ref.sweep_id
             assert _sweep_bytes(r) == _sweep_bytes(ref), kwargs
+
+    def test_mesh_shard_bitwise_invariant(self, fm):
+        # the sweep ranking must not depend on how many slots the
+        # dispatch shards over
+        pts, ty = _test_points(fm)
+        outs = []
+        with pmesh.virtual_devices(4):
+            for ndev in (1, 2, 4):
+                eng = InfluenceEngine(
+                    fm.model, fm.state.params, fm.data_sets["train"],
+                    damping=DAMP, solver="direct",
+                    mesh=pmesh.make_mesh(ndev, device="cpu"))
+                outs.append(_sweep_bytes(
+                    reverse_topk(fm, pts, ty, k=12, engine=eng)))
+        assert outs[0] == outs[1] == outs[2]
+        assert outs[0] == _sweep_bytes(reverse_topk(fm, pts, ty, k=12))
 
     def test_journal_records_and_resume_replays_bitwise(self, fm, tmp_path):
         pts, ty = _test_points(fm)
@@ -326,12 +347,22 @@ class TestVerify:
         assert os.path.getsize(jpath) == size
 
     def test_mesh_raises_naming_a13(self, fm):
+        """``verify_plan(mesh=...)`` shards the lanes (ported): the
+        predictions equal, the retrained outcomes within the reference's
+        lane bar of the meshless run, two mesh runs bitwise."""
         pts, ty = _test_points(fm)
         plan = build_plan(fm, reverse_topk(fm, pts, ty, k=8),
                           action="remove", max_rows=2)
-        with pytest.raises(NotImplementedError, match="A.13"):
-            verify_plan(fm, plan, pts, ty, num_steps=2, retrain_times=1,
-                        mesh=2)
+        kw = dict(num_steps=6, batch_size=50, retrain_times=2, max_rows=2)
+        base = verify_plan(fm, plan, pts, ty, **kw)
+        with pmesh.virtual_devices(2):
+            m = pmesh.make_mesh(2, device="cpu")
+            got = verify_plan(fm, plan, pts, ty, mesh=m, **kw)
+            again = verify_plan(fm, plan, pts, ty, mesh=m, **kw)
+        assert np.array_equal(got.predicted, base.predicted)
+        np.testing.assert_allclose(got.actual, base.actual, rtol=2e-4,
+                                   atol=1e-5)
+        assert got.actual.tobytes() == again.actual.tobytes()
 
 
 # -- port against the JAX package --------------------------------------------
@@ -513,10 +544,15 @@ def no_jax_env(tmp_path_factory):
     return env
 
 
-def _driver(argv, env):
+def _driver(argv, env, virtual_slots=None):
+    """The driver in a subprocess; ``virtual_slots`` arms that many
+    virtual device slots in it first (``--mesh`` over one CPU)."""
+    arm = ("" if virtual_slots is None else
+           "from fia_tpu_torch.parallel import mesh\n"
+           f"mesh.set_virtual_devices({int(virtual_slots)})\n")
     return subprocess.run(
         [sys.executable, "-c",
-         "import sys, torch; torch.set_num_threads(2)\n"
+         "import sys, torch; torch.set_num_threads(2)\n" + arm +
          "from fia_tpu_torch.cli import debug_data\n"
          "debug_data.main(sys.argv[1:])\n"
          "assert not any(m == 'jax' or m.startswith(('jax.', 'fia_tpu.'))\n"
@@ -547,11 +583,25 @@ class TestDriver:
             assert os.path.exists(art + ".manifest.json")
 
     def test_mesh_raises_naming_a13(self, no_jax_env, tmp_path):
+        """``--mesh 2`` (ported): over two virtual slots the driver runs
+        to the end with the reference's keys; with one CPU slot visible
+        it exits naming the virtual slots, before training."""
+        out_json = tmp_path / "mesh.json"
         out = _driver(UNLEARN_SMOKE + [
-            "--backend", "cpu", "--train_dir", str(tmp_path),
+            "--backend", "cpu", "--train_dir", str(tmp_path / "a"),
+            "--json_out", str(out_json), "--mesh", "2"], no_jax_env,
+            virtual_slots=2)
+        assert out.returncode == 0, out.stderr[-3000:]
+        s = json.loads(out_json.read_text())
+        assert set(s) == SUMMARY_KEYS and s["rows_scored"] > 0
+        out = _driver(UNLEARN_SMOKE + [
+            "--backend", "cpu", "--train_dir", str(tmp_path / "b"),
             "--mesh", "2"], no_jax_env)
         assert out.returncode != 0
-        assert "NotImplementedError" in out.stderr and "A.13" in out.stderr
+        assert "--mesh 2 requested" in out.stderr
+        assert "set_virtual_devices" in out.stderr
+        assert not os.path.exists(tmp_path / "b") or not os.listdir(
+            tmp_path / "b")
 
     def test_default_device_is_cuda(self, no_jax_env, tmp_path):
         out = _driver(UNLEARN_SMOKE + ["--train_dir", str(tmp_path)],

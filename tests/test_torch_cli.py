@@ -211,16 +211,26 @@ def test_without_a_card_the_drivers_raise(tmp_path, no_jax_env):
 
 
 def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.13"):
+    """``--mesh`` is ported: with one CPU slot visible ``--mesh 2`` exits
+    naming the virtual slots, over two virtual slots the driver runs
+    (the sampled rung escalating, as on every mesh engine); row-sharded
+    tables (``--model_parallel > 1``) raise naming ROADMAP Queue A.13b."""
+    from fia_tpu_torch.parallel import mesh as pmesh
+
+    with pytest.raises(SystemExit, match="set_virtual_devices"):
         port_rq2.main(SMALL + ["--backend", "cpu", "--mesh", "2",
                                "--train_dir", str(tmp_path)])
-    # the sampled rung is ported (test_rq2_runs_the_sampled_rung): with
-    # --mesh it still raises
-    with pytest.raises(NotImplementedError, match="A.13"):
-        port_rq2.main(SMALL + ["--backend", "cpu", "--solver", "sampled",
-                               "--mesh", "2", "--num_steps_train", "5",
-                               "--batch_size", "300", "--train_dir",
-                               str(tmp_path)])
+    with pmesh.virtual_devices(2):
+        timing = port_rq2.main(SMALL + [
+            "--backend", "cpu", "--solver", "sampled", "--mesh", "2",
+            "--num_steps_train", "5", "--batch_size", "300",
+            "--lissa_depth", "20", "--num_test", "3",
+            "--train_dir", str(tmp_path)])
+        assert timing.num_queries == 3 and timing.num_scores > 0
+        with pytest.raises(NotImplementedError, match="A.13b"):
+            port_rq2.main(SMALL + ["--backend", "cpu", "--mesh", "2",
+                                   "--model_parallel", "2",
+                                   "--train_dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="out of range"):
         common.load_splits(common.base_parser("t").parse_args(
             SMALL + ["--test_indices", "50"]))
@@ -315,3 +325,18 @@ def test_artifact_path_rules_match_the_reference(tmp_path):
             [a.num_steps_retrain, a.retrain_times, a.num_to_remove,
              a.num_test, a.maxinf, a.seed], np.int64),
             stream_tag=np.asarray(tag), model_key=np.asarray(key + "x"))
+
+
+def test_train_or_load_signature_is_the_references():
+    """``train_or_load`` takes the reference's parameters, in its order
+    and with its defaults, ``mesh`` last (ROADMAP Queue C.5: the port
+    lacked it); the driver hands it to the ``Trainer``."""
+    import inspect
+
+    from fia_tpu.cli import common as ref_common
+
+    port = inspect.signature(common.train_or_load).parameters
+    ref = inspect.signature(ref_common.train_or_load).parameters
+    assert list(port) == list(ref)
+    for name, p in ref.items():
+        assert port[name].default == p.default, name

@@ -1,12 +1,13 @@
 """Degraded-mode serving in the port (``fia_tpu_torch/serve``) on the CPU.
 
 Restated from ``tests/test_degraded.py`` port against port:
-``TestHealthController`` (all ten), ``TestBrownoutServing`` (all five)
-and ``TestMeshShrinkRecovery::test_meshless_loss_sheds_classified``. The
-mesh tests (``TestSurvivingMesh``, the rest of ``TestMeshShrinkRecovery``,
-``TestConstructionLiveness``) wait for the port's multi-device slice
-(ROADMAP Queue A.13); here a mesh or a host role asked of the service
-raises ``NotImplementedError``. ``TestDeviceLostTaxonomy`` is restated in
+``TestHealthController`` (all ten), ``TestBrownoutServing`` (all five),
+``TestSurvivingMesh`` (all five), ``TestMeshShrinkRecovery`` (all five:
+a 4-slot mesh over virtual CPU slots shrinks on an injected device loss
+and answers bit for bit the single-device service) and
+``TestConstructionLiveness`` (both). A mesh the engine is not built over
+fails construction, and a host role (ROADMAP Queue A.13b) raises
+``NotImplementedError``. ``TestDeviceLostTaxonomy`` is restated in
 ``tests/test_torch_reliability.py`` (the taxonomy's device-loss kind,
 its signatures, CUDA's sticky errors among them, and its being neither
 transient nor size evidence) and is not repeated here.
@@ -42,6 +43,7 @@ from fia_tpu_torch.eval.metrics import spearman
 from fia_tpu_torch.influence import factor as fbank
 from fia_tpu_torch.influence.engine import InfluenceEngine
 from fia_tpu_torch.models import MF, params_from_numpy
+from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, taxonomy
 from fia_tpu_torch.serve import (
     MODE_BANK_PREFERRED,
@@ -63,6 +65,12 @@ DAMP = 1e-3
 BOUND_RTOL = 1e-4
 RTOL, ATOL = 1e-4, 1e-6
 BANK_RHO = 0.999
+
+
+@pytest.fixture(autouse=True, scope="module")
+def slots():
+    with pmesh.virtual_devices(8):
+        yield
 
 
 def _data(seed=0, n=400):
@@ -124,13 +132,253 @@ class TestMeshless:
         assert sum(1 for r in responses if r.ok) == 3
         assert svc.rollup()["device_loss_recoveries"] == 0
 
-    @pytest.mark.parametrize("cfg", [{"mesh": 2}, {"mesh": object()},
-                                     {"host_role": (0, 2, "/tmp/j")}],
-                             ids=["mesh-int", "mesh-object", "host-role"])
-    def test_mesh_and_host_role_wait_for_the_multi_device_slice(self, cfg):
+    @pytest.mark.parametrize("cfg,exc,match", [
+        (lambda: {"mesh": 2}, ValueError, "does not match the engine"),
+        (lambda: {"mesh": pmesh.make_mesh(2, device="cpu")}, ValueError,
+         "does not match the engine"),
+        (lambda: {"host_role": (0, 2, "/tmp/j")}, NotImplementedError,
+         "A.13b")], ids=["mesh-int", "mesh-object", "host-role"])
+    def test_mesh_and_host_role_wait_for_the_multi_device_slice(
+            self, cfg, exc, match):
+        """A mesh (an int or a Mesh) asked of a service over a meshless
+        engine fails construction: the engine must be built over it. A
+        host role is the multi-host slice, ROADMAP Queue A.13b."""
         model, params, train = _setup()
-        with pytest.raises(NotImplementedError, match="A.13"):
-            _service(_engine(model, params, train), **cfg)
+        with pytest.raises(exc, match=match):
+            _service(_engine(model, params, train), **cfg())
+
+
+class TestSurvivingMesh:
+    def test_drops_last_device_without_named_losses(self):
+        mesh = pmesh.make_mesh(4, device="cpu")
+        new = pmesh.surviving_mesh(mesh)
+        assert new is not None and new.devices.size == 3
+        assert ([int(d.id) for d in new.devices.flat]
+                == [int(d.id) for d in mesh.devices.flat][:-1])
+
+    def test_named_losses_are_dropped(self):
+        mesh = pmesh.make_mesh(4, device="cpu")
+        ids = [int(d.id) for d in mesh.devices.flat]
+        new = pmesh.surviving_mesh(mesh, lost_ids=ids[1:3])
+        assert new is not None
+        assert [int(d.id) for d in new.devices.flat] == [ids[0], ids[3]]
+        assert tuple(new.axis_names) == tuple(mesh.axis_names)
+
+    def test_disjoint_losses_mean_no_shrink(self):
+        # named ids not in the mesh: nothing to shrink, so the caller
+        # must not rebuild onto an identical topology and retry
+        mesh = pmesh.make_mesh(2, device="cpu")
+        assert pmesh.surviving_mesh(mesh, lost_ids=[10 ** 9]) is None
+
+    def test_nothing_survives(self):
+        mesh = pmesh.make_mesh(1, device="cpu")
+        ids = [int(d.id) for d in mesh.devices.flat]
+        assert pmesh.surviving_mesh(mesh, lost_ids=ids) is None
+
+    def test_lost_device_ids_against_backend(self, monkeypatch):
+        mesh = pmesh.make_mesh(1, device="cpu")
+        assert pmesh.lost_device_ids(mesh) == ()
+        assert pmesh.lost_device_ids(None) == ()
+        monkeypatch.setattr(pmesh, "live_device_ids", lambda: frozenset())
+        assert pmesh.lost_device_ids(mesh) == tuple(
+            sorted(int(d.id) for d in mesh.devices.flat))
+
+
+class TestMeshShrinkRecovery:
+    def _reference(self, model, params, train, pts):
+        svc = _service(_engine(model, params, train), max_batch=3,
+                       max_queue=64)
+        return {r.id: np.asarray(r.scores).copy()
+                for r in svc.run(_requests(pts))}
+
+    def _mesh_service(self, model, params, train, ndev):
+        mesh = pmesh.make_mesh(ndev, device="cpu")
+        eng = _engine(model, params, train, mesh=mesh)
+        return _service(eng, max_batch=3, max_queue=64, mesh=mesh)
+
+    def test_single_loss_recovers_bit_identical(self):
+        model, params, train = _setup()
+        pts = _unique_points(train, 8)
+        ref = self._reference(model, params, train, pts)
+
+        svc = self._mesh_service(model, params, train, 4)
+        with inject.active(
+            inject.Fault("serve.dispatch", at=1,
+                         kind=taxonomy.DEVICE_LOST),
+            strict=True, validate=True,
+        ):
+            responses = svc.run(_requests(pts))
+
+        assert all(r.ok for r in responses)
+        for r in responses:
+            assert np.array_equal(np.asarray(r.scores), ref[r.id])
+        assert int(svc.mesh.devices.size) == 3
+        assert int(svc._peek_engine().mesh.devices.size) == 3
+        assert svc.rollup()["device_loss_recoveries"] == 1
+
+    def test_consecutive_losses_keep_shrinking(self):
+        model, params, train = _setup(seed=3)
+        pts = _unique_points(train, 9)
+        ref = self._reference(model, params, train, pts)
+
+        svc = self._mesh_service(model, params, train, 4)
+        with inject.active(
+            inject.Fault("serve.dispatch", at=0,
+                         kind=taxonomy.DEVICE_LOST),
+            inject.Fault("serve.dispatch", at=2,
+                         kind=taxonomy.DEVICE_LOST),
+            strict=True, validate=True,
+        ):
+            responses = svc.run(_requests(pts))
+
+        assert all(r.ok for r in responses)
+        for r in responses:
+            assert np.array_equal(np.asarray(r.scores), ref[r.id])
+        assert int(svc.mesh.devices.size) == 2
+        assert svc.rollup()["device_loss_recoveries"] == 2
+
+    def test_zero_steady_state_compiles_after_recovery(self):
+        """Re-arming after the rebuild: once the mesh has shrunk and the
+        failed work re-dispatched, further traffic at the same geometries
+        builds nothing."""
+        from fia_tpu_torch.utils import compilemon
+
+        model, params, train = _setup(seed=5)
+        pts = _unique_points(train, 12)
+        svc = self._mesh_service(model, params, train, 4)
+        with inject.active(
+            inject.Fault("serve.dispatch", at=1,
+                         kind=taxonomy.DEVICE_LOST),
+            strict=True, validate=True,
+        ):
+            first = svc.run(_requests(pts[:6]))
+        assert all(r.ok for r in first)
+        eng = svc._peek_engine()
+        armed = set(eng._aot)
+        assert armed, "recovery left no geometry armed"
+        c0 = compilemon.count()
+        more = svc.run(_requests(pts[6:]))
+        assert all(r.ok for r in more)
+        assert set(eng._aot) == armed, (
+            "steady-state traffic after recovery armed new geometries")
+        assert compilemon.count() == c0
+
+    def test_meshless_loss_sheds_classified(self):
+        """As ``TestMeshless``'s: no mesh to shrink, the batch sheds."""
+        model, params, train = _setup(seed=1)
+        pts = _unique_points(train, 6)
+        svc = _service(_engine(model, params, train), max_batch=3,
+                       max_queue=64)
+        with inject.active(
+            inject.Fault("serve.dispatch", at=0,
+                         kind=taxonomy.DEVICE_LOST),
+            strict=True, validate=True,
+        ):
+            responses = svc.run(_requests(pts))
+        shed = [r for r in responses if not r.ok]
+        assert len(shed) == 3
+        assert all(r.reason == taxonomy.DEVICE_LOST for r in shed)
+        assert sum(1 for r in responses if r.ok) == 3
+
+    def test_rebuild_fault_fails_classified(self):
+        """A second fault during the rebuild itself must not escape
+        unclassified: recovery aborts, the batch sheds with the
+        device-loss reason, the rest of the stream still serves."""
+        model, params, train = _setup(seed=2)
+        pts = _unique_points(train, 8)
+        svc = self._mesh_service(model, params, train, 4)
+        with inject.active(
+            inject.Fault("serve.dispatch", at=1,
+                         kind=taxonomy.DEVICE_LOST),
+            inject.Fault("mesh.rebuild", at=0, kind=taxonomy.OOM),
+            strict=True, validate=True,
+        ):
+            responses = svc.run(_requests(pts))
+        shed = [r for r in responses if not r.ok]
+        assert shed, "rebuild fault should shed the failed batch"
+        assert all(r.reason in (taxonomy.DEVICE_LOST, taxonomy.OOM)
+                   for r in shed)
+        assert any(r.ok for r in responses)
+
+    def test_upload_fault_in_rebuild_keeps_the_old_placement(self):
+        """An upload that fails inside the rebuild (an OOM, which the
+        retry policy does not retry) leaves the engine on its old mesh
+        and replicas, in agreement with the service: the batch sheds
+        classified, and the next traffic serves bitwise."""
+        model, params, train = _setup(seed=4)
+        pts = _unique_points(train, 8)
+        ref = self._reference(model, params, train, pts)
+        svc = self._mesh_service(model, params, train, 4)
+        eng = svc._peek_engine()
+        fp = pmesh.mesh_fingerprint(eng.mesh)
+        with inject.active(
+            inject.Fault("serve.dispatch", at=1,
+                         kind=taxonomy.DEVICE_LOST),
+            inject.Fault("engine.upload", at=0, kind=taxonomy.OOM),
+            strict=True, validate=True,
+        ):
+            responses = svc.run(_requests(pts))
+        shed = [r for r in responses if not r.ok]
+        assert shed and all(r.reason in (taxonomy.DEVICE_LOST, taxonomy.OOM)
+                            for r in shed)
+        assert (pmesh.mesh_fingerprint(svc.mesh)
+                == pmesh.mesh_fingerprint(eng.mesh) == fp)
+        assert list(eng._replicas) == eng._devices()
+        assert svc.rollup()["device_loss_recoveries"] == 0
+        svc.invalidate()
+        again = svc.run(_requests(pts))
+        assert all(r.ok for r in again)
+        for r in [*again, *(r for r in responses if r.ok)]:
+            assert np.array_equal(np.asarray(r.scores), ref[r.id])
+
+    def test_rebuild_upload_fault_restores_the_engine(self):
+        """The engine alone: a rebuild onto the mesh without its first
+        slot (a new home slot) whose upload fails restores the old mesh,
+        home device and state of the engine and of its delegates, and
+        the next batch is the single-device engine's bits."""
+        model, params, train = _setup(seed=6)
+        pts = _unique_points(train, 7)
+        want = _engine(model, params, train).query_batch(pts)
+        mesh = pmesh.make_mesh(4, device="cpu")
+        eng = _engine(model, params, train, mesh=mesh)
+        sib = eng.approx_sibling()
+        before = (eng.device, eng._replicas, sib._replicas)
+        with inject.active(
+            inject.Fault("engine.upload", at=0, kind=taxonomy.OOM),
+            strict=True, validate=True,
+        ):
+            with pytest.raises(Exception) as err:
+                eng.rebuild_mesh(pmesh.surviving_mesh(mesh, [0]))
+        assert taxonomy.classify(err.value) == taxonomy.OOM
+        assert eng.mesh is mesh and sib.mesh is mesh
+        assert (eng.device, eng._replicas, sib._replicas) == before
+        got = eng.query_batch(pts)
+        assert got._packed.tobytes() == want._packed.tobytes()
+        assert got.ihvp.tobytes() == want.ihvp.tobytes()
+
+
+class TestConstructionLiveness:
+    def test_dead_mesh_device_fails_construction(self, monkeypatch):
+        model, params, train = _setup()
+        mesh = pmesh.make_mesh(1, device="cpu")
+        eng = _engine(model, params, train, mesh=mesh)
+        dead_id = int(next(iter(mesh.devices.flat)).id)
+        monkeypatch.setattr(
+            pmesh, "live_device_ids",
+            lambda: frozenset(range(8)) - {dead_id},
+        )
+        with pytest.raises(taxonomy.DeviceLost) as ei:
+            _service(eng, mesh=mesh)
+        assert taxonomy.classify(ei.value) == taxonomy.DEVICE_LOST
+        assert str(dead_id) in str(ei.value)
+        assert ei.value.devices == [dead_id]
+
+    def test_live_mesh_constructs(self):
+        model, params, train = _setup()
+        mesh = pmesh.make_mesh(1, device="cpu")
+        eng = _engine(model, params, train, mesh=mesh)
+        svc = _service(eng, mesh=mesh)
+        assert svc.health.mode == MODE_FULL
 
 
 class TestHealthController:

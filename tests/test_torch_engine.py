@@ -190,14 +190,17 @@ def test_stage_prefixes_match_reference(case, stage):
         np.testing.assert_allclose(a, b, rtol=rt, atol=ATOL)
 
 
-# the precomputed and sampled rungs and cache_dir are ported: their
-# cases now pair them with an option that is not, which still raises
+# the precomputed and sampled rungs, cache_dir and a mesh are ported:
+# their cases now pair them with an option that is not (row-sharded
+# tables, ROADMAP Queue A.13b; row_features='on', A.6b), which still
+# raises
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [
-    {"solver": "precomputed", "mesh": object()},
-    {"solver": "sampled", "shard_tables": True}, {"mesh": object()},
+    {"solver": "precomputed", "shard_tables": True},
+    {"solver": "sampled", "shard_tables": True},
+    {"solver": "cg", "shard_tables": True},
     {"shard_tables": True}, {"row_features": "on"},
-    {"impl": "padded", "mesh": object()},
+    {"impl": "padded", "shard_tables": True},
     {"cache_dir": "unused", "row_features": "on"},
 ])
 def test_unported_options_raise(kw, family):
@@ -214,13 +217,22 @@ def test_unported_options_raise(kw, family):
     {"cache_dir": "unused"},
     {"solver": "sampled", "sampled_cap": 8, "sampled_tol": 0.5},
     {"cpu_fallback": False}, {"cpu_fallback": True, "mesh": None},
+    {"mesh": 2},
 ])
 def test_ported_rungs_construct(kw, family):
+    """An int ``mesh`` stands for a real ``make_mesh(n, device="cpu")``
+    over virtual slots."""
+    from fia_tpu_torch.parallel import mesh as pmesh
+
     shape, x, y, _ = _kernels_setup()
     model = FAMILIES[family][0](*shape, 1e-3)
     params = model.init_params(torch.Generator().manual_seed(0))
-    eng = InfluenceEngine(model, params, RatingDataset(x, y), device="cpu",
-                          **kw)
+    with pmesh.virtual_devices(2):
+        if isinstance(kw.get("mesh"), int):
+            kw = dict(kw, mesh=pmesh.make_mesh(kw["mesh"], device="cpu"))
+        eng = InfluenceEngine(model, params, RatingDataset(x, y),
+                              device="cpu", **kw)
+    assert eng.mesh is kw.get("mesh")
     assert eng.solver == kw.get("solver", "direct")
     assert eng.sampled_cap == kw.get("sampled_cap", 64)
     assert eng.sampled_tol == kw.get("sampled_tol", float("inf"))

@@ -225,3 +225,16 @@ def test_time_influence_queries_matches_reference(trained):
             got.num_scores / got.total_time_s)
     with pytest.raises(ValueError, match="batch_queries"):
         rq2.time_influence_queries(port, pts, batch_queries=-1)
+
+
+def test_retraining_signature_is_the_references():
+    """``test_retraining`` takes the reference's parameters, in its order
+    and with its defaults, ``mesh`` before ``event_log`` (ROADMAP Queue
+    C.5: the port lacked ``mesh``)."""
+    import inspect
+
+    port = inspect.signature(rq1.test_retraining).parameters
+    ref = inspect.signature(ref_rq1.test_retraining).parameters
+    assert list(port) == list(ref)
+    for name, p in ref.items():
+        assert port[name].default == p.default, name

@@ -192,9 +192,22 @@ class TestFullEngine:
         assert eng.precompile()["cached"] == first["compiled"]
 
     def test_rejects_mesh(self, setup):
+        """A mesh is ported (``test_torch_parallel.py``): over 3 virtual
+        slots the 150 train rows shard 50 a slot, ``hvp_batch`` rounds up
+        to a slot multiple, and the influence meets the chunked bar
+        against the meshless engine."""
+        from fia_tpu_torch.parallel import mesh as pmesh
+
         model, params, train, *_ = setup
-        with pytest.raises(NotImplementedError, match="A.13"):
-            _full(model, params, train, mesh=object())
+        with pmesh.virtual_devices(3):
+            eng = _full(model, params, train, damping=0.1, hvp_batch=40,
+                        mesh=pmesh.make_mesh(3, device="cpu"))
+        assert eng.num_train == 150 and eng.hvp_batch == 42
+        full = _full(model, params, train, damping=0.1)
+        tx, ty = train.x[:2], train.y[:2]
+        np.testing.assert_allclose(eng.get_influence_on_test_loss(tx, ty),
+                                   full.get_influence_on_test_loss(tx, ty),
+                                   rtol=1e-3, atol=1e-6)
 
 
 class TestAgainstReference:

@@ -86,6 +86,9 @@ STREAM_MODULES = ("fia_tpu_torch.stream",
                   "fia_tpu_torch.audit.plan",
                   "fia_tpu_torch.audit.verify",
                   "fia_tpu_torch.cli.debug_data")
+# the data-axis device mesh
+PARALLEL_MODULES = ("fia_tpu_torch.parallel",
+                    "fia_tpu_torch.parallel.mesh")
 
 
 def _forbidden(name: str) -> bool:
@@ -128,6 +131,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(OBS_MODULES) <= set(names)
     assert set(SERVE_MODULES) <= set(names)
     assert set(STREAM_MODULES) <= set(names)
+    assert set(PARALLEL_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -161,7 +165,8 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
 
 @pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
                          + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES
-                         + OBS_MODULES + SERVE_MODULES + STREAM_MODULES)
+                         + OBS_MODULES + SERVE_MODULES + STREAM_MODULES
+                         + PARALLEL_MODULES)
 def test_ncf_modules_import_alone_without_nvcc(module):
     """Imported on their own, with no nvcc to be found: no JAX, nothing
     of fia_tpu, and no kernel library built or loaded."""

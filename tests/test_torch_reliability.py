@@ -10,8 +10,8 @@ deadline) and ``TestTrainerRetry``. Elsewhere: the RQ1 driver's resume
 (``TestRq1Resume``) in ``test_torch_cli.py::test_rq1_resume_and_deadline``,
 the artifact ladder (``TestArtifactLadderCollision``) in
 ``test_torch_cli.py::test_artifact_path_rules_match_the_reference``;
-``TestDistributedRetry`` waits for the multi-device port (ROADMAP Queue
-A.13).
+``TestDistributedRetry`` waits for the multi-process port (ROADMAP Queue
+A.13b).
 
 Added: each CUDA, cuBLAS, cuSOLVER and NCCL signature on the literal
 message PyTorch raises, and the kernel-launch and build strings that

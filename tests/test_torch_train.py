@@ -347,20 +347,32 @@ def test_signature_is_the_references(fn):
 
 
 def test_unported_options_raise(setup):
-    """A mesh (data parallelism, lane sharding) is ROADMAP Queue A.13:
-    ``mesh=None`` constructs and runs, a mesh raises naming the item."""
+    """A mesh (data parallelism, lane sharding) is ported: over 2 virtual
+    slots ``fit`` meets the reference's mesh bar (rtol 2e-4 / atol 1e-5)
+    of ``mesh=None``, and ``loo_retrain_many`` returns its one lane (the
+    padding lane sliced away) at the same bar."""
+    from fia_tpu_torch.parallel import mesh as pmesh
+
     _, model, _, arrays, x, y = setup
     cfg = T.TrainConfig(200, 5, 1e-2)
     tr = T.Trainer(model, cfg, mesh=None, device="cpu")
-    tr.fit(tr.init_state(_port_params(model, arrays)), x, y)
-    with pytest.raises(NotImplementedError, match="A.13"):
-        T.Trainer(model, cfg, mesh=object(), device="cpu")
+    want = tr.fit(tr.init_state(_port_params(model, arrays)), x, y)
     lanes = T.loo_retrain_many(model, _port_params(model, arrays), x, y,
                                [3], 2, 200, mesh=None, device="cpu")
     assert all(v.shape[0] == 1 for v in lanes.values())
-    with pytest.raises(NotImplementedError, match="A.13"):
-        T.loo_retrain_many(model, _port_params(model, arrays), x, y, [3],
-                           2, 200, mesh=object(), device="cpu")
+    with pmesh.virtual_devices(2):
+        m = pmesh.make_mesh(2, device="cpu")
+        tm = T.Trainer(model, cfg, mesh=m, device="cpu")
+        got = tm.fit(tm.init_state(_port_params(model, arrays)), x, y)
+        mlanes = T.loo_retrain_many(model, _port_params(model, arrays), x,
+                                    y, [3], 2, 200, mesh=m, device="cpu")
+    for k in want.params:
+        np.testing.assert_allclose(got.params[k].numpy(),
+                                   want.params[k].numpy(), rtol=2e-4,
+                                   atol=1e-5)
+        assert mlanes[k].shape == lanes[k].shape
+        np.testing.assert_allclose(mlanes[k].numpy(), lanes[k].numpy(),
+                                   rtol=2e-4, atol=1e-5)
 
 
 def test_reliability_copies_match_reference():
