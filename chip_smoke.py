@@ -352,6 +352,45 @@ Phases, each of which makes the script exit non-zero when it fails:
      mesh's check on a host of several cards.
      The score and Hessian rows of the ``kernels`` line gain a ``mesh``
      path (12a's, 12b's and 12c's launches).
+ 13. row-sharded embedding tables on the ``('data', 'model')`` mesh and
+     the multi-process runtime (``fia_tpu_torch.parallel.sharded``,
+     ``parallel.distributed``), first MF, then NCF, on phase 4's engines,
+     data and weights, under ``sharded`` in the ``perf`` line:
+     a. ``InfluenceEngine(shard_tables=True)`` over the (data, model)
+        meshes (2, 2) and (1, 4) of 4 virtual slots on ``cuda:0``: each
+        slot holds exactly ``padded_rows(n, m) / m`` rows of each table;
+        ``precompile_flat`` at the geometries of ``query_batch`` at T =
+        256 and 1024, then those batches bitwise the single-device engine
+        (scores, iHVPs, test vectors) with no capture, the score kernel
+        and ``segment_hessian`` launched; 256 of 8d's banked pairs
+        bitwise; the padded direct program at T = 256 bitwise the
+        replicated padded engine on the same mesh; walls beside the
+        single-device engine's. With two or more cards visible, again
+        over the real cards (the tables split across cards, the gather
+        crossing them);
+     b. ``rebuild_mesh`` (2, 2) -> (1, 2) keeps the tables sharded and
+        (1, 2) -> (1, 1) places them replicated, ``query_batch(1024)``
+        bitwise after each; a service on the (2, 2) sharded mesh loses
+        a device at batch 1 and shrinks to (1, 2), every answer bitwise
+        the single-device service's;
+     c. (once) the script starts two processes of itself
+        (``--phase13-worker``), gloo on loopback, each owning 2 virtual
+        slots on ``cuda:0``, on ``make_hybrid_mesh(model_parallel=2)``:
+        the sharded ``query_batch(1024)`` of MF and NCF, the full
+        engine's CG influence and a few data-parallel ``fit`` steps (MF)
+        bitwise the one-process (2, 2) mesh on both processes.
+     ``python3 chip_smoke.py --phase 13`` runs phases 1 and 2, the
+     set-up and 8d's banks, then phase 13 alone. The score and Hessian
+     rows of the ``kernels`` line gain a ``sharded`` path (13a's
+     launches).
+     The whole script runs phases 12 and 13 that way, each in a process
+     of its own started once phase 9 is over, beside phases 10 and 11
+     in this one, which keeps the script well inside its time limit;
+     so the walls of phases 10 to 13 are taken with the other processes
+     on the card, and the kernels' times of phases 3 to 8 with none. Their
+     output follows phase 11's, each line prefixed ``[12]`` or
+     ``[13]``; a failure of either fails the script, and their ``perf``
+     lines go into its own.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
@@ -359,9 +398,10 @@ Phases, each of which makes the script exit non-zero when it fails:
      (``engine.device_resets``), no batch on the CPU rung
      (``engine.cpu_fallback_batches``) and no reliability diagnostic;
      so must 10a and 10b (the registry is emptied after phase 9),
-     phase 11 outside the faults 11a injects (counted, then emptied), and
-     phase 12 outside 12b's injected losses (no retry, reset or CPU rung
-     there either; counted, then emptied).
+     phase 11 outside the faults 11a injects (counted, then emptied),
+     phase 12 outside 12b's injected losses and phase 13 outside 13b's
+     (no retry, reset or CPU rung there either; counted, then
+     emptied).
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -3545,8 +3585,8 @@ def capture_oom(family: str, off, eng, q) -> dict:
     total = torch.cuda.get_device_properties(0).total_memory
     inner = off._flat_fn
 
-    def greedy(s_pad, stage="scores", mode="direct"):
-        fn = inner(s_pad, stage, mode)
+    def greedy(s_pad, stage="scores", mode="direct", **kw):
+        fn = inner(s_pad, stage, mode, **kw)
 
         def run(*args):
             if torch.cuda.is_current_stream_capturing():
@@ -5398,6 +5438,396 @@ def mesh_launches(row: dict, source: str) -> dict:
             for mode in ("virtual", "real") if mode in row}
 
 
+# -- phase 13: row-sharded tables and the multi-process runtime ---------
+# 13a: the (data, model) meshes over 4 virtual slots on one card, the
+# query batches of BATCHES bitwise single-device, the padded program at
+# SHARD_PADDED_T bitwise the replicated padded engine, MESH_BANK_T bank
+# hits; 13b: the rebuild (2, 2) -> (1, 2) -> (1, 1) and a service over
+# SHARD_SERVE_N requests losing a device; 13c: two processes of
+# SHARD_PROC_SLOTS virtual slots each on cuda:0 (gloo on loopback), a
+# make_hybrid_mesh(model_parallel=2): query_batch(BATCHES[-1]) for MF and
+# NCF, the full engine's CG at SHARD_FULL_MAXITER and SHARD_FIT_STEPS fit
+# steps at FULL_BATCH (MF), each bitwise the one-process (2, 2) mesh
+SHARD_SHAPES = ((2, 2), (1, 4))
+SHARD_PADDED_T, SHARD_SERVE_N = 256, 512
+SHARD_PROC_SLOTS, SHARD_FULL_MAXITER, SHARD_FIT_STEPS = 2, 10, 4
+SHARD_WORKER = "--phase13-worker"
+SHARD_WORKER_S = 240
+# how 13c starts a worker: this script, with SHARD_WORKER and its slot
+SHARD_WORKER_CMD = (sys.executable, os.path.abspath(__file__))
+
+
+def shard_shapes(real: int) -> tuple:
+    """13a's (data, model) shapes: SHARD_SHAPES over 4 virtual slots
+    (``real`` 0), else the shapes of ``real`` real cards with a model
+    axis of at least 2."""
+    if not real:
+        return SHARD_SHAPES
+    return tuple((real // m, m) for m in (2, 4) if real % m == 0
+                 and real >= m)
+
+
+def table_slot_bytes(eng, model) -> dict:
+    """Each slot's bytes of each row-sharded table, and what the
+    contract asks: ``padded_rows(n, m) / m`` rows of the whole table."""
+    from fia_tpu_torch.parallel import sharded as SH
+
+    m = int(eng.mesh.shape["model"])
+    got, want = {}, {}
+    for name in SH.table_names(model):
+        v = eng.params[name]
+        host = eng._params_host[name]
+        row = host[0].nbytes
+        want[name] = SH.padded_rows(host.shape[0], m) // m * row
+        got[name] = sorted({x.numel() * x.element_size()
+                            for x in v.shards})
+    return {"got": got, "want": want}
+
+
+def sharded_dispatch(family: str, eng, train, pts, workdir: str,
+                     base: dict, real: int = 0) -> dict:
+    """13a: the sharded engine over each (data, model) shape: bitwise
+    the single-device engine (``base``) at BATCHES, bank hits bitwise,
+    the padded program at SHARD_PADDED_T bitwise the replicated padded
+    engine on the same mesh; each slot's table bytes padded_rows / m of
+    the table; the score kernel and segment_hessian launched on the
+    sharded path; no capture after ``precompile_flat``; walls beside
+    the single-device engine's."""
+    from fia_tpu_torch.parallel import sharded as SH
+
+    tag = f"{family} 13a{' real' if real else ''}"
+    out, launches = {"shapes": {}, "single_ms": base["ms"]}, {}
+    with mesh_slots(real, 4):
+        for d, m in shard_shapes(real):
+            mesh = SH.make_2d_mesh(d * m, model_parallel=m)
+            se = mesh_engine(eng, train, mesh, shard_tables=True)
+            check(se._sharded_now() and se.active_kernel_variant() == "cuda",
+                  f"{tag} ({d}, {m}): not a sharded cuda engine")
+            tb = table_slot_bytes(se, eng.model)
+            check(all(tb["got"][k] == [tb["want"][k]] for k in tb["want"]),
+                  f"{tag} ({d}, {m}): table bytes by slot {tb['got']}, "
+                  f"padded_rows / {m} is {tb['want']}")
+            geoms = sorted({se.flat_geometry(pts[:T]) for T in BATCHES})
+            armed = se.precompile_flat(geoms)
+            check(len(armed["compiled"]) == len(geoms),
+                  f"{tag} ({d}, {m}): precompile built {armed}")
+            c0 = compilemon.count()
+            reset_counts()
+            got = {T: se.query_batch(pts[:T]) for T in BATCHES}
+            counted = launch_counts()
+            captured = compilemon.count() - c0
+            check(captured == 0, f"{tag} ({d}, {m}): {captured} captures "
+                  "after precompile_flat")
+            check(counted[SOURCES[family]] > 0
+                  and counted[SEGMENT_SOURCE] > 0,
+                  f"{tag} ({d}, {m}): kernels not launched: {counted}")
+            launches = add_counts(launches, counted)
+            for T in BATCHES:
+                same_result(got[T], base["batch"][T],
+                            f"{tag} ({d}, {m}) T={T}")
+            ms = wall_ms(lambda: se.query_batch(pts[:BATCHES[-1]]), reps=3)
+            del se, got
+            pm = ladder_engine(eng, train, solver="precomputed",
+                               cache_dir=workdir, model_name=f"smoke-{family}",
+                               mesh=mesh, shard_tables=True)
+            reset_counts()
+            same_result(pm.query_batch(base["hits"]), base["bank"],
+                        f"{tag} ({d}, {m}) bank hits")
+            bank_counted = launch_counts()
+            check(bank_counted[SOURCES[family]] > 0,
+                  f"{tag} ({d}, {m}): bank hits never launched "
+                  f"{SOURCES[family]}")
+            launches = add_counts(launches, bank_counted)
+            del pm
+            q = pts[:SHARD_PADDED_T]
+            walls = {}
+            for sharded in (True, False):
+                pe = mesh_engine(eng, train, mesh, impl="padded",
+                                 shard_tables=sharded)
+                t0 = time.perf_counter()
+                res = pe.query_batch(q)
+                torch.cuda.synchronize()
+                walls[sharded] = (time.perf_counter() - t0) * 1e3
+                if sharded:
+                    padded = res
+                del pe
+            check(padded._packed.tobytes() == res._packed.tobytes()
+                  and padded.ihvp.tobytes() == res.ihvp.tobytes()
+                  and padded.test_grad.tobytes() == res.test_grad.tobytes(),
+                  f"{tag} ({d}, {m}): the sharded padded program is not "
+                  "bitwise the replicated one")
+            out["shapes"][f"{d}x{m}"] = {
+                "query_batch_ms": ms, "table_bytes": tb,
+                "geometries": [list(g) for g in geoms],
+                "padded_ms": walls[True], "padded_replicated_ms": walls[False]}
+            log(f"{tag}: ({d}, {m}) mesh of "
+                f"{'real cards' if real else 'virtual slots'}, row-sharded "
+                f"tables ({', '.join(f'{k} {v}' for k, v in tb['want'].items())}"
+                f" B a slot): query_batch {BATCHES}, {MESH_BANK_T} bank hits "
+                f"bitwise single-device; padded T={SHARD_PADDED_T} bitwise "
+                f"the replicated padded engine ({walls[True]:.1f} ms, "
+                f"replicated {walls[False]:.1f} ms, first call each); 0 "
+                f"captures after precompile_flat; query_batch({BATCHES[-1]})"
+                f" {ms:.2f} ms wall, {base['ms']:.2f} ms single-device")
+    out["launches"] = launches
+    return out
+
+
+def sharded_recovery(family: str, eng, train, pts) -> dict:
+    """13b: ``rebuild_mesh`` (2, 2) -> (1, 2) keeps the tables sharded,
+    (1, 2) -> (1, 1) places them replicated, each bitwise; a service on
+    the (2, 2) sharded mesh loses a device at batch 1 and shrinks to
+    (1, 2), every answer bitwise the single-device service's."""
+    from fia_tpu_torch.parallel import sharded as SH
+
+    tag = f"{family} 13b"
+    T = BATCHES[-1]
+    want = eng.query_batch(pts[:T])
+    reqs = serve_stream(pts)[:SHARD_SERVE_N]
+
+    def config(**kw):
+        return serve_config(max_batch=MESH_SERVE_BATCH, **kw)
+
+    single = {r.id: r for r in InfluenceService(engine=eng,
+                                                config=config()).run(reqs)}
+    with pmesh.virtual_devices(4):
+        mesh = SH.make_2d_mesh(4, model_parallel=2)
+        se = mesh_engine(eng, train, mesh, shard_tables=True)
+        shrunk = pmesh.surviving_mesh(mesh)
+        se.rebuild_mesh(shrunk)
+        check(shrunk.shape == {"data": 1, "model": 2} and se._sharded_now()
+              and isinstance(se.params["P" if family == "mf" else "P_mlp"],
+                             SH.Placed),
+              f"{tag}: the rebuild onto {shrunk} did not keep the tables "
+              "sharded")
+        same_result(se.query_batch(pts[:T]), want, f"{tag} after (1, 2)")
+        se.rebuild_mesh(pmesh.surviving_mesh(shrunk))
+        check(not se._sharded_now(), f"{tag}: (1, 1) still sharded")
+        same_result(se.query_batch(pts[:T]), want, f"{tag} after (1, 1)")
+        del se
+        me = mesh_engine(eng, train, mesh, shard_tables=True)
+        svc = InfluenceService(engine=me, config=config(mesh=mesh))
+        with inject.active(inject.Fault(sites.SERVE_DISPATCH, at=1,
+                                        kind=taxonomy.DEVICE_LOST),
+                           strict=True, validate=True):
+            got = svc.run(list(reqs))
+        for r in got:
+            check(r.ok and r.scores.tobytes() == single[r.id].scores.tobytes(),
+                  f"{tag}: request {r.id} not bitwise the single-device "
+                  "service's")
+        check(svc.mesh.shape == {"data": 1, "model": 2} and me._sharded_now()
+              and svc.rollup()["device_loss_recoveries"] == 1,
+              f"{tag}: the service's mesh {svc.mesh} after the loss")
+        del me, svc
+    got_counts = recovery_counts()
+    check(not got_counts["retries"] and not got_counts["resets"]
+          and not got_counts["cpu_rung_batches"],
+          f"{tag}: a recovery ladder beyond the shrink: {got_counts}")
+    obs.REGISTRY.reset()  # the injected loss, counted
+    log(f"{tag}: rebuild (2, 2) -> (1, 2) kept the tables row-sharded and "
+        f"(1, 2) -> (1, 1) placed them replicated, query_batch({T}) bitwise "
+        f"single-device after each; a (2, 2) sharded service over "
+        f"{SHARD_SERVE_N} requests lost a device at batch 1 and shrank to "
+        "(1, 2), every answer bitwise the single-device service's")
+    return {"recoveries": 1}
+
+
+def shard_process_run(mesh, models: dict, train, pts) -> dict:
+    """13c's work on ``mesh`` (one process's or two processes'):
+    host results by name."""
+    out = {}
+    for family, model in models.items():
+        params = model.init_params(torch.Generator().manual_seed(0),
+                                   device=CARD)
+        se = engine(model, params, train, damping=DAMPING, mesh=mesh,
+                    shard_tables=True)
+        reset_counts()
+        res = se.query_batch(pts[:BATCHES[-1]])
+        counted = launch_counts()
+        out[f"{family}_launches"] = np.asarray(
+            [counted[SOURCES[family]], counted[SEGMENT_SOURCE]])
+        out.update({f"{family}_packed": res._packed,
+                    f"{family}_ihvp": res.ihvp,
+                    f"{family}_v": res.test_grad})
+        del se
+        if family != "mf":
+            continue
+        full = FullInfluenceEngine(model, params, train, damping=1e-2,
+                                   solver="cg",
+                                   cg_maxiter=SHARD_FULL_MAXITER, mesh=mesh)
+        out["full_scores"] = full.get_influence_on_test_loss(
+            train.x[:2], train.y[:2])
+        del full
+        tr = Trainer(model, TrainConfig(batch_size=FULL_BATCH,
+                                        num_steps=SHARD_FIT_STEPS,
+                                        learning_rate=TRAIN_LR, seed=0),
+                     mesh=mesh)
+        state = tr.fit(tr.init_state(params), train.x, train.y)
+        out.update({f"fit_{k}": v.cpu().numpy()
+                    for k, v in state.params.items()})
+    return out
+
+
+def shard_worker(argv) -> int:
+    """One process of 13c: ``--phase13-worker <id> <port> <out>``."""
+    from fia_tpu_torch.parallel import distributed as D
+
+    pid, port, path = int(argv[0]), int(argv[1]), argv[2]
+    pmesh.set_virtual_devices(SHARD_PROC_SLOTS)
+    D.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=pid)
+    try:
+        mesh = D.make_hybrid_mesh(model_parallel=2)
+        check(dict(mesh.shape) == {"data": 2, "model": 2}
+              and D.spans_processes(mesh)
+              and all(len({s.process_index for s in row}) == 1
+                      for row in mesh.devices),
+              f"13c worker {pid}: mesh {mesh}")
+        train = synthesize_ratings(USERS, ITEMS, ROWS, seed=0)
+        pts = sample_heldout_pairs(train.x, USERS, ITEMS, max(BATCHES),
+                                   seed=17)
+        t0 = time.perf_counter()
+        out = shard_process_run(mesh, {"mf": MF(USERS, ITEMS, K_EMB, WD),
+                                       "ncf": NCF(USERS, ITEMS, K_EMB, WD)},
+                                train, pts)
+        out["seconds"] = np.asarray(time.perf_counter() - t0)
+        np.savez(f"{path}.{pid}.npz", **out)
+    finally:
+        D.shutdown()
+    return 0
+
+
+def sharded_processes(engines, train, pts) -> dict:
+    """13c: two processes, gloo on loopback, each owning SHARD_PROC_SLOTS
+    virtual slots on cuda:0, on ``make_hybrid_mesh(model_parallel=2)``:
+    every result bitwise the one-process (2, 2) mesh of the same slots."""
+    import socket
+
+    from fia_tpu_torch.parallel import sharded as SH
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    work = tempfile.TemporaryDirectory()
+    path = os.path.join(work.name, "proc")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [*SHARD_WORKER_CMD, SHARD_WORKER, str(p), str(port), path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for p in (0, 1)]
+    try:
+        # the one-process side runs while the workers start and run
+        with pmesh.virtual_devices(2 * SHARD_PROC_SLOTS):
+            mesh = SH.make_2d_mesh(2 * SHARD_PROC_SLOTS, model_parallel=2)
+            want = shard_process_run(mesh, {f: e.model for f, (e, _)
+                                            in engines.items()}, train, pts)
+        logs = [p.communicate(timeout=SHARD_WORKER_S)[0].decode()
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        logs = ["timed out"] * 2
+    finally:
+        for p in procs:  # a crashed worker leaves its peer waiting
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, text in zip(procs, logs):
+        check(p.returncode == 0, f"13c: a worker failed ({p.returncode}):\n"
+              + text[-4000:])
+    got = [dict(np.load(f"{path}.{p}.npz")) for p in (0, 1)]
+    work.cleanup()
+    for p, g in enumerate(got):
+        for k, v in want.items():
+            if k.endswith("_launches"):
+                continue
+            check(g[k].tobytes() == v.tobytes(),
+                  f"13c: process {p}'s {k} is not bitwise the one-process "
+                  "(2, 2) mesh's")
+    for f in engines:
+        check(all(g[f"{f}_launches"].min() > 0 for g in got),
+              f"13c: {f}'s kernels not launched in a process: "
+              f"{[g[f + '_launches'].tolist() for g in got]}")
+    log(f"13c: two processes (gloo on loopback, {SHARD_PROC_SLOTS} virtual "
+        f"slots each on cuda:0, make_hybrid_mesh(model_parallel=2)): "
+        f"query_batch({BATCHES[-1]}) of MF and NCF, the full engine's CG "
+        f"({SHARD_FULL_MAXITER} iterations) and {SHARD_FIT_STEPS} fit steps "
+        f"bitwise the one-process (2, 2) mesh on both processes; "
+        f"{wall:.1f} s wall for the pair (start-up included; the "
+        f"one-process side ran meanwhile), their work "
+        f"{[round(float(g['seconds']), 1) for g in got]} s")
+    return {"wall_s": wall, "work_s": [float(g["seconds"]) for g in got],
+            "launches": {f: [g[f"{f}_launches"].tolist() for g in got]
+                         for f in engines}}
+
+
+def drive_sharded(engines, train, pts, workdir: str) -> dict:
+    """Phase 13 (per model: 13a over virtual slots, and over the real
+    cards where two or more are visible; 13b; then 13c once)."""
+    out = {}
+    real = min(4, torch.cuda.device_count())
+    real = real if real >= 2 else 0
+    obs.REGISTRY.reset()
+    for family, (eng, _) in engines.items():
+        t0 = time.perf_counter()
+        pre1 = ladder_engine(eng, train, solver="precomputed",
+                             cache_dir=workdir, model_name=f"smoke-{family}")
+        check(pre1.ensure_factor_bank() >= MESH_BANK_T,
+              f"{family} 13a: 8d's bank did not load")
+        hits = pre1._bank.pairs[:MESH_BANK_T].astype(np.int64)
+        base = {"batch": {T: eng.query_batch(pts[:T]) for T in BATCHES},
+                "hits": hits, "bank": pre1.query_batch(hits),
+                "ms": wall_ms(lambda: eng.query_batch(pts[:BATCHES[-1]]),
+                              reps=3)}
+        del pre1
+        row = out.setdefault(family, {})
+        row["13a"] = sharded_dispatch(family, eng, train, pts, workdir, base)
+        if real:
+            row["13a_real"] = sharded_dispatch(family, eng, train, pts,
+                                               workdir, base, real=real)
+        else:
+            log(f"{family} 13a: {torch.cuda.device_count()} CUDA device "
+                "visible: the sharded mesh over real cards was not run")
+        no_recovery(f"13a {family}")
+        row["13b"] = sharded_recovery(family, eng, train, pts)
+        row["real_cards"] = real
+        row["seconds"] = time.perf_counter() - t0
+        del base
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["13c"] = sharded_processes(engines, train, pts)
+    out["13c"]["seconds"] = time.perf_counter() - t0
+    no_recovery("13c")
+    return out
+
+
+def sharded_only(engines, train, pts, card: str, kind: str,
+                 t_main: float) -> int:
+    """``--phase 13``: after the build and the set-up, 8d's banks, then
+    phase 13 alone, its results on the ``perf`` line."""
+    with tempfile.TemporaryDirectory() as workdir:
+        for family, (eng, _) in engines.items():
+            publish_hot_bank(family, eng, train, workdir)
+        t13 = time.perf_counter()
+        perf = {"card": card, "sharded": drive_sharded(engines, train, pts,
+                                                       workdir)}
+    perf["phase13_seconds"] = time.perf_counter() - t13
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"phase 13: {perf['phase13_seconds']:.1f} s; chip_smoke --phase 13 "
+        f"total: {perf['total_seconds']:.1f} s")
+    log("perf " + json.dumps(perf, sort_keys=True))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def sharded_launches(row: dict, source: str) -> dict:
+    """A kernel's launches in phase 13a (virtual slots, and real cards
+    where they ran)."""
+    return {part: row[part]["launches"][source]
+            for part in ("13a", "13a_real") if part in row}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -5441,6 +5871,8 @@ def main() -> int:
         f"{longest} rows (RQ2's 64 queries: {longest_rq2})")
     if sys.argv[1:] == ["--phase", "12"]:
         return mesh_only(engines, train, pts, card, kind, t_main)
+    if sys.argv[1:] == ["--phase", "13"]:
+        return sharded_only(engines, train, pts, card, kind, t_main)
 
     # -- phases 3 and 4, per model: kernels, then main path --------------
     checked, driven = {}, {}
@@ -5646,7 +6078,61 @@ def main() -> int:
     perf["phase9_seconds"] = time.perf_counter() - t9
     log(f"phase 9: {perf['phase9_seconds']:.1f} s")
 
-    # -- phase 10: serving on the card ---------------------------------
+    # -- phases 12 and 13 in processes of their own, beside 10 and 11 ---
+    t_apart = time.perf_counter()
+    apart_dir = tempfile.TemporaryDirectory()
+    apart = {n: start_apart(n, apart_dir.name) for n in APART_PHASES}
+    try:
+        perf.update(phases_10_11(engines, train, pts, envelope_dir,
+                                 ladder_dir, trained_states, rows,
+                                 seg_by_path))
+        got = {n: finish_apart(n, h) for n, h in apart.items()}
+    finally:
+        for h in apart.values():
+            stop_apart(h)
+    apart_dir.cleanup()
+    perf["phases_10_13_seconds"] = time.perf_counter() - t_apart
+    log(f"phases 10-13: {perf['phases_10_13_seconds']:.1f} s (12 and 13 "
+        "in processes of their own beside 10 and 11)")
+    by_name = {row["name"]: row for row in rows}
+
+    # -- phase 12: the data-axis device mesh ----------------------------
+    mesh = perf["mesh"] = got[12]["mesh"]
+    perf["phase12_seconds"] = got[12]["phase12_seconds"]
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["mesh"] = mesh_launches(
+            mesh[family], SOURCES[family])
+        seg_by_path[family]["mesh"] = mesh_launches(mesh[family],
+                                                    SEGMENT_SOURCE)
+
+    # -- phase 13: row-sharded tables and the multi-process runtime -----
+    sharded = perf["sharded"] = got[13]["sharded"]
+    perf["phase13_seconds"] = got[13]["phase13_seconds"]
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["sharded"] = \
+            sharded_launches(sharded[family], SOURCES[family])
+        seg_by_path[family]["sharded"] = sharded_launches(sharded[family],
+                                                          SEGMENT_SOURCE)
+    ladder_dir.cleanup()
+    envelope_dir.cleanup()
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"chip_smoke total: {perf['total_seconds']:.1f} s")
+
+    log("perf " + json.dumps(perf, sort_keys=True))
+    log(card)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def phases_10_11(engines, train, pts, envelope_dir, ladder_dir,
+                 trained_states, rows, seg_by_path) -> dict:
+    """Phases 10 and 11 in this process; their launches go into
+    ``rows``' and ``seg_by_path``'s ``launches_by_path``. Returns their
+    entries of the ``perf`` line."""
+    perf = {}
     t10 = time.perf_counter()
     os.environ["FIA_MEMLIMIT_CACHE"] = os.path.join(envelope_dir.name,
                                                     "mem.json")
@@ -5680,30 +6166,54 @@ def main() -> int:
                                    audit=b[SEGMENT_SOURCE])
     perf["phase11_seconds"] = time.perf_counter() - t11
     log(f"phase 11: {perf['phase11_seconds']:.1f} s")
+    return perf
 
-    # -- phase 12: the data-axis device mesh ----------------------------
-    t12 = time.perf_counter()
-    mesh = perf["mesh"] = drive_mesh(engines, train, pts, ladder_dir.name)
-    for family in engines:
-        by_name[SOURCES[family]]["launches_by_path"]["mesh"] = mesh_launches(
-            mesh[family], SOURCES[family])
-        seg_by_path[family]["mesh"] = mesh_launches(mesh[family],
-                                                    SEGMENT_SOURCE)
-    perf["phase12_seconds"] = time.perf_counter() - t12
-    log(f"phase 12: {perf['phase12_seconds']:.1f} s")
-    ladder_dir.cleanup()
-    envelope_dir.cleanup()
-    perf["total_seconds"] = time.perf_counter() - t_main
-    log(f"chip_smoke total: {perf['total_seconds']:.1f} s")
 
-    log("perf " + json.dumps(perf, sort_keys=True))
-    log(card)
-    log(json.dumps({"kernels": rows}))
-    log(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
-    }}))
-    return 0
+# phases run in processes of their own (``--phase N``) beside phases 10
+# and 11, each given APART_S seconds
+APART_PHASES, APART_S = (12, 13), 300
+
+
+def start_apart(n: int, workdir: str) -> tuple:
+    """Start ``chip_smoke.py --phase n``, its output to a file."""
+    path = os.path.join(workdir, f"phase{n}.log")
+    out = open(path, "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--phase", str(n)],
+                            stdout=out, stderr=subprocess.STDOUT)
+    return proc, out, path
+
+
+def stop_apart(handle) -> None:
+    """End a phase's process if it still runs."""
+    proc, out, _ = handle
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    out.close()
+
+
+def finish_apart(n: int, handle) -> dict:
+    """Wait for phase ``n``'s process, print its output (each line
+    prefixed ``[n]``), require exit 0, and return its ``perf`` line."""
+    proc, out, path = handle
+    try:
+        proc.wait(timeout=APART_S)
+    except subprocess.TimeoutExpired:
+        stop_apart(handle)
+    out.close()
+    with open(path, errors="replace") as f:
+        text = f.read().splitlines()
+    for line in text:
+        log(f"[{n}] {line}")
+    check(proc.returncode == 0, f"phase {n} (its own process) exited "
+          f"{proc.returncode}: " + "\n".join(text[-20:]))
+    perf = [ln for ln in text if ln.startswith("perf ")]
+    check(len(perf) == 1, f"phase {n} printed {len(perf)} perf lines")
+    return json.loads(perf[0][len("perf "):])
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [SHARD_WORKER]:
+        sys.exit(shard_worker(sys.argv[2:]))
     sys.exit(main())

@@ -58,7 +58,8 @@ class FIAModel:
       initial_learning_rate, damping, avextol, train_dir, model_name,
       solver (the engines' default rung), seed (initial params and batch
       schedules), mesh (a ``data``-axis mesh the trainer and the engines
-      run over; the model's device is then its first slot's), device
+      run over; the model's device is then its first slot's; a 2-D
+      ``('data', 'model')`` mesh row-shards the engines' tables), device
       (``None``: the CUDA device, raising without one; ``"cpu"``).
     """
 
@@ -142,6 +143,9 @@ class FIAModel:
             # from_model) overrides the model's; the key was built before
             # the pop, so engines on different meshes coexist
             mesh = extra.pop("mesh", self.mesh)
+            # a 2-D mesh with a 'model' axis row-shards the tables
+            extra.setdefault("shard_tables", mesh is not None and int(
+                mesh.shape.get("model", 1)) > 1)
             eng = self._engines[key] = InfluenceEngine(
                 self.model, self.state.params, self.data_sets["train"],
                 damping=self.damping, solver=name,

@@ -10,8 +10,9 @@ What differs: ``--backend`` selects the torch device — none (the
 default) runs on the CUDA device and raises without one, ``cpu`` runs
 on the CPU; ``--mesh N`` lays a 1-D ``data`` mesh over the first N
 slots of that backend (virtual slots, ``parallel.mesh.virtual_devices``,
-when fewer devices are visible), and ``--model_parallel > 1`` raises
-``NotImplementedError`` naming ROADMAP Queue A.13b. Fresh weights come from a ``torch.Generator`` seeded with
+when fewer devices are visible), and ``--model_parallel M`` with it a
+2-D ``('data', 'model')`` mesh whose engines row-shard the embedding
+tables (``parallel.sharded``). Fresh weights come from a ``torch.Generator`` seeded with
 ``--seed``, which cannot reproduce ``jax.random``'s draws: a run that
 trains from scratch starts elsewhere than the reference's (ROADMAP
 Queue C), while one that loads the reference's checkpoint starts where
@@ -199,22 +200,25 @@ def engine_kwargs(args) -> dict:
 
 
 def mesh_for(args):
-    """A 1-D ``data`` mesh over the first ``--mesh`` slots of the
-    ``--backend`` device (None when 0). Row-sharded tables
-    (``--model_parallel > 1``, the 2-D ``('data', 'model')`` mesh) are
-    ROADMAP Queue A.13b and raise."""
-    if getattr(args, "model_parallel", 1) > 1:
-        if not getattr(args, "mesh", 0):
-            raise SystemExit("--model_parallel > 1 requires --mesh N")
-        raise NotImplementedError(
-            "not ported yet — --model_parallel > 1: ROADMAP Queue A.13b")
+    """A mesh over the first ``--mesh`` slots of the ``--backend`` device
+    (None when 0): 1-D ``data`` by default, 2-D ``('data', 'model')``
+    with ``--model_parallel > 1`` (:func:`~fia_tpu_torch.parallel.
+    sharded.make_2d_mesh`; ``engine_kwargs`` then asks for row-sharded
+    tables)."""
+    mp = int(getattr(args, "model_parallel", 1))
     if not getattr(args, "mesh", 0):
+        if mp > 1:
+            raise SystemExit("--model_parallel > 1 requires --mesh N")
         return None
     from fia_tpu_torch.parallel.mesh import make_mesh
+    from fia_tpu_torch.parallel.sharded import make_2d_mesh
 
     try:
+        if mp > 1:
+            return make_2d_mesh(args.mesh, model_parallel=mp,
+                                device=args.backend)
         return make_mesh(args.mesh, device=args.backend)
-    except ValueError as e:  # fewer slots visible than asked for
+    except ValueError as e:  # fewer slots than asked for, or mp ∤ mesh
         raise SystemExit(f"--mesh {args.mesh} requested: {e}")
 
 

@@ -109,7 +109,8 @@ def run_verify(engine, args, name, summary) -> int:
 
     def mk(solver, cache):
         return InfluenceEngine(
-            engine.model, engine.params, train, damping=engine.damping,
+            engine.model, engine.full_params(), train,
+            damping=engine.damping,
             solver=solver, cache_dir=args.train_dir if cache else None,
             model_name=name, lissa_depth=min(engine.lissa_depth, 200),
             device=engine.device,

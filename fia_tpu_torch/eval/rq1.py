@@ -77,7 +77,7 @@ def test_retraining(
             )
 
     model = engine.model
-    params0 = engine.params
+    params0 = engine.full_params()
     rng = np.random.default_rng(random_seed)
 
     point = test_ds.x[test_idx]

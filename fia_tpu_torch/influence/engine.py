@@ -78,6 +78,15 @@ query axis is sharded along ``data`` as in the reference (docs/design.md
 §15): each contiguous query shard runs the unchanged single-device
 program on its slot's device, with no collective, and the host stitches
 the packed outputs, so every mesh size gives the single-device bits.
+With ``shard_tables`` the embedding tables are row-sharded over the
+mesh's ``model`` axis (docs/design.md §20): each query shard first
+gathers the table rows its queries read from the row shards
+(:meth:`_local_tables`, outside any captured graph), then runs the same
+program on those shard-local tables with its ids remapped into them, the
+score kernel included: the replicated program's bits. Over a mesh that
+spans processes each process runs its own shards and the outputs are
+all-gathered and stitched in global shard order
+(:mod:`fia_tpu_torch.parallel.distributed`).
 :meth:`InfluenceEngine.rebuild_mesh` re-homes the engine on a shrunk mesh
 after device loss (``engine.mesh_rebuilds``, the ``mesh.rebuild`` site and
 event). Options of the reference that the port does not run yet raise
@@ -108,7 +117,9 @@ from fia_tpu_torch.influence.kernels import certificate as Kcert
 from fia_tpu_torch.influence.kernels import common as Kc
 from fia_tpu_torch.influence.kernels import eigmin as Keig
 from fia_tpu_torch.influence.kernels import segment as Kseg
+from fia_tpu_torch.parallel import distributed as pdist
 from fia_tpu_torch.parallel import mesh as pmesh
+from fia_tpu_torch.parallel import sharded as SH
 from fia_tpu_torch.reliability import inject, policy, sites, taxonomy
 from fia_tpu_torch.utils import compilemon, memlimits
 
@@ -321,6 +332,16 @@ def _fetch_shards(outs) -> list[list[np.ndarray]]:
     return [host[k * n:(k + 1) * n] for k in range(len(outs))]
 
 
+def _with_tables(params: dict, names, tables) -> dict:
+    """``params`` with its tables ``names`` replaced by ``tables`` (a
+    shard's local tables, in ``table_names`` order); ``params`` itself
+    when ``names`` is empty."""
+    if not names:
+        return params
+    return {**{k: v for k, v in params.items() if k not in names},
+            **dict(zip(names, tables))}
+
+
 def _on(dev):
     """``dev`` as the current CUDA device (a mesh shard's programs are
     captured and replayed on its own device's current stream); nothing
@@ -493,7 +514,17 @@ class InfluenceEngine:
         device (the flat program at one ``(t_loc, s_loc)`` geometry per
         dispatch: the same bits as the single-device engine at every mesh
         size); the state is replicated once per physical device. The
-        engine's own device is the mesh's first slot's.
+        engine's own device is the mesh's first local slot's. A mesh may
+        span processes (``parallel.distributed``): each runs its own
+        shards, every process gets the whole result.
+      shard_tables: row-shard the embedding tables over the mesh's
+        ``model`` axis (which it needs): each ``data`` row of the mesh
+        holds one copy, split over its ``model`` slots
+        (:func:`~fia_tpu_torch.parallel.sharded.shard_model_params`).
+        Every program gathers the rows it reads first and runs on
+        shard-local tables: the same bits as replicated tables, the
+        score kernel still launched. On a mesh whose ``model`` axis has
+        size 1 (after a shrink) the tables are replicated.
       cache_dir: where the factor bank's default path hangs
         (``<cache_dir>/factor/<model_name>-bank.npz``) and where
         :meth:`get_influence_on_test_loss` caches iHVPs as npz files keyed
@@ -560,17 +591,20 @@ class InfluenceEngine:
             raise ValueError(
                 f"{type(model).__name__} defines no closed-form block_hessian"
             )
-        for unported, item in (
-            (shard_tables, "shard_tables: ROADMAP Queue A.13b"),
-            (row_features == "on", "row_features='on': ROADMAP Queue A.6b"),
-        ):
-            if unported:
-                raise NotImplementedError(f"not ported yet — {item}")
+        if row_features == "on":
+            raise NotImplementedError(
+                "not ported yet — row_features='on': ROADMAP Queue A.6b")
         if mesh is not None and "data" not in mesh.axis_names:
             raise ValueError("a mesh needs a 'data' axis")
+        if shard_tables and (mesh is None or "model" not in mesh.axis_names):
+            raise ValueError("shard_tables requires a mesh with a 'model' axis")
+        self._shard_tables = bool(shard_tables)
         self.mesh = mesh
         self.device = pmesh.mesh_device(mesh, device)
         self.model = model
+        # the score kernel keeps running with shard_tables (unlike the
+        # reference, whose Pallas kernel reads whole tables): the sharded
+        # program scores from shard-local tables (_local_tables)
         self.kernel = kernel
         self._kernel_variant = K.resolve_variant(kernel, model, self.device)
         # Host copies (float32 numpy) survive a device failure: the device
@@ -635,13 +669,42 @@ class InfluenceEngine:
         by :meth:`rebuild_mesh`."""
         inject.fire(sites.ENGINE_UPLOAD)
         postings = self.index.postings()
+        placed = None
+        if self._sharded_now():
+            # the tables row-sharded over 'model' (zero pad rows: real ids
+            # never reach them), every other param one copy a device
+            placed = SH.shard_model_params(self.mesh, self._params_host,
+                                           self.model, pad_rows=True)
         self._adopt_state({
             dev: ({k: torch.as_tensor(v).to(dev)
-                   for k, v in self._params_host.items()},
+                   for k, v in self._params_host.items()} if placed is None
+                  else {k: p if p.axis is not None else p.on(dev)
+                        for k, p in placed.items()},
                   torch.as_tensor(self._train_host[0]).to(dev),
                   torch.as_tensor(self._train_host[1]).to(dev),
                   tuple(torch.as_tensor(a).to(dev) for a in postings))
             for dev in self._devices()})
+
+    def _sharded_now(self) -> bool:
+        """The tables are row-sharded on the CURRENT mesh. A
+        ``shard_tables`` engine re-homed by :meth:`rebuild_mesh` onto a
+        mesh without a non-trivial 'model' axis (``surviving_mesh``
+        collapses to trailing size 1 when the survivors cannot fill a
+        group; ``None`` is the single-device last rung) places them
+        replicated: they must then fit one device, which degraded mode
+        accepts over dying."""
+        return (self._shard_tables and self.mesh is not None
+                and "model" in self.mesh.axis_names
+                and int(self.mesh.shape["model"]) > 1)
+
+    def full_params(self) -> dict:
+        """The params as whole tensors on the engine's device: ``params``
+        itself with replicated tables; with row-sharded ones, the host
+        copies placed whole (for callers that retrain from them)."""
+        if not self._sharded_now():
+            return self.params
+        return {k: torch.as_tensor(v).to(self.device)
+                for k, v in self._params_host.items()}
 
     def _adopt_state(self, replicas: dict) -> None:
         """Point the engine at ``replicas``, the device state
@@ -663,10 +726,12 @@ class InfluenceEngine:
     def _shard_devices(self) -> list:
         """The device of each query shard, in shard order: the mesh's
         ``data`` slots', or the engine's own (one shard) without a
-        mesh."""
+        mesh; ``None`` for a shard another process runs."""
         if self.mesh is None:
             return [self.device]
-        return [slot.device for slot in pmesh.data_slots(self.mesh)]
+        me = pmesh.process_index()
+        return [slot.device if int(slot.process_index) == me else None
+                for slot in pmesh.data_slots(self.mesh)]
 
     def _state_on(self, dev=None) -> tuple:
         """``(params, train_x, train_y, postings)`` on ``dev`` (None: the
@@ -883,7 +948,7 @@ class InfluenceEngine:
         return prelude
 
     def _flat_fn(self, s_pad: int, stage: str = "scores",
-                 mode: str = "direct"):
+                 mode: str = "direct", sharded: bool = False):
         """All queries' related rows on one flat (S,) axis; per-query
         Hessians accumulated by segment reduction.
 
@@ -908,6 +973,13 @@ class InfluenceEngine:
         (T, 3) with each query's bank row in its third column): no
         Hessian, each iHVP from its factor (:func:`_bank_solve`), then
         the same score stage.
+
+        ``sharded``: ``params`` holds shard-local tables and ``extra``
+        starts with their sorted keys ``(su, si)``
+        (:meth:`_local_tables`); after the prelude, which reads the
+        postings by the real ids, every user and item id is remapped into
+        the local tables (:func:`~fia_tpu_torch.parallel.sharded.remap`),
+        so every later op reads the same values in the same arithmetic.
         """
         if stage not in STAGES + ("segments", "operands", "certificate"):
             raise ValueError(f"unknown stage {stage!r}")
@@ -930,6 +1002,13 @@ class InfluenceEngine:
             qx = tx if tx.shape[1] == 2 else tx[:, :2].contiguous()
             rel_x = train_x[row]
             rel_y = train_y[row]
+            if sharded:
+                su, si, *extra = extra
+                u, ut = SH.remap(su, u), SH.remap(su, ut)
+                i, it = SH.remap(si, i), SH.remap(si, it)
+                qx = torch.stack([u, i], dim=1)
+                rel_x = torch.stack([SH.remap(su, rel_x[:, 0]),
+                                     SH.remap(si, rel_x[:, 1])], dim=1)
             e = model.row_predict(params, rel_x) - rel_y
             n_t = torch.clamp(counts.to(torch.float32), min=1.0)
             rdiag = model.block_reg_diag(params)
@@ -1086,23 +1165,117 @@ class InfluenceEngine:
         ndev, q, t_loc, _ = plan
         return plan, self._shard_blocks(tx_np, ndev, q, t_loc)
 
+    def _upload_blocks(self, blocks) -> list:
+        """Each shard's query block on its device (``None`` for a shard
+        another process runs)."""
+        out = []
+        for dev, block in zip(self._shard_devices(), blocks):
+            if dev is None:
+                out.append(None)
+                continue
+            with _on(dev):
+                out.append(self._upload(block, dev))
+        return out
+
+    def _local_tables(self, txs: list, related) -> list:
+        """The shard-local tables of a sharded dispatch: for each shard's
+        uploaded query block (``None``: another process's), the (n,)
+        sorted user and item ids of its related rows and queries
+        (:func:`~fia_tpu_torch.parallel.sharded.sorted_keys`; ``related``
+        maps ``(dev, tx)`` to the (·, 2) related rows' ids, the same rows
+        the program reads), then each table's rows at those ids, gathered
+        from the row shards (:func:`~fia_tpu_torch.parallel.sharded.
+        gather_table_rows`). Returns per shard ``(su, si, *tables)`` in
+        ``table_names`` order, the inputs a sharded program takes after
+        its query block; eager, outside any captured graph (the gather
+        may cross devices), with no host wait."""
+        keys = []
+        for dev, tx in zip(self._shard_devices(), txs):
+            if tx is None:
+                keys.append(None)
+                continue
+            with _on(dev):
+                rel = related(dev, tx)
+                keys.append(SH.sorted_keys(
+                    torch.cat([rel[:, 0], tx[:, 0].to(rel.dtype)]),
+                    torch.cat([rel[:, 1], tx[:, 1].to(rel.dtype)])))
+        rows = SH.gather_table_rows(
+            self.mesh, self.model, self.params,
+            [k and k[0] for k in keys], [k and k[1] for k in keys])
+        names = SH.table_names(self.model)
+        return [None if k is None else (*k, *(r[n] for n in names))
+                for k, r in zip(keys, rows)]
+
+    def _local_shards(self, blocks, related):
+        """Each query shard of a dispatch, in shard order: ``None`` for a
+        shard another process runs, else ``(dev, tx, params, state,
+        keys)``: its query block uploaded to its slot's device, that
+        device's params and ``(train_x, train_y, postings)``; on a
+        sharded engine the params' tables are the shard's local tables
+        and ``keys`` their sorted ids ``(su, si)`` (:meth:`_local_tables`,
+        over the rows ``related`` names), else ``keys`` is ``()``. Every
+        shard's tables are gathered before the first is yielded."""
+        txs = self._upload_blocks(blocks)
+        sharded = self._sharded_now()
+        local = (self._local_tables(txs, related) if sharded
+                 else [()] * len(txs))
+        names = SH.table_names(self.model) if sharded else ()
+        for dev, tx, loc in zip(self._shard_devices(), txs, local):
+            if dev is None:
+                yield None
+                continue
+            params, *state = self._state_on(dev)
+            yield (dev, tx, _with_tables(params, names, loc[2:]), state,
+                   tuple(loc[:2]))
+
+    def _flat_related(self, s_pad: int):
+        """``related(dev, tx)`` of the flat program at ``s_pad``: the
+        (s_pad, 2) ids of the train rows on its flat axis (the prelude's,
+        the pad positions' included)."""
+        prelude = self._flat_prelude(s_pad)
+
+        def related(dev, tx):
+            _, train_x, _, postings = self._state_on(dev)
+            return train_x[prelude(tx, postings)[4]]
+
+        return related
+
     def _run_shards(self, blocks, t_loc: int, s_loc: int,
                     mode: str = "direct") -> list:
         """Enqueue every shard's program on its slot's device, each at
-        ``(t_loc, s_loc)``; returns each shard's outputs in shard order.
-        No host wait: every shard is queued before any result is
-        fetched, so shards on real devices overlap. A direct dispatch
-        counts one AOT hit or miss, whatever its shard count."""
+        ``(t_loc, s_loc)``; returns each shard's outputs in shard order
+        (``None`` for another process's shard). No host wait: every
+        shard is queued before any result is fetched, so shards on real
+        devices overlap. A sharded engine first gathers each shard's
+        local tables (:meth:`_local_tables`). A direct dispatch counts
+        one AOT hit or miss, whatever its shard count."""
         if mode == "direct":
             obs.REGISTRY.counter(
                 "engine.aot_hits" if self._aot_key(t_loc, s_loc) in self._aot
                 else "engine.aot_misses").inc()
+        names = SH.table_names(self.model) if self._sharded_now() else ()
         outs = []
-        for dev, block in zip(self._shard_devices(), blocks):
+        for sh in self._local_shards(blocks, self._flat_related(s_loc)):
+            if sh is None:
+                outs.append(None)
+                continue
+            dev, tx, params, _, keys = sh
             with _on(dev):
-                tx = self._upload(block, dev)
-                outs.append(self._flat_exec(t_loc, s_loc, mode, dev)(tx))
+                outs.append(self._flat_exec(t_loc, s_loc, mode, dev)(
+                    tx, *keys, *(params[n] for n in names)))
         return outs
+
+    def _collect(self, outs) -> list[list[np.ndarray]]:
+        """Each shard's outputs as host arrays in shard order: this
+        process's fetched in one transfer a device
+        (:func:`_fetch_shards`), and, over a mesh spanning processes, the
+        others' all-gathered in global shard order."""
+        mine = [k for k, o in enumerate(outs) if o is not None]
+        parts = [None] * len(outs)
+        if mine:
+            for k, h in zip(mine, _fetch_shards([outs[k] for k in mine])):
+                parts[k] = h
+        return pdist.fill_shards(parts)
 
     @staticmethod
     def _stitch(shards: list, counts, q: int, flat: int) -> list:
@@ -1141,11 +1314,13 @@ class InfluenceEngine:
 
     def _aot_key(self, t_pad: int, s_pad: int):
         """The identity of an armed geometry: the geometry, the
-        score-kernel variant, the Hessian form, and the mesh fingerprint
-        LAST (``compiled_geometries`` reads the geometry as ``(k[1],
+        score-kernel variant, the Hessian form, the table placement
+        (``rebuild_mesh`` can flip a ``shard_tables`` engine between
+        sharded and replicated programs), and the mesh fingerprint LAST
+        (``compiled_geometries`` reads the geometry as ``(k[1],
         k[2])``)."""
         return ("flat", t_pad, s_pad, self._kernel_variant, self.flat_accum,
-                self._mesh_fp())
+                self._sharded_now(), self._mesh_fp())
 
     def _flat_key(self, t_pad: int, s_pad: int, mode: str = "direct",
                   dev=None):
@@ -1153,14 +1328,17 @@ class InfluenceEngine:
         score-kernel variant, the Hessian form, the addresses of the
         tensors it reads on ``dev`` (a captured graph reads them by
         address; a bank program its factors too), and the mesh
-        fingerprint. Slots that share a device share its programs."""
+        fingerprint. Slots that share a device share its programs. A
+        sharded program takes its tables as inputs: the row shards are
+        not among the tensors it reads."""
         params, train_x, train_y, postings = self._state_on(dev)
         tensors = (*params.values(), train_x, train_y, *postings)
         if mode == "bank":
             tensors += self._bank_on(dev)
         return ("flat" if mode == "direct" else mode, t_pad, s_pad,
-                self._kernel_variant, self.flat_accum,
-                tuple(x.data_ptr() for x in tensors), self._mesh_fp())
+                self._kernel_variant, self.flat_accum, self._sharded_now(),
+                tuple(x.data_ptr() for x in tensors
+                      if isinstance(x, torch.Tensor)), self._mesh_fp())
 
     def precompile_flat(self, geometries) -> dict:
         """Build the flat programs of ``(t_pad, s_pad)`` geometries ahead
@@ -1209,30 +1387,40 @@ class InfluenceEngine:
                     dev=None):
         """One geometry's program on ``dev`` (None: the engine's device):
         ``run(tx) -> (scores, ihvp, v)`` (``mode`` "direct" or "bank"),
-        ``run(tx, ws, m) -> (scores, ihvp, v, err_bound)`` ("sampled").
-        On the card a captured CUDA graph (raising with the cause if the
-        program cannot be captured), on the CPU the program closure. Each
-        build is counted by :mod:`fia_tpu_torch.utils.compilemon`, with
-        its capture time."""
+        ``run(tx, ws, m) -> (scores, ihvp, v, err_bound)`` ("sampled");
+        with row-sharded tables, ``run(tx, su, si, *tables)``, the
+        shard-local tables of :meth:`_local_tables` (``s_pad + t_pad``
+        rows each). On the card a captured CUDA graph (raising with the
+        cause if the program cannot be captured), on the CPU the program
+        closure. Each build is counted by
+        :mod:`fia_tpu_torch.utils.compilemon`, with its capture time."""
         dev = self.device if dev is None else dev
-        fn = self._flat_fn(s_pad, mode=mode)
-        args = self._state_on(dev)
-        inputs = [((t_pad, 2), torch.int32)]
-        if mode == "bank":
-            inner = fn
-            args += self._bank_on(dev)
-            inputs = [((t_pad, 3), torch.int32)]
-
-            def fn(params, train_x, train_y, postings, bfac, bknd, tx):
-                return inner(params, train_x, train_y, postings, tx, bfac,
-                             bknd)
+        sharded = self._sharded_now()
+        fn = self._flat_fn(s_pad, mode=mode, sharded=sharded)
+        params, *state = self._state_on(dev)
+        bank = self._bank_on(dev) if mode == "bank" else ()
+        inputs = [((t_pad, 3 if mode == "bank" else 2), torch.int32)]
+        names = SH.table_names(self.model) if sharded else ()
+        if sharded:
+            n = s_pad + t_pad
+            inputs += [((n,), torch.int32)] * 2 + [
+                ((n, *params[k].shape[1:]), torch.float32) for k in names]
         elif mode == "sampled":
             inputs += [((s_pad,), torch.float32), ((t_pad,), torch.int32)]
+
+        # the program holds no reference to the engine: a dropped engine's
+        # graphs go with it, not at the next collection
+        def run(tx, *xs):
+            if not sharded:
+                return fn(params, *state, tx, *bank, *xs)
+            return fn(_with_tables(params, names, xs[2:]), *state, tx,
+                      *xs[:2], *bank)
+
         if dev.type != "cuda":
             compilemon.record()
-            return lambda *xs: fn(*args, *xs)
+            return run
         try:
-            prog = _FlatGraph(fn, args, inputs, dev)
+            prog = _FlatGraph(run, (), inputs, dev)
         except Exception as e:
             raise RuntimeError(
                 f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
@@ -1343,7 +1531,7 @@ class InfluenceEngine:
         T = int(np.asarray(counts).shape[0])
         total = int(counts.sum())
         packed, ihvp, v, *err = self._stitch(
-            _fetch_shards(outs), counts, max(T, 1) if q is None else q, 1)
+            self._collect(outs), counts, max(T, 1) if q is None else q, 1)
         # the payload seam every rung shares (the fetched iHVP host buffer)
         ihvp = inject.corrupt(sites.ENGINE_SOLVE, ihvp)
         return InfluenceResult(
@@ -1478,35 +1666,58 @@ class InfluenceEngine:
         device, then fetched and stitched."""
         counts, tx_np = self._query_block(chunk)
         (_, q, _, s_loc), blocks = self._mesh_blocks(tx_np, counts)
-        fn = self._flat_fn(s_loc, "hessian")
+        fn = self._flat_fn(s_loc, "hessian", sharded=self._sharded_now())
         hs = []
-        for dev, block in zip(self._shard_devices(), blocks):
+        for sh in self._local_shards(blocks, self._flat_related(s_loc)):
+            if sh is None:
+                hs.append(None)
+                continue
+            dev, tx, params, state, keys = sh
             with _on(dev):
-                hs.append((fn(*self._state_on(dev), self._upload(block, dev)),))
-        return self._stitch(_fetch_shards(hs), counts, q, 0)[0]
+                hs.append((fn(params, *state, tx, *keys),))
+        return self._stitch(self._collect(hs), counts, q, 0)[0]
 
     def _block_hessians_padded(self, chunk: np.ndarray) -> np.ndarray:
+        """The vmapped materialisation over the chunk's padded related
+        sets, whole, on this process's first query shard's device (the
+        engine's own without a mesh). A sharded engine reads its tables
+        through that shard's local tables, the ids remapped into them as
+        the flat program remaps them."""
         idx, mask, _ = self.index.related_padded(chunk,
                                                  bucket=self.pad_bucket)
-        model, damping, params = self.model, self.damping, self.params
+        model, damping = self.model, self.damping
         d = int(model.block_size)
-        dev = self.device
-        u = torch.as_tensor(chunk[:, 0]).to(dev)
-        i = torch.as_tensor(chunk[:, 1]).to(dev)
-        ridx = torch.as_tensor(idx, dtype=torch.int64).to(dev)
-        rel_x, rel_y = self.train_x[ridx], self.train_y[ridx]
-        w = torch.as_tensor(mask).to(dev).to(torch.float32)
-        if self._analytic_hessian:
-            H = torch.func.vmap(
-                lambda uu, ii, xx, yy, ww: model.block_hessian(
-                    params, uu, ii, xx, yy, ww)
-            )(u, i, rel_x, rel_y, w)
-            H = H + damping * torch.eye(d, dtype=torch.float32, device=dev)
-        else:
-            H = torch.func.vmap(
-                lambda uu, ii, xx, yy, ww: HV.materialize_block_hessian(
-                    model, params, uu, ii, xx, yy, ww, damping)
-            )(u, i, rel_x, rel_y, w)
+        devs = self._shard_devices()
+        k = next(k for k, dv in enumerate(devs) if dv is not None)
+        dev = devs[k]
+        params, train_x, train_y, _ = self._state_on(dev)
+        with _on(dev):
+            u = torch.as_tensor(chunk[:, 0]).to(dev)
+            i = torch.as_tensor(chunk[:, 1]).to(dev)
+            ridx = torch.as_tensor(idx, dtype=torch.int64).to(dev)
+            rel_x, rel_y = train_x[ridx], train_y[ridx]
+            w = torch.as_tensor(mask).to(dev).to(torch.float32)
+            if self._sharded_now():
+                txs = [None] * len(devs)
+                txs[k] = torch.stack([u, i], dim=1)
+                su, si, *tables = self._local_tables(
+                    txs, lambda _dev, _tx: rel_x.reshape(-1, 2))[k]
+                params = _with_tables(params, SH.table_names(model), tables)
+                u, i = SH.remap(su, u), SH.remap(si, i)
+                rel_x = torch.stack([SH.remap(su, rel_x[..., 0]),
+                                     SH.remap(si, rel_x[..., 1])], dim=-1)
+            if self._analytic_hessian:
+                H = torch.func.vmap(
+                    lambda uu, ii, xx, yy, ww: model.block_hessian(
+                        params, uu, ii, xx, yy, ww)
+                )(u, i, rel_x, rel_y, w)
+                H = H + damping * torch.eye(d, dtype=torch.float32,
+                                            device=dev)
+            else:
+                H = torch.func.vmap(
+                    lambda uu, ii, xx, yy, ww: HV.materialize_block_hessian(
+                        model, params, uu, ii, xx, yy, ww, damping)
+                )(u, i, rel_x, rel_y, w)
         return H.cpu().numpy()
 
     def factor_bank_path(self) -> str | None:
@@ -1896,20 +2107,15 @@ class InfluenceEngine:
         return solvers.solve_lissa(hvp, v, scale=self.lissa_scale,
                                    recursion_depth=self.lissa_depth), None
 
-    def _padded_fn(self, pad: int):
-        """The reference's ``_query_one`` over T queries at once, packed
-        on the device (``_batched_packed``). Returns ``fn(params,
-        train_x, train_y, postings, tx, total, s) -> (packed, ihvp, v,
-        iterations)``; ``total`` is the batch's related-row count, which
-        the host knows, so packing needs no device-to-host wait, and the
-        packed scores are zero-padded to ``s >= total`` entries."""
-        model = self.model
+    @staticmethod
+    def _padded_related(pad: int):
+        """``related(train_x, postings, tx) -> (nu, ni, rel_idx,
+        rel_mask)``: each query's related train rows at pad ``pad``, user
+        postings first, then item postings, duplicates kept
+        (InteractionIndex.related's order)."""
 
-        def fn(params, train_x, train_y, postings, tx, total: int, s: int):
-            T = tx.shape[0]
+        def related(train_x, postings, tx):
             u, i = tx[:, 0].long(), tx[:, 1].long()
-            # related rows: user postings first, then item postings,
-            # duplicates kept (InteractionIndex.related's order)
             uoff, urows, ioff, irows = postings
             nu = uoff[u + 1] - uoff[u]
             ni = ioff[i + 1] - ioff[i]
@@ -1919,9 +2125,35 @@ class InfluenceEngine:
             gi = irows[torch.clamp(ioff[i][:, None] + (p - nu[:, None]), 0,
                                    irows.shape[0] - 1)]
             rel_idx = torch.where(p < nu[:, None], gu, gi)
-            rel_mask = p < (nu + ni)[:, None]
+            return nu, ni, rel_idx, p < (nu + ni)[:, None]
+
+        return related
+
+    def _padded_fn(self, pad: int, sharded: bool = False):
+        """The reference's ``_query_one`` over T queries at once, packed
+        on the device (``_batched_packed``). Returns ``fn(params,
+        train_x, train_y, postings, tx, total, s) -> (packed, ihvp, v,
+        iterations)``; ``total`` is the batch's related-row count, which
+        the host knows, so packing needs no device-to-host wait, and the
+        packed scores are zero-padded to ``s >= total`` entries.
+        ``sharded``: ``params`` holds shard-local tables and the sorted
+        keys ``(su, si)`` follow ``s`` (as :meth:`_flat_fn`'s)."""
+        model = self.model
+        related = self._padded_related(pad)
+
+        def fn(params, train_x, train_y, postings, tx, total: int, s: int,
+               *keys):
+            T = tx.shape[0]
+            u, i = tx[:, 0].long(), tx[:, 1].long()
+            nu, ni, rel_idx, rel_mask = related(train_x, postings, tx)
             rel_x = train_x[rel_idx]
             rel_y = train_y[rel_idx]
+            if sharded:
+                su, si = keys
+                u, i = SH.remap(su, u), SH.remap(si, i)
+                tx = torch.stack([u, i], dim=1).to(tx.dtype)
+                rel_x = torch.stack([SH.remap(su, rel_x[..., 0]),
+                                     SH.remap(si, rel_x[..., 1])], dim=-1)
             w = rel_mask.to(torch.float32)
             count = torch.sum(w, dim=1)
 
@@ -1973,19 +2205,30 @@ class InfluenceEngine:
         ndev, q = self._mesh_plan(counts, T)[:2]
         blocks = self._shard_blocks(np.asarray(test_points, np.int64), ndev,
                                     q, q)
-        fn = self._padded_fn(pad)
+        fn = self._padded_fn(pad, self._sharded_now())
+        related = self._padded_related(pad)
+
+        def rel_ids(dev, tx):
+            _, train_x, _, postings = self._state_on(dev)
+            return train_x[related(train_x, postings, tx)[2]].reshape(-1, 2)
+
         outs, its = [], []
-        for dev, block in zip(self._shard_devices(), blocks):
+        for block, sh in zip(blocks, self._local_shards(blocks, rel_ids)):
+            if sh is None:
+                outs.append(None)
+                its.append(None)
+                continue
+            dev, tx, params, state, keys = sh
             tot = int(self.index.counts_batch(block).sum())
             s = (int(s_pad) if s_pad is not None and tot <= s_pad
                  else bucketed_pad(tot, 1024))
             with _on(dev):
-                *out, it = fn(*self._state_on(dev), self._upload(block, dev),
-                              tot, s)
+                *out, it = fn(params, *state, tx, tot, s, *keys)
             outs.append(out)
-            its.append(it)
-        # iterations: the longest shard's loop count
-        iterations = None if its[0] is None else max(int(i) for i in its)
+            its.append((it,))
+        # iterations: the longest shard's loop count (of every process's)
+        its = [int(x) for (x,) in pdist.fill_shards(its) if x is not None]
+        iterations = max(its) if its else None
         return self._assemble_packed(test_points, counts, outs, pad,
                                      iterations, q=q)
 
@@ -2478,10 +2721,21 @@ class InfluenceEngine:
         host, compared exactly: a leave-one-out subset must not serve the
         full set's scores), and the solve configuration."""
         if self._params_fp is None:
+            def stats_of(x):
+                if not isinstance(x, SH.Placed):
+                    return (torch.sum(x), torch.linalg.norm(x.reshape(-1)))
+                # a row-sharded table: the shards' sums added in row
+                # order, the norm from the shards' squared norms (the
+                # zero pad rows add nothing); no whole table is formed
+                parts = [p.to(self.device) for p in x.row_shards()]
+                total = sum(torch.sum(p) for p in parts)
+                sq = sum(torch.square(torch.linalg.norm(p.reshape(-1)))
+                         for p in parts)
+                return (total, torch.sqrt(sq))
+
             stats = torch.stack([
                 s for k in sorted(self.params)
-                for s in (torch.sum(self.params[k]),
-                          torch.linalg.norm(self.params[k].reshape(-1)))
+                for s in stats_of(self.params[k])
             ])
             hx, hy = self._train_host
             n = hx.shape[0]

@@ -31,6 +31,7 @@ from fia_tpu_torch.data.dataset import RatingDataset
 from fia_tpu_torch.influence import solvers
 from fia_tpu_torch.influence.engine import _on
 from fia_tpu_torch.influence.hvp import ravel_params
+from fia_tpu_torch.parallel import distributed as pdist
 from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites
 from fia_tpu_torch.reliability import policy as rpolicy
@@ -59,7 +60,10 @@ class FullInfluenceEngine:
         the partial HVPs are summed in slot order on the first slot's
         device (no collective, no atomics). ``hvp_batch`` then rounds up
         to a multiple of ``ndata``, each slot's chunk being
-        ``hvp_batch / ndata`` of its rows.
+        ``hvp_batch / ndata`` of its rows. Over a mesh spanning
+        processes, each process computes its own slots' partials and
+        dots, all-gathered to every process and summed (concatenated) in
+        the same slot order, so the result is the one-process mesh's.
       residual_guard: a solve whose relative residual exceeds this (or is
         non-finite) escalates ``lissa → cg``; ``None`` screens NaNs only.
       device: ``None`` (the CUDA device; raises without one), ``"cuda"``
@@ -128,10 +132,11 @@ class FullInfluenceEngine:
             m = self.num_train // ndata
             flat0 = {dev: self._flat0.to(dev)
                      for dev in pmesh.physical_devices(mesh)}
+            me = pmesh.process_index()
             self._shards = [
                 (self.train_x[k * m:(k + 1) * m].to(s.device),
                  self.train_y[k * m:(k + 1) * m].to(s.device),
-                 flat0[s.device])
+                 flat0[s.device]) if int(s.process_index) == me else None
                 for k, s in enumerate(pmesh.data_slots(mesh))]
         #: CG's loop count of the last solve (None after LiSSA)
         self.last_iterations: int | None = None
@@ -193,7 +198,11 @@ class FullInfluenceEngine:
         model, unravel = self.model, self._unravel
         b = self._shard_b()
         parts = []
-        for x, y, flat0 in self._shards:
+        for shard in self._shards:
+            if shard is None:
+                parts.append(None)
+                continue
+            x, y, flat0 = shard
             vd = v.to(flat0.device)
             with _on(flat0.device):
                 if b is None:
@@ -208,6 +217,7 @@ class FullInfluenceEngine:
                                 model.indiv_loss(unravel(f), cx, cy) * w),
                             vd, flat0)
             parts.append(part)
+        parts = pdist.fill_shards(parts)
         total = parts[0].to(self.device)
         for part in parts[1:]:
             total = total + part.to(self.device)
@@ -313,7 +323,11 @@ class FullInfluenceEngine:
         model, unravel = self.model, self._unravel
         b = self._shard_b()
         out = []
-        for x, y, flat0 in self._shards:
+        for shard in self._shards:
+            if shard is None:
+                out.append(None)
+                continue
+            x, y, flat0 = shard
             ud = u.to(flat0.device)
             with _on(flat0.device):
                 if b is None:
@@ -328,7 +342,7 @@ class FullInfluenceEngine:
                         for cx, cy, _ in self._chunks(x, y, b)
                     ])[: x.shape[0]]
             out.append(d)
-        return torch.cat([d.to(self.device) for d in out])
+        return torch.cat([d.to(self.device) for d in pdist.fill_shards(out)])
 
     # -- public API --------------------------------------------------------
     def get_influence_on_test_loss(self, test_x, test_y, seed: int = 0

@@ -1,7 +1,7 @@
-"""The ``data``-axis device mesh (port of ``fia_tpu/parallel``): one
-process drives every slot of its mesh. The multi-process runtime
-(``parallel/distributed.py``) and row-sharded tables
-(``parallel/sharded.py``) are ROADMAP Queue A.13b."""
+"""The device mesh (port of ``fia_tpu/parallel``): the ``data`` axis
+(``mesh.py``; each process drives its own slots), row-sharded embedding
+tables over a ``model`` axis (``sharded.py``) and the multi-process
+runtime on ``torch.distributed`` (``distributed.py``)."""
 
 from fia_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -12,3 +12,4 @@ from fia_tpu_torch.parallel.mesh import (  # noqa: F401
     shard_along,
     virtual_devices,
 )
+from fia_tpu_torch.parallel.sharded import make_2d_mesh  # noqa: F401

@@ -1,14 +1,21 @@
 """Device-mesh helpers (port of ``fia_tpu/parallel/mesh.py``).
 
-The port's scaling axis for this workload is ``data``: test-query batches
-(influence), minibatch rows and leave-one-out lanes (training), and
-train-row shards (the full-parameter HVP). Along it every shard runs the
-unchanged single-device program on its own slice, with no collective
-(docs/design.md §15), so one process drives every device of its mesh: it
-enqueues each shard's program on its slot's device and stitches the
-results on the host. ``torch.distributed`` has no part in this module;
-what crosses processes (``parallel/distributed.py``, row-sharded tables
-on a ``model`` axis) is ROADMAP Queue A.13b.
+The port's scaling axes for this workload are ``data`` and ``model``.
+Along ``data`` (test-query batches in influence, minibatch rows and
+leave-one-out lanes in training, train-row shards in the full-parameter
+HVP) every shard runs the unchanged single-device program on its own
+slice, with no collective (docs/design.md §15): one process enqueues
+each of its shards' programs on the shard's slot's device and the host
+stitches the results. Along ``model`` the embedding tables are
+row-sharded (:mod:`fia_tpu_torch.parallel.sharded`, docs/design.md §20):
+each ``data`` row of a 2-D ``('data', 'model')`` mesh holds one copy of
+every table split over its ``model`` slots.
+
+A mesh may span processes (:func:`init_pod_mesh`,
+:mod:`fia_tpu_torch.parallel.distributed`): every slot carries the
+``process_index`` of the process that owns it, a process runs only its
+own slots' shards (:func:`local_slots`, :func:`physical_devices`), and
+what crosses processes is gathered to every host in global slot order.
 
 A :class:`Mesh` is an ordered array of device slots (:class:`Slot`: an
 ``id``, the ``process_index`` of the host that owns it, and the
@@ -40,8 +47,6 @@ import numpy as np
 import torch
 
 from fia_tpu_torch.device import resolve_device
-
-_A13B = "ROADMAP Queue A.13b"
 
 # Armed by virtual_hosts()/set_virtual_hosts(): slot id -> host index.
 # None means "trust the slot" (its process_index). Process-global like
@@ -170,6 +175,30 @@ def _local_slots(kind: str, index: int | None) -> list[Slot]:
     return [Slot(0, 0, torch.device("cpu"))]
 
 
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` group (0 with
+    none): the ``process_index`` of the slots it owns."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_rank())
+    return 0
+
+
+def process_count() -> int:
+    """Processes in the ``torch.distributed`` group (1 with none)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_world_size())
+    return 1
+
+
+def local_slots(mesh: Mesh) -> list[Slot]:
+    """The slots of ``mesh`` this process owns, in slot order (all of
+    them in one process)."""
+    me = process_index()
+    return [s for s in mesh.devices.flat if int(s.process_index) == me]
+
+
 def make_mesh(
     n_devices: int | None = None,
     axis_names: tuple[str, ...] = ("data",),
@@ -205,18 +234,37 @@ def init_pod_mesh(
     device=None,
     **distributed_kwargs,
 ) -> Mesh:
-    """A mesh over every device of the job. In one process this is
-    exactly :func:`make_mesh` over the local devices, so callers write
-    one code path; across processes (``num_processes > 1``, or an
-    initialised ``torch.distributed`` group of more than one rank) it
-    raises: the multi-process runtime is ROADMAP Queue A.13b."""
-    nproc = int(distributed_kwargs.get("num_processes") or 1)
-    dist = torch.distributed
-    if nproc > 1 or (dist.is_available() and dist.is_initialized()
-                     and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            f"not ported yet — a mesh across processes: {_A13B}")
-    return make_mesh(axis_names=axis_names, shape=shape, device=device)
+    """A mesh over every device of the job, so callers write one code
+    path. ``distributed_kwargs`` (``coordinator_address``,
+    ``num_processes``, ``process_id``) join the
+    process group first (:func:`fia_tpu_torch.parallel.distributed.
+    initialize`). In one process this is exactly :func:`make_mesh` over
+    the local slots; across processes it is every process's local slots
+    in process order, slot ``p * n + j`` being process p's j-th (each
+    process must lay the same number n), each with its ``process_index``.
+    A slot's ``device`` is the one its owner runs it on (the same local
+    index on every process)."""
+    from fia_tpu_torch.parallel import distributed
+
+    if distributed_kwargs:
+        distributed.initialize(**distributed_kwargs)
+    nproc = process_count()
+    if nproc == 1:
+        return make_mesh(axis_names=axis_names, shape=shape, device=device)
+    dev = resolve_device(device)
+    mine = _local_slots(dev.type, dev.index)
+    counts = distributed.allgather_object(len(mine))
+    if len(set(counts)) != 1:
+        raise ValueError(
+            f"every process must lay the same number of slots, got {counts}")
+    n = len(mine)
+    slots = [Slot(p * n + j, p, mine[j].device)
+             for p in range(nproc) for j in range(n)]
+    if shape is None:
+        shape = (len(slots),) + (1,) * (len(axis_names) - 1)
+    arr = np.empty(len(slots), dtype=object)
+    arr[:] = slots
+    return Mesh(arr.reshape(shape), axis_names)
 
 
 def mesh_fingerprint(mesh: Mesh | None):
@@ -242,15 +290,16 @@ def live_device_ids() -> frozenset:
     The liveness baseline for device-loss handling: a mesh referencing an
     id outside this set serves on a dead device. The real slots are the
     CUDA devices (``torch.cuda.device_count()``), or the CPU; armed
-    virtual slots are all alive while a physical device is. When the
+    virtual slots are all alive while a physical device is. Across
+    processes, every process's slots (ids ``p * n + j``) count as alive:
+    a dead peer shows as a failed exchange. When the
     probe itself raises the empty set is returned (every slot then counts
     as lost, which is the honest answer)."""
     try:
         phys = (torch.cuda.device_count() if torch.cuda.is_available()
                 else 1)
-        if _VIRTUAL_DEVICES is not None:
-            return frozenset(range(_VIRTUAL_DEVICES)) if phys else frozenset()
-        return frozenset(range(phys))
+        n = phys if _VIRTUAL_DEVICES is None else _VIRTUAL_DEVICES
+        return frozenset(range(n * process_count())) if phys else frozenset()
     except Exception:
         return frozenset()
 
@@ -344,10 +393,10 @@ def data_slots(mesh: Mesh) -> list[Slot]:
 
 
 def physical_devices(mesh: Mesh) -> list[torch.device]:
-    """The distinct ``torch.device`` s of a mesh's slots, in slot order:
-    where one replica of a replicated tensor lives."""
+    """The distinct ``torch.device`` s of this process's slots of a mesh,
+    in slot order: where one replica of a replicated tensor lives."""
     out: list[torch.device] = []
-    for s in mesh.devices.flat:
+    for s in local_slots(mesh):
         if s.device not in out:
             out.append(s.device)
     return out
@@ -355,12 +404,15 @@ def physical_devices(mesh: Mesh) -> list[torch.device]:
 
 def mesh_device(mesh: Mesh | None, device=None) -> torch.device:
     """The device of an entry point: ``device`` (None: CUDA, raising
-    without it) when there is no mesh; over ``mesh``, its first slot's
-    (where results are gathered and shared state lives), and a
+    without it) when there is no mesh; over ``mesh``, this process's
+    first slot's (where results are gathered and shared state lives), and a
     ``device`` the caller also passed must be of that kind."""
     if mesh is None:
         return resolve_device(device)
-    home = next(iter(mesh.devices.flat)).device
+    mine = local_slots(mesh)
+    if not mine:
+        raise ValueError(f"process {process_index()} owns no slot of {mesh}")
+    home = mine[0].device
     if device is not None and torch.device(device).type != home.type:
         raise ValueError(
             f"device {device!r} does not match the mesh's devices ({home})")
@@ -375,31 +427,48 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def axis_coords(mesh: Mesh, axis: str) -> list[int]:
+    """Each slot's coordinate along ``axis``, aligned with
+    ``mesh.devices.flat``."""
+    ax = mesh.axis_names.index(axis)
+    return [int(c) for c in np.indices(mesh.devices.shape)[ax].reshape(-1)]
+
+
 def shard_along(mesh: Mesh, tree, axis: str = "data", dim: int = 0) -> list:
     """Every leaf's ``dim`` split into the mesh axis' contiguous shards of
     ``ceil(n / size)`` (the last ragged or empty), each on its slot's
     device. Returns one tree per slot, aligned with ``mesh.devices.flat``
-    (slots that differ only along other axes hold the same shard)."""
-    ax = mesh.axis_names.index(axis)
+    (slots on one device at one coordinate of ``axis`` share their shard;
+    a slot of another process holds ``None``)."""
     size = int(mesh.shape[axis])
-    coords = np.indices(mesh.devices.shape)[ax].reshape(-1)
+    me = process_index()
+    shared: dict = {}
     out = []
-    for slot, k in zip(mesh.devices.flat, coords):
-        def put(x, k=int(k), dev=slot.device):
-            x = torch.as_tensor(x)
-            q = -(-x.shape[dim] // size)
-            return x.narrow(dim, min(k * q, x.shape[dim]),
-                            max(0, min(q, x.shape[dim] - k * q))).to(dev)
+    for slot, k in zip(mesh.devices.flat, axis_coords(mesh, axis)):
+        if int(slot.process_index) != me:
+            out.append(None)
+            continue
+        if (slot.device, k) not in shared:
 
-        out.append(_tree_map(put, tree))
+            def put(x, k=k, dev=slot.device):
+                x = torch.as_tensor(x)
+                q = -(-x.shape[dim] // size)
+                return x.narrow(dim, min(k * q, x.shape[dim]),
+                                max(0, min(q, x.shape[dim] - k * q))).to(dev)
+
+            shared[(slot.device, k)] = _tree_map(put, tree)
+        out.append(shared[(slot.device, k)])
     return out
 
 
 def replicate(mesh: Mesh, tree) -> list:
     """``tree`` on every slot's device, ONE copy per physical device
     (slots that share a device share its tensors). Returns one tree per
-    slot, aligned with ``mesh.devices.flat``."""
+    slot, aligned with ``mesh.devices.flat`` (``None`` for a slot of
+    another process)."""
     copies = {dev: _tree_map(lambda x, dev=dev: torch.as_tensor(x).to(dev),
                              tree)
               for dev in physical_devices(mesh)}
-    return [copies[s.device] for s in mesh.devices.flat]
+    me = process_index()
+    return [copies[s.device] if int(s.process_index) == me else None
+            for s in mesh.devices.flat]

@@ -22,9 +22,11 @@ Layers (each its own module, composable without the service):
 - :mod:`fia_tpu_torch.serve.service`   — :class:`InfluenceService`, the
   event loop tying the above to an :class:`InfluenceEngine`.
 
-The service serves over a local device mesh and shrinks it on device
-loss; the reference's ``hostshard`` module, the host role and host-loss
-recovery are ROADMAP Queue A.13b.
+The service serves over a local device mesh, row-sharded tables
+included, and shrinks it on device loss; the reference's ``hostshard``
+module, the host role, host-loss recovery and serving over a mesh that
+spans processes are ROADMAP Queue A.13b (``parallel/distributed.py``,
+the multi-process runtime they stand on, is ported).
 """
 
 from fia_tpu_torch.serve.admission import (  # noqa: F401

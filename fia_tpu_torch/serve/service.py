@@ -52,8 +52,11 @@ Differences from the reference:
   (the ``_multihost`` term of the eligibility checks,
   ``ServeConfig.host_role`` and ``host_merge_timeout_s``, the
   journal-sharded dispatch and host-loss adoption) is ROADMAP Queue
-  A.13b: asking for a host role raises ``NotImplementedError``, and a
-  host loss sheds the batch with its classified kind.
+  A.13b: asking for a host role, or serving an engine over a mesh that
+  spans processes, raises ``NotImplementedError``, and a host loss
+  sheds the batch with its classified kind. A mesh with row-sharded
+  tables serves as any local mesh; its shrink keeps the tables sharded
+  while the survivors fill a ``model`` group.
 - :meth:`~InfluenceService.warmup` reads the port's build records, the
   engine's :meth:`compiled_geometries` and the program builds counted by
   :mod:`fia_tpu_torch.utils.compilemon` (CUDA graph captures on the
@@ -255,6 +258,13 @@ class InfluenceService:
         eng = self._peek_engine()
         self.mesh = _resolve_mesh(self.config.mesh,
                                   getattr(eng, "device", None))
+        from fia_tpu_torch.parallel.distributed import spans_processes
+
+        if spans_processes(self.mesh) or spans_processes(
+                getattr(eng, "mesh", None)):
+            raise NotImplementedError(
+                f"not ported yet — serving over a mesh that spans "
+                f"processes: {_A13B}")
         if self.mesh is not None:
             self._check_mesh(eng)
         self.health = HealthController(self.config.health)

@@ -26,9 +26,10 @@ verifies before deserialising. On top sit :func:`save_rotated` (a
 last-K ``ckpt-<step>.npz`` directory), :func:`restore_latest_valid`
 (newest generation that passes validation; corrupt ones quarantined)
 and :class:`PeriodicCheckpointer` (the trainer's hook). The reference's
-orbax variant (``checkpoint_orbax.py``) is JAX-only; its counterpart
-here is ``torch.distributed.checkpoint``, with the multi-process paths
-of ROADMAP Queue A.13b.
+orbax variant (``checkpoint_orbax.py``, sharded checkpoints) is
+JAX-only; its counterpart here, on ``torch.distributed.checkpoint`` over
+the ported multi-process runtime (``parallel/distributed.py``), is
+ROADMAP Queue A.13b.
 """
 
 from __future__ import annotations

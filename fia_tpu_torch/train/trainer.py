@@ -36,6 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from fia_tpu_torch.parallel import distributed as pdist
 from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.reliability import policy as rpolicy
@@ -198,7 +199,10 @@ def _mesh_loss_and_grads(model, params: dict, reps: dict, slots, idx,
     weighted error sum; the partial gradients, error sums and weight sums
     are added in slot order on the params' device, then divided by the
     batch's weight (``_weighted_mean``'s clamp at 1) and the L2 term's
-    gradient added. Every slot is queued before any partial is summed."""
+    gradient added. Every slot is queued before any partial is summed.
+    Over a mesh spanning processes each process computes its own slots'
+    partials and every process sums all of them, all-gathered, in the
+    same slot order (``slots`` of another process's are ``None``)."""
     home = next(iter(params.values())).device
     n = idx.shape[0]
     pad = batch_p - n
@@ -210,7 +214,11 @@ def _mesh_loss_and_grads(model, params: dict, reps: dict, slots, idx,
               else {k: v.to(dev) for k, v in params.items()}
               for dev in reps}
     parts = []
+    me = pmesh.process_index()
     for k, slot in enumerate(slots):
+        if int(slot.process_index) != me:
+            parts.append(None)
+            continue
         dev = slot.device
         x, y, w = reps[dev]
         sl = idx[k * b:(k + 1) * b].to(dev)
@@ -223,6 +231,7 @@ def _mesh_loss_and_grads(model, params: dict, reps: dict, slots, idx,
         parts.append((err.detach(), torch.sum(bw),
                       {kk: torch.zeros_like(leaves[kk]) if gi is None else gi
                        for kk, gi in zip(leaves, g)}))
+    parts = pdist.fill_shards(parts)
     err, wsum, grads = parts[0][0].to(home), parts[0][1].to(home), \
         {kk: gi.to(home) for kk, gi in parts[0][2].items()}
     for e, ws, g in parts[1:]:
@@ -447,7 +456,8 @@ def loo_retrain_many(
     lanes are sliced away; the stacked params come back on the mesh's
     first slot's device, each lane the single-device run's lane up to
     float reassociation (a slot steps fewer lanes at once: ~1e-7 at
-    ML-1M shape).
+    ML-1M shape). Over a mesh spanning processes each process steps its
+    own slots' lanes and the lanes are all-gathered in slot order.
     """
     dev = pmesh.mesh_device(mesh, device)
     x, y = _put(x, dev), _put(y, dev)
@@ -467,9 +477,12 @@ def loo_retrain_many(
         removed = np.concatenate([removed, np.repeat(removed[-1:], pad)])
         seeds = np.concatenate([seeds, np.repeat(seeds[-1:], pad)])
         q = len(removed) // nd
-        groups = [(s.device, removed[k * q:(k + 1) * q],
-                   seeds[k * q:(k + 1) * q])
+        me = pmesh.process_index()
+        groups = [(s.device if int(s.process_index) == me else None,
+                   removed[k * q:(k + 1) * q], seeds[k * q:(k + 1) * q])
                   for k, s in enumerate(pmesh.data_slots(mesh))]
+    everyone = groups
+    groups = [g for g in groups if g[0] is not None]
     data = _on_devices((x, y), {g[0] for g in groups})
     params0 = _place(params0, dev)
 
@@ -517,7 +530,10 @@ def loo_retrain_many(
 
         states = pol.run(dispatch_seg, retry_on=taxonomy.TRANSIENT,
                          clock=clock)
-    if len(states) == 1:
-        return states[0][0]
-    return {k: torch.cat([p[k].to(dev) for p, _ in states])[:R]
-            for k in states[0][0]}
+    mine = iter(p for p, _ in states)
+    lanes_of = pdist.fill_shards([None if g[0] is None else next(mine)
+                                  for g in everyone])
+    if len(lanes_of) == 1:
+        return lanes_of[0]
+    return {k: torch.cat([p[k].to(dev) for p in lanes_of])[:R]
+            for k in lanes_of[0]}

@@ -211,10 +211,12 @@ def test_without_a_card_the_drivers_raise(tmp_path, no_jax_env):
 
 
 def test_unported_options_raise(tmp_path):
-    """``--mesh`` is ported: with one CPU slot visible ``--mesh 2`` exits
-    naming the virtual slots, over two virtual slots the driver runs
-    (the sampled rung escalating, as on every mesh engine); row-sharded
-    tables (``--model_parallel > 1``) raise naming ROADMAP Queue A.13b."""
+    """``--mesh`` and ``--model_parallel`` are ported: with one CPU slot
+    visible ``--mesh 2`` exits naming the virtual slots, over two virtual
+    slots the driver runs (the sampled rung escalating, as on every mesh
+    engine), and with ``--model_parallel 2`` on row-sharded tables; a
+    ``--model_parallel`` that does not divide ``--mesh``, or one without
+    ``--mesh``, exits."""
     from fia_tpu_torch.parallel import mesh as pmesh
 
     with pytest.raises(SystemExit, match="set_virtual_devices"):
@@ -227,10 +229,18 @@ def test_unported_options_raise(tmp_path):
             "--lissa_depth", "20", "--num_test", "3",
             "--train_dir", str(tmp_path)])
         assert timing.num_queries == 3 and timing.num_scores > 0
-        with pytest.raises(NotImplementedError, match="A.13b"):
+        sharded = port_rq2.main(SMALL + [
+            "--backend", "cpu", "--mesh", "2", "--model_parallel", "2",
+            "--num_steps_train", "5", "--batch_size", "300",
+            "--num_test", "3", "--train_dir", str(tmp_path)])
+        assert sharded.num_queries == 3 and sharded.num_scores > 0
+        with pytest.raises(SystemExit, match="does not divide"):
             port_rq2.main(SMALL + ["--backend", "cpu", "--mesh", "2",
-                                   "--model_parallel", "2",
+                                   "--model_parallel", "3",
                                    "--train_dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="requires --mesh"):
+        port_rq2.main(SMALL + ["--backend", "cpu", "--model_parallel", "2",
+                               "--train_dir", str(tmp_path)])
     with pytest.raises(SystemExit, match="out of range"):
         common.load_splits(common.base_parser("t").parse_args(
             SMALL + ["--test_indices", "50"]))

@@ -190,17 +190,16 @@ def test_stage_prefixes_match_reference(case, stage):
         np.testing.assert_allclose(a, b, rtol=rt, atol=ATOL)
 
 
-# the precomputed and sampled rungs, cache_dir and a mesh are ported:
-# their cases now pair them with an option that is not (row-sharded
-# tables, ROADMAP Queue A.13b; row_features='on', A.6b), which still
-# raises
+# the precomputed and sampled rungs, cache_dir, a mesh and row-sharded
+# tables are ported: their cases now pair them with an option that is
+# not (row_features='on', ROADMAP Queue A.6b), which still raises
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [
-    {"solver": "precomputed", "shard_tables": True},
-    {"solver": "sampled", "shard_tables": True},
-    {"solver": "cg", "shard_tables": True},
-    {"shard_tables": True}, {"row_features": "on"},
-    {"impl": "padded", "shard_tables": True},
+    {"solver": "precomputed", "row_features": "on"},
+    {"solver": "sampled", "row_features": "on"},
+    {"solver": "cg", "row_features": "on"},
+    {"shard_tables": True, "row_features": "on"}, {"row_features": "on"},
+    {"impl": "padded", "row_features": "on"},
     {"cache_dir": "unused", "row_features": "on"},
 ])
 def test_unported_options_raise(kw, family):

@@ -86,9 +86,11 @@ STREAM_MODULES = ("fia_tpu_torch.stream",
                   "fia_tpu_torch.audit.plan",
                   "fia_tpu_torch.audit.verify",
                   "fia_tpu_torch.cli.debug_data")
-# the data-axis device mesh
+# the device mesh, row-sharded tables and the multi-process runtime
 PARALLEL_MODULES = ("fia_tpu_torch.parallel",
-                    "fia_tpu_torch.parallel.mesh")
+                    "fia_tpu_torch.parallel.mesh",
+                    "fia_tpu_torch.parallel.sharded",
+                    "fia_tpu_torch.parallel.distributed")
 
 
 def _forbidden(name: str) -> bool:

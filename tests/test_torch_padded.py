@@ -300,8 +300,8 @@ class _NoHessianMF(MF):
     ({"solver": "bogus"}, ValueError),
     # the two rungs are ported (test_torch_engine.py::
     # test_ported_rungs_construct); paired with an unported option they
-    # still raise (a mesh is ported too; row-sharded tables are A.13b)
-    ({"solver": "precomputed", "shard_tables": True}, NotImplementedError),
+    # still raise (a mesh and row-sharded tables are ported too)
+    ({"solver": "precomputed", "row_features": "on"}, NotImplementedError),
     ({"solver": "sampled", "row_features": "on"}, NotImplementedError),
 ])
 def test_constructor_errors(kw, err):

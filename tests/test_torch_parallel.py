@@ -1,13 +1,17 @@
-"""The port's ``data``-axis mesh on the CPU (``fia_tpu_torch.parallel``),
-restating ``tests/test_parallel.py`` without ``TestShardedTables``
-(row-sharded tables are ROADMAP Queue A.13b) over 8 virtual slots, at
-the reference's bars, plus ``mesh.py``'s own cases.
+"""The port's device mesh on the CPU (``fia_tpu_torch.parallel``),
+restating ``tests/test_parallel.py`` over 8 virtual slots, at the
+reference's bars, plus ``mesh.py``'s own cases.
 
 - ``TestMesh``: the virtual slots, ``make_mesh``, ``shard_along`` and
   ``replicate`` (one copy a physical device).
 - ``TestShardedInfluence``: the padded program on a mesh within the
   reference's rtol 1e-4 / atol 1e-5 of the flat path, the flat mesh path
   bitwise the single-device one.
+- ``TestShardedTables``: row-sharded tables on the 2-D ``('data',
+  'model')`` mesh, flat and padded: the flat path bitwise the
+  single-device engine, the padded one bitwise the replicated padded
+  mesh engine and within the reference's rtol 1e-4 / atol 1e-5 of the
+  single-device scores; the tables' layout.
 - ``TestMeshTraining``: data-parallel ``Trainer.fit``, lane-sharded
   ``loo_retrain_many`` and ``test_retraining`` on a mesh within the
   reference's bars of single-device (rtol 2e-4 / atol 1e-5; RQ1's
@@ -20,7 +24,8 @@ the reference's bars, plus ``mesh.py``'s own cases.
   port-against-reference bar, rtol 5e-3.
 - ``TestMeshModule``: the fingerprint, ``surviving_mesh`` over virtual
   hosts, ``live_device_ids`` patched, the CUDA default, ``init_pod_mesh``
-  across processes (A.13b) and the scoped virtual-slot count.
+  (across processes: ``test_torch_distributed.py``) and the scoped
+  virtual-slot count.
 """
 
 import jax
@@ -160,6 +165,48 @@ class TestShardedInfluence:
         b = InfluenceEngine(model, params, train, **kw).query_batch(pts)
         np.testing.assert_allclose(a.ihvp, b.ihvp, rtol=1e-4, atol=1e-5)
         assert a.iterations is not None and a.iterations > 0
+
+
+class TestShardedTables:
+    @pytest.mark.parametrize("impl", ["flat", "padded"])
+    def test_table_sharded_query_matches(self, impl):
+        """2-D ('data','model') mesh with row-sharded embedding tables
+        reproduces the single-device scores on both query programs: the
+        flat one bitwise; the padded one bitwise the replicated padded
+        engine on the same mesh, and within the reference's bar of the
+        single-device (flat) scores."""
+        from fia_tpu_torch.parallel.sharded import make_2d_mesh
+
+        model, params, train = _setup()
+        pts = np.array([[3, 5], [0, 1], [7, 2], [11, 9]])
+        want = InfluenceEngine(model, params, train, damping=1e-3,
+                               device="cpu").query_batch(pts)
+        mesh2 = make_2d_mesh(8, model_parallel=2, device="cpu")
+        eng = InfluenceEngine(model, params, train, damping=1e-3,
+                              mesh=mesh2, shard_tables=True, impl=impl,
+                              device="cpu")
+        got = eng.query_batch(pts, pad_to=want.scores.shape[1])
+        for t in range(len(pts)):
+            np.testing.assert_allclose(got.scores_of(t), want.scores_of(t),
+                                       rtol=1e-4, atol=1e-5)
+            if impl == "flat":
+                assert np.array_equal(got.scores_of(t), want.scores_of(t))
+        if impl == "padded":
+            rep = InfluenceEngine(model, params, train, damping=1e-3,
+                                  mesh=mesh2, impl=impl, device="cpu")
+            assert got._packed.tobytes() == rep.query_batch(
+                pts)._packed.tobytes()
+
+    def test_shard_model_params_layout(self):
+        from fia_tpu_torch.parallel.sharded import (make_2d_mesh,
+                                                    shard_model_params)
+
+        model, params, train = _setup()
+        sp = shard_model_params(make_2d_mesh(8, model_parallel=2,
+                                             device="cpu"), params, model)
+        assert sp["P"].axis == "model" and sp["P"].shape == (20, 4)
+        assert sp["bg"].axis is None
+        assert all(x is sp["bg"].shards[0] for x in sp["bg"].shards)
 
 
 class TestMeshTraining:
@@ -441,9 +488,12 @@ class TestMeshModule:
             InfluenceEngine(*_setup(), mesh=None)
 
     def test_init_pod_mesh(self):
+        """In one process, ``make_mesh`` over the local slots; a process
+        count without a coordinator cannot join a group and raises (the
+        mesh across processes: ``test_torch_distributed.py``)."""
         assert pmesh.mesh_fingerprint(pmesh.init_pod_mesh(device="cpu")) \
             == pmesh.mesh_fingerprint(mesh(8))
-        with pytest.raises(NotImplementedError, match="A.13b"):
+        with pytest.raises(ValueError, match="together"):
             pmesh.init_pod_mesh(device="cpu", num_processes=2)
 
     def test_mesh_device_must_match(self):
