@@ -383,14 +383,44 @@ Phases, each of which makes the script exit non-zero when it fails:
      set-up and 8d's banks, then phase 13 alone. The score and Hessian
      rows of the ``kernels`` line gain a ``sharded`` path (13a's
      launches).
-     The whole script runs phases 12 and 13 that way, each in a process
-     of its own started once phase 9 is over, beside phases 10 and 11
-     in this one, which keeps the script well inside its time limit;
-     so the walls of phases 10 to 13 are taken with the other processes
-     on the card, and the kernels' times of phases 3 to 8 with none. Their
-     output follows phase 11's, each line prefixed ``[12]`` or
-     ``[13]``; a failure of either fails the script, and their ``perf``
-     lines go into its own.
+ 14. host roles, the host-loss shrink and sharded checkpoints
+     (``fia_tpu_torch.serve.hostshard``, ``ServeConfig.host_role``,
+     ``train.checkpoint_orbax``), MF and NCF at ML-1M shape, on phase
+     4's data and weights, under ``hostroles`` in the ``perf`` line:
+     a. the script starts two processes of itself (``--phase14-worker``),
+        gloo on loopback, each joining with
+        ``initialize(..., local_device_ids=[0])``; each serves the same
+        1,024 requests (phase 4's held-out pairs, one drain in batches of
+        256) under ``host_role=(h, 2, dir)``: its half of the batches
+        through ``query_many`` (the flat program: the score kernel and
+        ``segment_hessian``, both counted in each process), its journal
+        published, both merged; every answer, iHVP, test vector and batch
+        id bitwise one in-process service over the stream (run here
+        meanwhile), no adoption; then host 1 restarts here against the
+        same journals: no ``query_many`` call, bitwise;
+     b. host 0 alone with a 2 s merge budget adopts host 1's shard:
+        bitwise, ``host_loss_recoveries`` 1;
+     c. a ``serve.dispatch`` host loss at batch 1 on 4 virtual slots over
+        2 virtual hosts (``virtual_hosts``): the mesh drops both of host
+        1's slots at once, every answer bitwise the meshless service's;
+     d. in the two processes, a ``shard_tables`` engine on
+        ``make_hybrid_mesh(model_parallel=2)`` (2 virtual slots each, the
+        (2, 2) mesh across them): its params saved and restored by both
+        (``checkpoint_orbax``, collective over the group) into a template
+        of zeros, an engine rebuilt from them, ``query_batch(1024)``
+        bitwise the saved engine's; the save and restore seconds printed.
+     ``python3 chip_smoke.py --phase 14`` runs phases 1 and 2, the set-up
+     and phase 14 alone. The score and Hessian rows of the ``kernels``
+     line gain a ``hostroles`` path (14a's launches in each process,
+     14b's and 14c's).
+     The whole script runs phases 12, 13 and 14 that way, each in a
+     process of its own started once phase 9 is over, beside phases 10
+     and 11 in this one, which keeps the script well inside its time
+     limit; so the walls of phases 10 to 14 are taken with the other
+     processes on the card, and the kernels' times of phases 3 to 8 with
+     none. Their output follows phase 11's, each line prefixed ``[12]``,
+     ``[13]`` or ``[14]``; a failure of any fails the script, and their
+     ``perf`` lines go into its own.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
@@ -399,9 +429,9 @@ Phases, each of which makes the script exit non-zero when it fails:
      (``engine.cpu_fallback_batches``) and no reliability diagnostic;
      so must 10a and 10b (the registry is emptied after phase 9),
      phase 11 outside the faults 11a injects (counted, then emptied),
-     phase 12 outside 12b's injected losses and phase 13 outside 13b's
-     (no retry, reset or CPU rung there either; counted, then
-     emptied).
+     phase 12 outside 12b's injected losses, phase 13 outside 13b's and
+     phase 14 outside 14c's (no retry, reset or CPU rung there either;
+     counted, then emptied).
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -5828,6 +5858,369 @@ def sharded_launches(row: dict, source: str) -> dict:
             for part in ("13a", "13a_real") if part in row}
 
 
+# -- phase 14: host roles, the host-loss shrink, sharded checkpoints ----
+# 14a: two processes of this script (HOSTROLE_WORKER), gloo on loopback,
+# each pinned to cuda:0 through initialize(local_device_ids=[0]), serve
+# HOSTROLE_N requests under host_role=(h, 2, dir) at HOSTROLE_BATCH a
+# batch, each bitwise one in-process service over the stream; then host
+# 1 restarts in this process against the same journals with no
+# query_many call; 14b: host 0 alone adopts host 1's shard after
+# HOSTROLE_ADOPT_S; 14c: HOST_LOST at serve.dispatch on 4 virtual slots
+# over 2 virtual hosts; 14d: in the two processes, the sharded engine's
+# params on make_hybrid_mesh(model_parallel=2) (HOSTROLE_PROC_SLOTS each)
+# saved and restored (train/checkpoint_orbax.py), the query bitwise
+HOSTROLE_N, HOSTROLE_BATCH = 1024, 256
+HOSTROLE_PROC_SLOTS = 2
+HOSTROLE_MERGE_S = 150.0  # a worker's merge budget for its peer's shard
+HOSTROLE_ADOPT_S = 2.0  # 14b's merge budget before it adopts
+HOSTROLE_WORKER = "--phase14-worker"
+HOSTROLE_WORKER_S = 270
+# how 14a starts a worker: this script, with HOSTROLE_WORKER and its id
+HOSTROLE_WORKER_CMD = (sys.executable, os.path.abspath(__file__))
+HOSTROLE_FAMILIES = {"mf": MF, "ncf": NCF}
+
+
+def hostrole_config(**kw) -> ServeConfig:
+    """Phase 14's service knobs: one drain of HOSTROLE_N misses in
+    batches of HOSTROLE_BATCH, no disk tier."""
+    return ServeConfig(max_batch=HOSTROLE_BATCH, max_queue=HOSTROLE_N,
+                       cache_entries=HOSTROLE_N, disk_cache=False, **kw)
+
+
+def hostrole_requests(pts) -> list:
+    return [Request(int(u), int(i), id=f"h{n}")
+            for n, (u, i) in enumerate(pts[:HOSTROLE_N])]
+
+
+def hostrole_answers(responses) -> dict:
+    """A stream's answers as arrays in request order."""
+    check(all(r.ok for r in responses),
+          f"14: {sum(not r.ok for r in responses)} requests not answered: "
+          f"{[r.reason for r in responses if not r.ok][:4]}")
+    return {"scores": np.concatenate([r.scores for r in responses]),
+            "ihvp": np.stack([r.ihvp for r in responses]),
+            "test_grad": np.stack([r.test_grad for r in responses]),
+            "counts": np.asarray([len(r.scores) for r in responses]),
+            "batch_ids": np.asarray([r.batch_id for r in responses])}
+
+
+def hostrole_warm(eng, pts) -> float:
+    """The process's first work on the card, timed: a query of the last
+    16 held-out pairs (a geometry no drain of the phase uses), so a
+    drain's wall holds no one-time start-up of the libraries."""
+    t0 = time.perf_counter()
+    eng.query_batch(pts[-16:])  # its results are on the host: synchronised
+    return time.perf_counter() - t0
+
+
+def same_answers(got: dict, want: dict, what: str) -> None:
+    for k, v in want.items():
+        check(np.asarray(got[k]).tobytes() == v.tobytes(),
+              f"{what}: {k} not bitwise one in-process service's")
+
+
+def hostrole_worker(argv) -> int:
+    """One process of 14a and 14d: ``--phase14-worker <id> <port> <dir>``
+    (its results to ``<dir>/proc.<id>.npz``)."""
+    from fia_tpu_torch.parallel import distributed as D
+    from fia_tpu_torch.parallel import sharded as SH
+    from fia_tpu_torch.train import checkpoint_orbax as co
+
+    pid, port, work = int(argv[0]), int(argv[1]), argv[2]
+    pmesh.set_virtual_devices(HOSTROLE_PROC_SLOTS)
+    D.initialize(f"127.0.0.1:{port}", num_processes=2, process_id=pid,
+                 local_device_ids=[0])
+    try:
+        home = torch.device("cuda", 0) if CARD == "cuda" else \
+            torch.device(CARD)
+        check(all(s.device == home for s in pmesh._local_slots(CARD, None)),
+              f"14 worker {pid}: slots not on {home}")
+        train = synthesize_ratings(USERS, ITEMS, ROWS, seed=0)
+        pts = sample_heldout_pairs(train.x, USERS, ITEMS, max(BATCHES),
+                                   seed=17)
+        out = {}
+        for family, cls in HOSTROLE_FAMILIES.items():
+            model = cls(USERS, ITEMS, K_EMB, WD)
+            params = model.init_params(torch.Generator().manual_seed(0),
+                                       device=CARD)
+            eng = engine(model, params, train, damping=DAMPING)
+            out[f"{family}_warm_s"] = np.asarray(hostrole_warm(eng, pts))
+            svc = InfluenceService(engine=eng, config=hostrole_config(
+                host_role=(pid, 2, os.path.join(work, family)),
+                host_merge_timeout_s=HOSTROLE_MERGE_S))
+            reset_counts()
+            t0 = time.perf_counter()
+            got = svc.run(hostrole_requests(pts))
+            out[f"{family}_drain_s"] = np.asarray(time.perf_counter() - t0)
+            counted = launch_counts()
+            out[f"{family}_launches"] = np.asarray(
+                [counted[SOURCES[family]], counted[SEGMENT_SOURCE]])
+            out[f"{family}_recoveries"] = np.asarray(
+                svc.rollup()["host_loss_recoveries"])
+            out.update({f"{family}_{k}": v
+                        for k, v in hostrole_answers(got).items()})
+            del svc, eng
+            # 14d: the sharded engine's params through the checkpoint
+            mesh = D.make_hybrid_mesh(model_parallel=2, device=CARD)
+            check(D.spans_processes(mesh) and dict(mesh.shape) == {
+                "data": 2, "model": 2}, f"14d worker {pid}: mesh {mesh}")
+            se = engine(model, params, train, damping=DAMPING, mesh=mesh,
+                        shard_tables=True)
+            before = se.query_batch(pts[:BATCHES[-1]])
+            path = os.path.join(work, f"ckpt-{family}")
+            t0 = time.perf_counter()
+            co.save(path, se.params, step=1)
+            out[f"{family}_save_s"] = np.asarray(time.perf_counter() - t0)
+            zeros = engine(model, {k: torch.zeros_like(v)
+                                   for k, v in params.items()}, train,
+                           damping=DAMPING, mesh=mesh, shard_tables=True)
+            t0 = time.perf_counter()
+            got_params, _, step = co.load(path, zeros.params)
+            out[f"{family}_restore_s"] = np.asarray(time.perf_counter() - t0)
+            check(step == 1, f"14d worker {pid}: step {step}")
+            del zeros
+            again = engine(model, SH.whole_params(got_params, model),
+                           train, damping=DAMPING, mesh=mesh,
+                           shard_tables=True).query_batch(pts[:BATCHES[-1]])
+            out[f"{family}_ckpt_before"] = before._packed
+            out[f"{family}_ckpt_after"] = again._packed
+            out[f"{family}_ckpt_ihvp"] = np.stack([before.ihvp, again.ihvp])
+            del se, again
+            gc.collect()
+            torch.cuda.empty_cache()
+        np.savez(os.path.join(work, f"proc.{pid}.npz"), **out)
+    finally:
+        D.shutdown()
+    return 0
+
+
+def count_calls(obj, name: str) -> list:
+    """Replace ``obj.name`` by a wrapper that records each call."""
+    calls, real = [], getattr(obj, name)
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    setattr(obj, name, spy)
+    return calls
+
+
+def hostrole_processes(engines, pts, work: str) -> tuple[dict, dict]:
+    """14a (the two processes, then host 1's restart here) and 14d (the
+    processes' checkpoints); the in-process service over the whole
+    stream runs while they work. Returns (results by family and the
+    pair's wall, that service's answers by family)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [*HOSTROLE_WORKER_CMD, HOSTROLE_WORKER, str(p), str(port), work],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for p in (0, 1)]
+    want, single_s, warm_s = {}, {}, {}
+    try:
+        for family, (eng, _) in engines.items():
+            warm_s[family] = hostrole_warm(eng, pts)
+            svc = InfluenceService(engine=eng, config=hostrole_config())
+            t1 = time.perf_counter()
+            want[family] = hostrole_answers(svc.run(hostrole_requests(pts)))
+            single_s[family] = time.perf_counter() - t1
+        logs = [p.communicate(timeout=HOSTROLE_WORKER_S)[0].decode()
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        logs = ["timed out"] * 2
+    finally:
+        for p in procs:  # a crashed worker leaves its peer waiting
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for p, text in zip(procs, logs):
+        check(p.returncode == 0, f"14a: a worker failed ({p.returncode}):\n"
+              + text[-4000:])
+    got = [dict(np.load(os.path.join(work, f"proc.{p}.npz"))) for p in (0, 1)]
+    out = {"wall_s": wall}
+    for family, (eng, _) in engines.items():
+        for p, g in enumerate(got):
+            same_answers({k: g[f"{family}_{k}"] for k in want[family]},
+                         want[family], f"{family} 14a process {p}")
+            check(int(g[f"{family}_recoveries"]) == 0,
+                  f"{family} 14a process {p} adopted a shard")
+            check(g[f"{family}_launches"].min() > 0,
+                  f"{family} 14a: process {p} launched "
+                  f"{g[f'{family}_launches'].tolist()} (score, Hessian)")
+            check(g[f"{family}_ckpt_after"].tobytes()
+                  == g[f"{family}_ckpt_before"].tobytes()
+                  and g[f"{family}_ckpt_ihvp"][0].tobytes()
+                  == g[f"{family}_ckpt_ihvp"][1].tobytes(),
+                  f"{family} 14d process {p}: the restored params' query is "
+                  "not bitwise the saved engine's")
+        check(got[0][f"{family}_ckpt_before"].tobytes()
+              == got[1][f"{family}_ckpt_before"].tobytes(),
+              f"{family} 14d: the two processes' queries differ")
+        # host 1 restarted against the same journals: no recompute
+        svc = InfluenceService(engine=eng, config=hostrole_config(
+            host_role=(1, 2, os.path.join(work, family)),
+            host_merge_timeout_s=0.0))
+        calls = count_calls(eng, "query_many")
+        try:
+            t1 = time.perf_counter()
+            again = hostrole_answers(svc.run(hostrole_requests(pts)))
+            resume_s = time.perf_counter() - t1
+        finally:
+            del eng.query_many
+        check(not calls, f"{family} 14a: the restarted host 1 called "
+              f"query_many {len(calls)} time(s)")
+        same_answers(again, want[family], f"{family} 14a restarted host 1")
+        out[family] = {
+            "drain_s": [float(g[f"{family}_drain_s"]) for g in got],
+            "single_drain_s": single_s[family],
+            "warm_s": [float(g[f"{family}_warm_s"]) for g in got],
+            "single_warm_s": warm_s[family],
+            "launches": [g[f"{family}_launches"].tolist() for g in got],
+            "resume_s": resume_s,
+            "save_s": [float(g[f"{family}_save_s"]) for g in got],
+            "restore_s": [float(g[f"{family}_restore_s"]) for g in got]}
+        log(f"{family} 14a: two host roles (gloo pair on loopback, each "
+            f"initialize(local_device_ids=[0])) served {HOSTROLE_N} requests "
+            f"at {HOSTROLE_BATCH} a batch bitwise one in-process service; "
+            f"drains {out[family]['drain_s'][0]:.3f} / "
+            f"{out[family]['drain_s'][1]:.3f} s against one process's "
+            f"{single_s[family]:.3f} s (after a first query of 16 pairs: "
+            f"{out[family]['warm_s'][0]:.3f} / {out[family]['warm_s'][1]:.3f}"
+            f" s, here {warm_s[family]:.3f} s); launches (score, Hessian) "
+            f"{out[family]['launches']}; host 1 restarted: no query_many "
+            f"call, {resume_s:.3f} s")
+        log(f"{family} 14d: (2, 2) row-sharded params across the two "
+            f"processes saved in {out[family]['save_s'][0]:.3f} / "
+            f"{out[family]['save_s'][1]:.3f} s, restored in "
+            f"{out[family]['restore_s'][0]:.3f} / "
+            f"{out[family]['restore_s'][1]:.3f} s; query_batch"
+            f"({BATCHES[-1]}) from them bitwise the saved engine's")
+    log(f"14a/14d: the pair's wall {wall:.1f} s (start-up included; the "
+        "in-process services ran meanwhile)")
+    return out, want
+
+
+def hostrole_adoption(family: str, eng, pts, work: str, want) -> dict:
+    """14b: host 0 alone, its peer's shard adopted after the merge
+    budget; bitwise, one recovery."""
+    svc = InfluenceService(engine=eng, config=hostrole_config(
+        host_role=(0, 2, work), host_merge_timeout_s=HOSTROLE_ADOPT_S))
+    reset_counts()
+    t0 = time.perf_counter()
+    got = hostrole_answers(svc.run(hostrole_requests(pts)))
+    seconds = time.perf_counter() - t0
+    counted = launch_counts()
+    same_answers(got, want, f"{family} 14b")
+    check(svc.rollup()["host_loss_recoveries"] == 1,
+          f"{family} 14b: host_loss_recoveries "
+          f"{svc.rollup()['host_loss_recoveries']}")
+    check(counted[SOURCES[family]] > 0 and counted[SEGMENT_SOURCE] > 0,
+          f"{family} 14b: kernels not launched: {counted}")
+    log(f"{family} 14b: host 0 alone adopted host 1's shard after its "
+        f"{HOSTROLE_ADOPT_S} s merge budget: {seconds:.3f} s for the drain, "
+        "bitwise, host_loss_recoveries 1")
+    return {"seconds": seconds, "launches": counted}
+
+
+def hostrole_shrink(family: str, eng, train, pts, want) -> dict:
+    """14c: HOST_LOST at serve.dispatch on 4 virtual slots over 2 virtual
+    hosts: the mesh drops a whole host, bitwise the meshless service."""
+    with pmesh.virtual_devices(4):
+        mesh = pmesh.make_mesh(4, device=CARD)
+        hosts = {int(s.id): k // 2 for k, s in enumerate(mesh.devices.flat)}
+        with pmesh.virtual_hosts(hosts):
+            me = mesh_engine(eng, train, mesh)
+            svc = InfluenceService(engine=me, config=hostrole_config(
+                mesh=mesh))
+            reset_counts()
+            t0 = time.perf_counter()
+            with inject.active(inject.Fault(sites.SERVE_DISPATCH, at=1,
+                                            kind=taxonomy.HOST_LOST),
+                               strict=True, validate=True):
+                got = hostrole_answers(svc.run(hostrole_requests(pts)))
+            seconds = time.perf_counter() - t0
+            counted = launch_counts()
+            kept = [int(s.id) for s in svc.mesh.devices.flat]
+            roll = svc.rollup()
+            del me, svc
+    same_answers({k: v for k, v in got.items() if k != "batch_ids"},
+                 {k: v for k, v in want.items() if k != "batch_ids"},
+                 f"{family} 14c")
+    check(kept == [0, 1] and roll["host_loss_recoveries"] == 1
+          and roll["device_loss_recoveries"] == 0,
+          f"{family} 14c: kept slots {kept}, {roll['host_loss_recoveries']} "
+          f"host / {roll['device_loss_recoveries']} device recoveries")
+    check(counted[SOURCES[family]] > 0 and counted[SEGMENT_SOURCE] > 0,
+          f"{family} 14c: kernels not launched: {counted}")
+    got_counts = recovery_counts()
+    check(not got_counts["retries"] and not got_counts["resets"]
+          and not got_counts["cpu_rung_batches"],
+          f"{family} 14c: a recovery ladder beyond the shrink: {got_counts}")
+    obs.REGISTRY.reset()  # the injected loss, counted
+    log(f"{family} 14c: HOST_LOST at batch 1 of {HOSTROLE_N} requests on 4 "
+        "virtual slots over 2 virtual hosts: the mesh dropped host 1's two "
+        f"slots at once, every answer bitwise the meshless service, "
+        f"{seconds:.3f} s")
+    return {"seconds": seconds, "launches": counted}
+
+
+def drive_hostroles(engines, train, pts, workdir: str) -> dict:
+    """Phase 14: 14a and 14d in two processes (the in-process service
+    meanwhile), then 14b and 14c per model."""
+    obs.REGISTRY.reset()
+    t0 = time.perf_counter()
+    procs, want = hostrole_processes(engines, pts, workdir)
+    out = {"14a_14d_seconds": time.perf_counter() - t0,
+           "pair_wall_s": procs.pop("wall_s")}
+    no_recovery("14a")
+    for family, (eng, _) in engines.items():
+        t0 = time.perf_counter()
+        out[family] = {
+            "14a": procs[family],
+            "14b": hostrole_adoption(family, eng, pts,
+                                     os.path.join(workdir, f"{family}-14b"),
+                                     want[family])}
+        no_recovery(f"14b {family}")
+        out[family]["14c"] = hostrole_shrink(family, eng, train, pts,
+                                             want[family])
+        out[family]["14b_14c_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def hostroles_only(engines, train, pts, card: str, kind: str,
+                   t_main: float) -> int:
+    """``--phase 14``: after the build and the set-up, phase 14 alone, its
+    results on the ``perf`` line."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t14 = time.perf_counter()
+        perf = {"card": card, "hostroles": drive_hostroles(engines, train,
+                                                           pts, workdir)}
+    perf["phase14_seconds"] = time.perf_counter() - t14
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"phase 14: {perf['phase14_seconds']:.1f} s; chip_smoke --phase 14 "
+        f"total: {perf['total_seconds']:.1f} s")
+    log("perf " + json.dumps(perf, sort_keys=True))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def hostrole_launches(row: dict, source: str) -> dict:
+    """A kernel's launches in phase 14: each process's in 14a, and 14b's
+    and 14c's."""
+    at = 1 if source == SEGMENT_SOURCE else 0
+    return {"14a": [n[at] for n in row["14a"]["launches"]],
+            "14b": row["14b"]["launches"][source],
+            "14c": row["14c"]["launches"][source]}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -5873,6 +6266,8 @@ def main() -> int:
         return mesh_only(engines, train, pts, card, kind, t_main)
     if sys.argv[1:] == ["--phase", "13"]:
         return sharded_only(engines, train, pts, card, kind, t_main)
+    if sys.argv[1:] == ["--phase", "14"]:
+        return hostroles_only(engines, train, pts, card, kind, t_main)
 
     # -- phases 3 and 4, per model: kernels, then main path --------------
     checked, driven = {}, {}
@@ -6078,7 +6473,7 @@ def main() -> int:
     perf["phase9_seconds"] = time.perf_counter() - t9
     log(f"phase 9: {perf['phase9_seconds']:.1f} s")
 
-    # -- phases 12 and 13 in processes of their own, beside 10 and 11 ---
+    # -- phases 12-14 in processes of their own, beside 10 and 11 ------
     t_apart = time.perf_counter()
     apart_dir = tempfile.TemporaryDirectory()
     apart = {n: start_apart(n, apart_dir.name) for n in APART_PHASES}
@@ -6091,9 +6486,9 @@ def main() -> int:
         for h in apart.values():
             stop_apart(h)
     apart_dir.cleanup()
-    perf["phases_10_13_seconds"] = time.perf_counter() - t_apart
-    log(f"phases 10-13: {perf['phases_10_13_seconds']:.1f} s (12 and 13 "
-        "in processes of their own beside 10 and 11)")
+    perf["phases_10_14_seconds"] = time.perf_counter() - t_apart
+    log(f"phases 10-14: {perf['phases_10_14_seconds']:.1f} s (12, 13 and "
+        "14 in processes of their own beside 10 and 11)")
     by_name = {row["name"]: row for row in rows}
 
     # -- phase 12: the data-axis device mesh ----------------------------
@@ -6113,6 +6508,15 @@ def main() -> int:
             sharded_launches(sharded[family], SOURCES[family])
         seg_by_path[family]["sharded"] = sharded_launches(sharded[family],
                                                           SEGMENT_SOURCE)
+
+    # -- phase 14: host roles, host-loss shrink, sharded checkpoints ----
+    hostroles = perf["hostroles"] = got[14]["hostroles"]
+    perf["phase14_seconds"] = got[14]["phase14_seconds"]
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["hostroles"] = \
+            hostrole_launches(hostroles[family], SOURCES[family])
+        seg_by_path[family]["hostroles"] = hostrole_launches(
+            hostroles[family], SEGMENT_SOURCE)
     ladder_dir.cleanup()
     envelope_dir.cleanup()
     perf["total_seconds"] = time.perf_counter() - t_main
@@ -6171,7 +6575,7 @@ def phases_10_11(engines, train, pts, envelope_dir, ladder_dir,
 
 # phases run in processes of their own (``--phase N``) beside phases 10
 # and 11, each given APART_S seconds
-APART_PHASES, APART_S = (12, 13), 300
+APART_PHASES, APART_S = (12, 13, 14), 300
 
 
 def start_apart(n: int, workdir: str) -> tuple:
@@ -6216,4 +6620,6 @@ def finish_apart(n: int, handle) -> dict:
 if __name__ == "__main__":
     if sys.argv[1:2] == [SHARD_WORKER]:
         sys.exit(shard_worker(sys.argv[2:]))
+    if sys.argv[1:2] == [HOSTROLE_WORKER]:
+        sys.exit(hostrole_worker(sys.argv[2:]))
     sys.exit(main())

@@ -18,3 +18,12 @@ the MF and NCF models, their training and leave-one-out retraining
 """
 
 __version__ = "0.1.0"
+
+from fia_tpu_torch._lazy import lazy_exports  # noqa: E402
+
+# the reference's re-exports, imported on first use
+__getattr__, __dir__ = lazy_exports(__name__, {
+    "MF": "fia_tpu_torch.models.mf",
+    "NCF": "fia_tpu_torch.models.ncf",
+    "InfluenceEngine": "fia_tpu_torch.influence.engine",
+})

@@ -733,6 +733,14 @@ class InfluenceEngine:
         return [slot.device if int(slot.process_index) == me else None
                 for slot in pmesh.data_slots(self.mesh)]
 
+    @property
+    def _multihost(self) -> bool:
+        """The engine's mesh spans processes: every dispatch exchanges
+        its shards' results with the other processes (``fill_shards``),
+        so the service keeps such an engine on its sequential guarded
+        path and arms nothing ahead of time (the reference's term)."""
+        return pdist.spans_processes(self.mesh)
+
     def _state_on(self, dev=None) -> tuple:
         """``(params, train_x, train_y, postings)`` on ``dev`` (None: the
         engine's own device)."""

@@ -1,7 +1,8 @@
 """Gradient primitives for influence analysis (port of
-``fia_tpu/influence/grads.py:16-105``). Functions return *flattened*
-block vectors (d = model.block_size); each composes with
-``torch.func.vmap`` over a batch of queries."""
+``fia_tpu/influence/grads.py``). The block functions return *flattened*
+block vectors (d = model.block_size), each composing with
+``torch.func.vmap`` over a batch of queries; the full-parameter ones
+return dicts of tensors shaped like the params."""
 
 from __future__ import annotations
 
@@ -72,3 +73,25 @@ def per_example_block_prediction_grads(model, params, u, i, x
     if model.block_row_grads is not None:
         return model.block_row_grads(params, u, i, x)
     return autodiff_row_grads(model, params, u, i, x)
+
+
+def per_example_full_loss_grads(model, params, x, y) -> dict:
+    """Per-example full-parameter loss gradients: a dict of the params'
+    names to (B, ...) stacks, row j the gradient of row j's loss fed
+    alone (its squared error plus the full regulariser)."""
+
+    def one(xj, yj):
+        return torch.func.grad(
+            lambda p: model.loss(p, xj[None, :], yj[None]))(params)
+
+    return torch.func.vmap(one)(torch.as_tensor(x), torch.as_tensor(y))
+
+
+def full_loss_grad(model, params, x, y, w=None) -> dict:
+    """∇_params of the total loss ((masked-)mean MSE + L2) over rows x."""
+    return torch.func.grad(lambda p: model.loss(p, x, y, w))(params)
+
+
+def full_loss_no_reg_grad(model, params, x, y, w=None) -> dict:
+    """∇_params of the (masked-)mean MSE over rows x, no regulariser."""
+    return torch.func.grad(lambda p: model.loss_no_reg(p, x, y, w))(params)

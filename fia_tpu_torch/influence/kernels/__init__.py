@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from fia_tpu_torch.influence.grads import autodiff_row_grads  # noqa: F401
 from fia_tpu_torch.influence.kernels import certificate as _certificate
 from fia_tpu_torch.influence.kernels import eigmin as _eigmin
 from fia_tpu_torch.influence.kernels import mf as _mf

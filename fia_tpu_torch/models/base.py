@@ -145,6 +145,14 @@ class LatentFactorModel:
     def mae(self, params: Params, x, y) -> torch.Tensor:
         return torch.mean(torch.abs(self.predict(params, x) - y))
 
+    def adversarial_loss(self, params: Params, x, y):
+        """Adversarial-loss hook, ``(None, None)`` for rating regression
+        (the reference's ``LatentFactorModel.adversarial_loss``: the
+        original FIA code's MF and NCF disable their classification
+        log(1 - p) loss the same way). A classification model family can
+        override it."""
+        return None, None
+
     def block_predict(self, params: Params, block: Block, u, i, x):
         """Predict rows ``x`` with the (u, i) block substituted."""
         return self.predict(self.with_block(params, block, u, i), x)

@@ -13,7 +13,8 @@ N slots over several processes gives the bits of the one-process mesh of
 the same N slots.
 
   - :func:`initialize` — join the group (``tcp://<coordinator>``),
-    idempotent, a no-op with no coordinator; :func:`shutdown` leaves it.
+    idempotent, a no-op with no coordinator, the process's CUDA slots
+    over ``local_device_ids`` where given; :func:`shutdown` leaves it.
   - :func:`runtime_info` — process and slot topology.
   - :func:`make_hybrid_mesh` — a ``('data', 'model')`` mesh whose
     ``model`` axis (the table-row gathers of every query) stays within a
@@ -60,11 +61,15 @@ def initialize(
     coordinator_address: str | None = None,
     num_processes: int | None = None,
     process_id: int | None = None,
+    local_device_ids=None,
 ) -> None:
     """Join the multi-process group: ``init_process_group("gloo",
     init_method="tcp://<coordinator_address>", world_size=num_processes,
-    rank=process_id)``; a process lays its slots over every device it
-    sees (or its armed virtual slots).
+    rank=process_id)``; a process lays its slots over every CUDA device
+    it sees, or over ``local_device_ids`` only (CUDA ordinals, in the
+    order given: a process of a host with several cards keeps to its
+    own), or over its armed virtual slots (on the first of those
+    ordinals).
 
     With no coordinator and no process count this is a no-op, so drivers
     can call it unconditionally; repeated calls are no-ops. A failed
@@ -78,6 +83,7 @@ def initialize(
             or process_id is None:
         raise ValueError("initialize needs coordinator_address, "
                          "num_processes and process_id together")
+    pmesh.set_local_device_ids(local_device_ids)
     dist = torch.distributed
     if not dist.is_initialized():
         try:
@@ -86,6 +92,7 @@ def initialize(
                 world_size=int(num_processes), rank=int(process_id),
                 timeout=datetime.timedelta(seconds=TIMEOUT_S))
         except Exception as e:
+            pmesh.set_local_device_ids(None)
             raise taxonomy.HostLost(
                 f"process {process_id} of {num_processes} could not join "
                 f"the process group at {coordinator_address}: {e}") from e
@@ -93,11 +100,13 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group (a no-op outside one) and forget the
+    ``local_device_ids`` it was joined with."""
     global _initialized
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
+    pmesh.set_local_device_ids(None)
     _initialized = False
 
 

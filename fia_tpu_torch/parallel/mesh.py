@@ -55,6 +55,9 @@ _VIRTUAL_HOSTS: dict[int, int] | None = None
 # Armed by virtual_devices()/set_virtual_devices(): the number of
 # virtual slots laid over the first physical device, or None.
 _VIRTUAL_DEVICES: int | None = None
+# Set by distributed.initialize(local_device_ids=...): the CUDA ordinals
+# this process lays its slots over, in order, or None (every device).
+_LOCAL_DEVICE_IDS: tuple[int, ...] | None = None
 
 
 @dataclass(frozen=True)
@@ -161,17 +164,48 @@ def mesh_hosts(mesh: Mesh | None) -> tuple[int, ...]:
     return tuple(sorted({host_index(d) for d in mesh.devices.flat}))
 
 
+def set_local_device_ids(ids) -> None:
+    """Lay this process's CUDA slots over only the ordinals ``ids``, in
+    the order given (None: every visible device). Set by
+    :func:`fia_tpu_torch.parallel.distributed.initialize`'s
+    ``local_device_ids``; raises ``ValueError`` on an empty, negative or
+    repeated list."""
+    global _LOCAL_DEVICE_IDS
+    if ids is None:
+        _LOCAL_DEVICE_IDS = None
+        return
+    ids = tuple(int(i) for i in ids)
+    if not ids or min(ids) < 0 or len(set(ids)) != len(ids):
+        raise ValueError(
+            f"local_device_ids must be distinct CUDA ordinals >= 0, got "
+            f"{list(ids)}")
+    _LOCAL_DEVICE_IDS = ids
+
+
+def _cuda_ordinals() -> list[int]:
+    """The CUDA ordinals this process's slots lie on, in slot order."""
+    if _LOCAL_DEVICE_IDS is not None:
+        return list(_LOCAL_DEVICE_IDS)
+    return list(range(torch.cuda.device_count()))
+
+
 def _local_slots(kind: str, index: int | None) -> list[Slot]:
     """The slots this process can lay a mesh over, in id order: the
-    armed virtual count over one device of ``kind``, else every CUDA
-    device (``cuda:0..count-1``), else the CPU."""
+    armed virtual count over one device of ``kind`` (on CUDA, ``index``,
+    else the first of this process's ordinals), else this process's CUDA
+    devices (every one, ``cuda:0..count-1``, or the ``local_device_ids``
+    it joined with, in their order), else the CPU."""
     if _VIRTUAL_DEVICES is not None:
-        dev = (torch.device("cuda", index or 0) if kind == "cuda"
-               else torch.device("cpu"))
+        if kind == "cuda":
+            first = (index if index is not None
+                     else (_cuda_ordinals() or [0])[0])
+            dev = torch.device("cuda", first)
+        else:
+            dev = torch.device("cpu")
         return [Slot(j, 0, dev) for j in range(_VIRTUAL_DEVICES)]
     if kind == "cuda":
-        return [Slot(j, 0, torch.device("cuda", j))
-                for j in range(torch.cuda.device_count())]
+        return [Slot(j, 0, torch.device("cuda", o))
+                for j, o in enumerate(_cuda_ordinals())]
     return [Slot(0, 0, torch.device("cpu"))]
 
 
@@ -292,14 +326,25 @@ def live_device_ids() -> frozenset:
     CUDA devices (``torch.cuda.device_count()``), or the CPU; armed
     virtual slots are all alive while a physical device is. Across
     processes, every process's slots (ids ``p * n + j``) count as alive:
-    a dead peer shows as a failed exchange. When the
+    a dead peer shows as a failed exchange. A process that joined with
+    ``local_device_ids`` has a slot for each of them, alive while its
+    ordinal is visible. When the
     probe itself raises the empty set is returned (every slot then counts
     as lost, which is the honest answer)."""
     try:
-        phys = (torch.cuda.device_count() if torch.cuda.is_available()
-                else 1)
-        n = phys if _VIRTUAL_DEVICES is None else _VIRTUAL_DEVICES
-        return frozenset(range(n * process_count())) if phys else frozenset()
+        cuda = torch.cuda.is_available()
+        phys = torch.cuda.device_count() if cuda else 1
+        if not phys:
+            return frozenset()
+        if _VIRTUAL_DEVICES is not None:
+            n, alive = _VIRTUAL_DEVICES, range(_VIRTUAL_DEVICES)
+        elif cuda:
+            ords = _cuda_ordinals()
+            n, alive = len(ords), [j for j, o in enumerate(ords) if o < phys]
+        else:
+            n, alive = 1, range(1)
+        return frozenset(p * n + j for p in range(process_count())
+                         for j in alive)
     except Exception:
         return frozenset()
 

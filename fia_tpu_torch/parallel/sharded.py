@@ -159,6 +159,23 @@ def shard_model_params(mesh: pmesh.Mesh, params, model, axis: str = "model",
     return out
 
 
+def whole_params(params, model) -> dict:
+    """Whole tensors from placed params (a sharded engine's ``params``,
+    or a sharded checkpoint restored): each row-sharded table's shards
+    concatenated in row order with the zero pad rows cut, a replica as
+    it is, a plain tensor unchanged — what an engine is built from. Needs
+    a whole mesh row of shards in this process (``Placed.row_shards``)."""
+    shapes = model.param_shapes()
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, Placed) and v.axis is not None:
+            v = torch.cat(v.row_shards())[: shapes[k][0]]
+        elif isinstance(v, Placed):
+            v = next(x for x in v.shards if x is not None)
+        out[k] = v
+    return out
+
+
 def gather_table_rows(mesh: pmesh.Mesh, model, params, uids, iids,
                       axis: str = "model") -> list:
     """Table rows of the ids of each ``data`` shard, from row-sharded

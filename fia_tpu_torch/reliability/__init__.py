@@ -10,3 +10,14 @@
 - ``artifacts`` — atomic, checksummed npz publishes, verification on
   read and quarantine.
 """
+
+from fia_tpu_torch._lazy import lazy_exports  # noqa: E402
+
+# the reference's re-exports, imported on first use
+__getattr__, __dir__ = lazy_exports(__name__, {
+    "artifacts": "fia_tpu_torch.reliability.artifacts",
+    "inject": "fia_tpu_torch.reliability.inject",
+    "journal": "fia_tpu_torch.reliability.journal",
+    "policy": "fia_tpu_torch.reliability.policy",
+    "taxonomy": "fia_tpu_torch.reliability.taxonomy",
+})

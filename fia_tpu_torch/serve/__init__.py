@@ -21,12 +21,13 @@ Layers (each its own module, composable without the service):
   rollups, in the reference's schema.
 - :mod:`fia_tpu_torch.serve.service`   — :class:`InfluenceService`, the
   event loop tying the above to an :class:`InfluenceEngine`.
+- :mod:`fia_tpu_torch.serve.hostshard` — the journal-sharded dispatch
+  of host roles (``ServeConfig.host_role``).
 
-The service serves over a local device mesh, row-sharded tables
-included, and shrinks it on device loss; the reference's ``hostshard``
-module, the host role, host-loss recovery and serving over a mesh that
-spans processes are ROADMAP Queue A.13b (``parallel/distributed.py``,
-the multi-process runtime they stand on, is ported).
+The service serves over a device mesh, row-sharded tables and meshes
+that span processes included, shrinks it on device loss by a slot and on
+host loss by a whole host, and splits a drain's dispatch across host
+roles through verified journals (docs/design.md §25).
 """
 
 from fia_tpu_torch.serve.admission import (  # noqa: F401

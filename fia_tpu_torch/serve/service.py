@@ -45,18 +45,14 @@ Differences from the reference:
   carried over: :meth:`InfluenceService._overlap_eligible` and
   :meth:`~InfluenceService.warmup` drop it, as the port's
   ``InfluenceEngine.query_many`` does.
-- Serving over a local device mesh is ported (``ServeConfig.mesh``,
-  engines over a mesh, the construction-time liveness and fingerprint
-  checks, and the mesh shrink on device loss,
-  :meth:`InfluenceService._recover_device_loss`). Multi-host serving
-  (the ``_multihost`` term of the eligibility checks,
-  ``ServeConfig.host_role`` and ``host_merge_timeout_s``, the
-  journal-sharded dispatch and host-loss adoption) is ROADMAP Queue
-  A.13b: asking for a host role, or serving an engine over a mesh that
-  spans processes, raises ``NotImplementedError``, and a host loss
-  sheds the batch with its classified kind. A mesh with row-sharded
-  tables serves as any local mesh; its shrink keeps the tables sharded
-  while the survivors fill a ``model`` group.
+- A mesh that spans processes is one the processes joined over gloo
+  (``parallel.distributed``), not one runtime: every process runs the
+  same service over the same request stream, and each dispatch
+  all-gathers its shards' host results in slot order (``fill_shards``),
+  so the answers are the one-process mesh's bits.
+- The host roles' journal merge (:mod:`fia_tpu_torch.serve.hostshard`)
+  polls a peer's journal whose manifest has not landed yet instead of
+  quarantining it (see that module).
 - :meth:`~InfluenceService.warmup` reads the port's build records, the
   engine's :meth:`compiled_geometries` and the program builds counted by
   :mod:`fia_tpu_torch.utils.compilemon` (CUDA graph captures on the
@@ -77,12 +73,14 @@ import numpy as np
 
 from fia_tpu_torch import obs
 from fia_tpu_torch.reliability import inject, sites, taxonomy
+from fia_tpu_torch.reliability import policy as rpolicy
 from fia_tpu_torch.serve.admission import (
     REASON_DEADLINE,
     REASON_DEGRADED,
     AdmissionController,
 )
 from fia_tpu_torch.serve import cache as scache
+from fia_tpu_torch.serve import hostshard
 from fia_tpu_torch.serve.cache import BlockEntry, HotBlockCache
 from fia_tpu_torch.serve.health import (
     MODE_FULL,
@@ -113,7 +111,6 @@ _TOPOLOGY_KINDS = (taxonomy.DEVICE_LOST, taxonomy.HOST_LOST)
 # Failure kinds that kill every dispatch in flight: the windowed loop
 # rebuilds the device state before the survivors re-dispatch.
 _RESET_KINDS = (taxonomy.WORKER, taxonomy.PREEMPTION)
-_A13B = "ROADMAP Queue A.13b"
 
 
 @dataclass
@@ -180,10 +177,38 @@ class ServeConfig:
     # quarter of the tightest configured SLO — the dispatcher's
     # "about to miss" horizon tracks the strictest promise made.
     class_deadlines: dict | bool | None = None
-    # Host-sharded dispatch, a (host, n_hosts, journal_dir) triple: not
-    # ported yet (ROADMAP Queue A.13b); anything but None raises
-    # NotImplementedError at construction.
+    # Host-sharded dispatch (docs/design.md §25): a (host, n_hosts,
+    # journal_dir) triple naming this process's shard of the pod's
+    # miss-dispatch work. Each host computes a contiguous, batch-aligned
+    # row-slice of every drain's coalesced dispatch order, journals it
+    # durably (reliability/artifacts.py), and every host merges the
+    # shard journals — no hot-path collective, and a restarted host
+    # resumes from the journals instead of recomputing. None =
+    # single-host dispatch (every prior behaviour unchanged).
     host_role: tuple | None = None
+    # Merge budget for peer shard journals (seconds): a peer whose
+    # journal never appears within this window is a *proved* host loss
+    # (classified ``host_lost``), and the survivors adopt its shard.
+    host_merge_timeout_s: float = 60.0
+
+
+class _MergedRows:
+    """Rows ``[base, base + n)`` of a merged host-shard result,
+    presented through the InfluenceResult row accessors
+    ``_bank_batch`` consumes (``scores_of`` / ``counts`` / ``ihvp`` /
+    ``test_grad``)."""
+
+    def __init__(self, merged: dict, base: int, n: int):
+        self._scores = merged["scores"]
+        self._offsets = merged["offsets"]
+        self._base = int(base)
+        self.counts = merged["counts"][base:base + n]
+        self.ihvp = merged["ihvp"][base:base + n]
+        self.test_grad = merged["test_grad"][base:base + n]
+
+    def scores_of(self, row: int):
+        r = self._base + int(row)
+        return self._scores[self._offsets[r]:self._offsets[r + 1]]
 
 
 def _resolve_mesh(mesh, device=None):
@@ -241,9 +266,10 @@ class InfluenceService:
         self.config = config or ServeConfig()
         # a policy.Clock (e.g. VirtualClock) normalises to its reader
         self.clock = getattr(clock, "monotonic", clock)
-        if self.config.host_role is not None:
-            raise NotImplementedError(
-                f"not ported yet — ServeConfig.host_role: {_A13B}")
+        # keep the full Clock object (monotonic + sleep) when one was
+        # passed: the host-shard merge SPENDS time waiting on peers'
+        # journals, and virtual-time tests need that wait to be virtual
+        self._clock_obj = clock if hasattr(clock, "monotonic") else None
         self.cache = HotBlockCache(self.config.cache_entries,
                                    self.config.cache_bytes)
         self.metrics = ServeMetrics(self.config.metrics_path)
@@ -258,13 +284,6 @@ class InfluenceService:
         eng = self._peek_engine()
         self.mesh = _resolve_mesh(self.config.mesh,
                                   getattr(eng, "device", None))
-        from fia_tpu_torch.parallel.distributed import spans_processes
-
-        if spans_processes(self.mesh) or spans_processes(
-                getattr(eng, "mesh", None)):
-            raise NotImplementedError(
-                f"not ported yet — serving over a mesh that spans "
-                f"processes: {_A13B}")
         if self.mesh is not None:
             self._check_mesh(eng)
         self.health = HealthController(self.config.health)
@@ -287,6 +306,16 @@ class InfluenceService:
             self.deadline_slack_s = 0.25 * min(
                 self.class_deadlines.values()
             )
+        # Host-sharded dispatch role: (host, n_hosts, journal_dir)
+        self.host_role = None
+        if self.config.host_role is not None:
+            h, n, jdir = self.config.host_role
+            h, n = int(h), int(n)
+            if not 0 <= h < n:
+                raise ValueError(
+                    f"host_role host index {h} out of range for "
+                    f"{n} host(s)")
+            self.host_role = (h, n, str(jdir))
         self.admission = AdmissionController(
             max_queue=self.config.max_queue,
             default_deadline_s=self.config.default_deadline_s,
@@ -724,12 +753,14 @@ class InfluenceService:
         one flat dispatch per batch anyway — so the overlapped stream
         is dispatch-for-dispatch the program sequence the byte-identity
         contract pins. Local meshes qualify (the flat path shards the
-        query axis in process). (The reference's ``_wide_block_cap`` and
-        ``_multihost`` terms are dropped: see the module docstring.)"""
+        query axis in process); engines over a mesh that spans processes
+        keep the sequential guarded path. (The reference's
+        ``_wide_block_cap`` term is dropped: see the module docstring.)"""
         return (
             int(self.config.dispatch_window) > 1
             and eng.impl in ("auto", "flat")
             and eng._flat_eligible()
+            and not eng._multihost
         )
 
     def _miss_lanes(self, misses, keys) -> tuple[list, list | None]:
@@ -756,6 +787,10 @@ class InfluenceService:
         counts = eng.index.counts_batch(points)
         classes, urgent = self._miss_lanes(misses, keys)
         plan = self.scheduler.plan(counts, classes, urgent)
+        if self.host_role is not None:
+            self._dispatch_hostshard(eng, fp, misses, responses, keys,
+                                     counts, points, plan)
+            return
         if not self._overlap_eligible(eng):
             for batch in plan:
                 self._dispatch_one(eng, fp, misses, responses, keys,
@@ -1005,6 +1040,112 @@ class InfluenceService:
                     batch_id=bid, batch_size=len(batch),
                 )
 
+    # -- host-sharded dispatch (docs/design.md §25) ------------------------
+    def _dispatch_hostshard(self, eng, fp, misses, responses, keys,
+                            counts, points, plan) -> None:
+        """One drain's miss dispatch split across hosts by journal.
+
+        Every host runs this same code over the same coalesced plan:
+        compute OWN contiguous batch-aligned shard of the dispatch order
+        through the engine (``hostshard.dispatch_local_shard`` — skipped
+        entirely when a verified journal for it already exists, the
+        restart-resume path), then merge every host's journal back into
+        dispatch order (``hostshard.merge_host_shards`` — pure journal
+        reads, no hot-path collective). Shards are batch-boundary-aligned
+        slices of the single-process order, so the merged results are
+        bitwise the single-host stream.
+
+        A peer whose journal never lands inside ``host_merge_timeout_s``
+        is a proved ``host_lost``: the survivors adopt the dead hosts'
+        shards (recompute them locally from the same plan — the journals
+        make the adoption idempotent) and the drain still answers every
+        request. Only when adoption itself fails classified does the
+        drain shed, batch by batch, with the taxonomy kind.
+        """
+        host, nhosts, jdir = self.host_role
+        order = [int(j) for batch in plan for j in batch]
+        opts = points[order]
+        tag = f"drain{self._drain_seq}"
+        mb = int(self.config.max_batch)
+        t0 = self.clock()
+        # batch ids allocated up front in plan order, so ids and the
+        # dispatch log match the single-host stream
+        bids = []
+        for batch in plan:
+            bid = self._batch_id
+            self._batch_id += 1
+            self.dispatch_log.append((bid, np.array(points[batch])))
+            bids.append(bid)
+        try:
+            inject.fire(sites.SERVE_DISPATCH)
+            with obs.span("serve.hostshard_drain", host=int(host),
+                          nhosts=int(nhosts), rows=len(order)):
+                hostshard.dispatch_local_shard(
+                    eng, opts, host=host, nhosts=nhosts,
+                    journal_dir=jdir, tag=tag, engine_fp=fp,
+                    max_batch=mb,
+                )
+                merged = hostshard.merge_host_shards(
+                    jdir, tag, nhosts, opts, engine_fp=fp, max_batch=mb,
+                    timeout_s=float(self.config.host_merge_timeout_s),
+                    clock=self._merge_clock(),
+                )
+        except Exception as e:
+            kind = taxonomy.classify(e)
+            if kind is None:
+                raise
+            merged = None
+            if kind == taxonomy.HOST_LOST:
+                merged = self._adopt_missing_shards(eng, fp, opts, tag)
+            if merged is None:
+                for bi, batch in enumerate(plan):
+                    self._shed_batch(misses, responses, keys, counts,
+                                     batch, bids[bi], kind, t0)
+                return
+        base = 0
+        for bi, batch in enumerate(plan):
+            view = _MergedRows(merged, base, len(batch))
+            self._bank_batch(eng, fp, misses, responses, keys, counts,
+                             batch, bids[bi], view, t0)
+            base += len(batch)
+
+    def _merge_clock(self):
+        return self._clock_obj if self._clock_obj is not None \
+            else rpolicy.WALL
+
+    def _adopt_missing_shards(self, eng, fp, opts, tag):
+        """Survivor-side recovery for the journal transport: recompute
+        every shard whose journal is missing (``dispatch_local_shard``
+        verifies and skips the ones already on disk — including our
+        own) and re-merge with a zero wait. Returns the merged arrays,
+        or None when the adoption itself failed classified (the caller
+        sheds)."""
+        host, nhosts, jdir = self.host_role
+        mb = int(self.config.max_batch)
+        try:
+            inject.fire(sites.HOST_LOST)
+            seed = f"host-loss-{self.metrics.host_loss_recoveries}"
+            with obs.span("serve.host_loss_recovery", trace_seed=seed,
+                          host=int(host), nhosts=int(nhosts),
+                          transport="journal"):
+                for h in range(nhosts):
+                    hostshard.dispatch_local_shard(
+                        eng, opts, host=h, nhosts=nhosts,
+                        journal_dir=jdir, tag=tag, engine_fp=fp,
+                        max_batch=mb,
+                    )
+                merged = hostshard.merge_host_shards(
+                    jdir, tag, nhosts, opts, engine_fp=fp, max_batch=mb,
+                    timeout_s=0.0, clock=self._merge_clock(),
+                )
+        except Exception as e:
+            if taxonomy.classify(e) is None:
+                raise
+            return None
+        self.metrics.record_host_loss_recovery()
+        obs.REGISTRY.counter("serve.host_loss_recoveries").inc()
+        return merged
+
     def _dispatch_approx(self, eng, fp, misses, responses) -> None:
         """Serve brownout misses from the certified ``sampled`` rung.
 
@@ -1156,11 +1297,7 @@ class InfluenceService:
             with obs.span("serve.device_loss_recovery", trace_seed=seed,
                           ndev=int(new.devices.size)) as sp:
                 eng.rebuild_mesh(new)
-                if eng.impl in ("auto", "flat") and eng._flat_eligible():
-                    geoms = {tuple(eng.flat_geometry(np.asarray(p)))
-                             for p in pending_points if len(p)}
-                    eng.precompile_flat(sorted(geoms))
-                    sp.set(rearmed=len(geoms))
+                self._rearm(eng, pending_points, sp)
         except Exception as e:
             if taxonomy.classify(e) is None:
                 raise
@@ -1174,13 +1311,70 @@ class InfluenceService:
         obs.REGISTRY.counter("serve.device_loss_recoveries").inc()
         return True
 
+    @staticmethod
+    def _rearm(eng, pending_points, sp) -> None:
+        """Build the still-pending dispatch geometries on the new mesh
+        (``precompile_flat``) where the flat path serves and the mesh
+        stays in one process, so steady state captures nothing."""
+        if (eng.impl in ("auto", "flat") and eng._flat_eligible()
+                and not eng._multihost):
+            geoms = {tuple(eng.flat_geometry(np.asarray(p)))
+                     for p in pending_points if len(p)}
+            eng.precompile_flat(sorted(geoms))
+            sp.set(rearmed=len(geoms))
+
     # -- host-loss recovery (docs/design.md §25) ---------------------------
     def _recover_host_loss(self, eng, pending_points) -> bool:
-        """The ``host_lost`` analogue of :meth:`_recover_device_loss`,
-        one granularity up: a multi-host mesh, its host liveness and
-        shrink are ROADMAP Queue A.13b, so it returns False and the batch
-        sheds classified."""
-        return False
+        """Shrink the serving mesh over the surviving *hosts*.
+
+        The ``host_lost`` analogue of :meth:`_recover_device_loss`, one
+        granularity up: a failed exchange (``parallel.distributed``
+        raises ``HostLost``) says some peer process is gone, so the
+        liveness probe asks which mesh hosts lost every slot
+        (:func:`~fia_tpu_torch.parallel.mesh.lost_host_ids`; an injected
+        loss names none, so the deterministic last-host drop applies),
+        drops those hosts wholesale, re-homes the engine on the
+        survivors — which re-shards row-sharded tables onto them and
+        fires the ``mesh.rebuild_multihost`` site when the result still
+        spans hosts — and re-arms the pending dispatch geometries.
+        Results are unchanged by construction: every mesh size runs the
+        single-device program per shard (docs/design.md §15), so the
+        survivors' answers are a fault-free smaller mesh's bits.
+
+        Returns False — caller sheds classified — when there is no mesh
+        to shrink, no host would survive the drop, or the rebuild itself
+        failed with a classified fault.
+        """
+        from fia_tpu_torch.parallel import mesh as pmesh
+
+        cur = getattr(eng, "mesh", None)
+        if cur is None:
+            return False
+        new = pmesh.surviving_mesh(
+            cur,
+            lost_ids=pmesh.lost_device_ids(cur),
+            lost_hosts=pmesh.lost_host_ids(cur),
+            unnamed="host",
+        )
+        if new is None:
+            return False
+        try:
+            inject.fire(sites.HOST_LOST)
+            seed = f"host-loss-{self.metrics.host_loss_recoveries}"
+            with obs.span("serve.host_loss_recovery", trace_seed=seed,
+                          ndev=int(new.devices.size),
+                          nhosts=len(pmesh.mesh_hosts(new))) as sp:
+                eng.rebuild_mesh(new)
+                self._rearm(eng, pending_points, sp)
+        except Exception as e:
+            if taxonomy.classify(e) is None:
+                raise
+            self.mesh = eng.mesh
+            return False
+        self.mesh = new
+        self.metrics.record_host_loss_recovery()
+        obs.REGISTRY.counter("serve.host_loss_recoveries").inc()
+        return True
 
     def _recover_topology(self, kind, eng, pending_points) -> bool:
         """Route a topology-loss kind to its shrink: ``host_lost``
@@ -1299,7 +1493,8 @@ class InfluenceService:
             bank_entries = eng.ensure_factor_bank()
         counts = eng.index.counts_batch(points)
         plan = self.batcher.plan(counts)
-        flat_ok = eng.impl in ("auto", "flat") and eng._flat_eligible()
+        flat_ok = (eng.impl in ("auto", "flat") and eng._flat_eligible()
+                   and not eng._multihost)
         planned = []
         aot = {"compiled": [], "cached": [], "seconds": 0.0}
         if flat_ok:

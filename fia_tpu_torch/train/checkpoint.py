@@ -25,11 +25,11 @@ publish with a checksummed, fingerprinted manifest, and every load
 verifies before deserialising. On top sit :func:`save_rotated` (a
 last-K ``ckpt-<step>.npz`` directory), :func:`restore_latest_valid`
 (newest generation that passes validation; corrupt ones quarantined)
-and :class:`PeriodicCheckpointer` (the trainer's hook). The reference's
-orbax variant (``checkpoint_orbax.py``, sharded checkpoints) is
-JAX-only; its counterpart here, on ``torch.distributed.checkpoint`` over
-the ported multi-process runtime (``parallel/distributed.py``), is
-ROADMAP Queue A.13b.
+and :class:`PeriodicCheckpointer` (the trainer's hook). Sharded
+params (the ``Placed`` row shards of a ``('data', 'model')`` mesh,
+restored with their placement) checkpoint through
+:mod:`fia_tpu_torch.train.checkpoint_orbax`, the counterpart of the
+reference's orbax variant on ``torch.distributed.checkpoint``.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ related rows, the test block, retraining, the Hessian's extreme
 eigenvalues, the gradient of influence, a resumed run keeping the phase
 schedule, the dataset updaters, and the spectral tools. Nothing of that
 file needs ``serve`` or ``stream``, so none of it is left out; ``serve``
-with a host role raises (A.13b; ``serve`` itself is held in
-``test_torch_serve.py``), and ``apply_updates`` / ``apply_removal``
+with a host role journals its shard and answers the facade's influence
+(``serve`` itself is held in ``test_torch_serve.py``, host roles in
+``test_torch_multihost.py``), and ``apply_updates`` / ``apply_removal``
 commit here, with the reference's signatures (the write path itself is
 held in ``test_torch_stream.py`` and ``test_torch_audit.py``). Added: the
 facade's
@@ -34,7 +35,7 @@ from fia_tpu_torch.influence import factor as fbank
 from fia_tpu_torch.influence import hvp as HV
 from fia_tpu_torch.influence.engine import InfluenceEngine
 from fia_tpu_torch.parallel import mesh as pmesh
-from fia_tpu_torch.serve import ServeConfig
+from fia_tpu_torch.serve import Request, ServeConfig
 from fia_tpu_torch.influence.spectral import (block_hessian_eigvals,
                                               extreme_eigvals)
 
@@ -151,14 +152,26 @@ class TestFacade:
         assert "Norm of the mean of gradients:" in out
 
     @pytest.mark.parametrize("call,item", [
-        (lambda m: m.serve(config=ServeConfig(host_role=(0, 2, "/tmp/j"))),
-         "A.13"),
+        (lambda m, d, h: m.serve(config=ServeConfig(
+            host_role=(h, 1, d), disk_cache=False)), "A.13"),
     ])
-    def test_unported_surfaces_raise(self, fia, call, item):
-        """A host role (multi-host serving) names ROADMAP Queue A.13b;
-        a mesh is ported (``TestMesh``)."""
-        with pytest.raises(NotImplementedError, match=item):
-            call(fia)
+    def test_unported_surfaces_raise(self, fia, call, item, tmp_path):
+        """The surface ROADMAP Queue A.13b ported last: ``serve`` with a
+        host role journals its shard and answers bitwise the facade's own
+        influence, and a host index outside the host count raises, as
+        the reference's (a mesh: ``TestMesh``)."""
+        with pytest.raises(ValueError, match="out of range"):
+            call(fia, str(tmp_path), 1)
+        svc = call(fia, str(tmp_path), 0)
+        assert svc.host_role == (0, 1, str(tmp_path)), item
+        pts = fia.data_sets["test"].x[:5].astype(np.int64)
+        got = svc.run([Request(int(u), int(i)) for u, i in pts])
+        assert os.listdir(tmp_path)
+        want = fia.engine().query_batch(pts)
+        for t, r in enumerate(got):
+            assert r.ok
+            assert np.asarray(r.scores).tobytes() == \
+                np.asarray(want.scores_of(t)).tobytes()
 
     @pytest.mark.parametrize("call,rows", [
         (lambda m: m.apply_updates(np.array([[1, 2], [3, 4]], np.int64),

@@ -6,8 +6,8 @@ Restated from ``tests/test_degraded.py`` port against port:
 a 4-slot mesh over virtual CPU slots shrinks on an injected device loss
 and answers bit for bit the single-device service) and
 ``TestConstructionLiveness`` (both). A mesh the engine is not built over
-fails construction, and a host role (ROADMAP Queue A.13b) raises
-``NotImplementedError``. ``TestDeviceLostTaxonomy`` is restated in
+fails construction, and so does a host role whose index lies outside its
+host count. ``TestDeviceLostTaxonomy`` is restated in
 ``tests/test_torch_reliability.py`` (the taxonomy's device-loss kind,
 its signatures, CUDA's sticky errors among them, and its being neither
 transient nor size evidence) and is not repeated here.
@@ -136,13 +136,14 @@ class TestMeshless:
         (lambda: {"mesh": 2}, ValueError, "does not match the engine"),
         (lambda: {"mesh": pmesh.make_mesh(2, device="cpu")}, ValueError,
          "does not match the engine"),
-        (lambda: {"host_role": (0, 2, "/tmp/j")}, NotImplementedError,
-         "A.13b")], ids=["mesh-int", "mesh-object", "host-role"])
+        (lambda: {"host_role": (2, 2, "/tmp/j")}, ValueError,
+         "out of range")], ids=["mesh-int", "mesh-object", "host-role"])
     def test_mesh_and_host_role_wait_for_the_multi_device_slice(
             self, cfg, exc, match):
         """A mesh (an int or a Mesh) asked of a service over a meshless
         engine fails construction: the engine must be built over it. A
-        host role is the multi-host slice, ROADMAP Queue A.13b."""
+        host role's index must lie in its host count (the reference's
+        check; host roles themselves: ``test_torch_multihost.py``)."""
         model, params, train = _setup()
         with pytest.raises(exc, match=match):
             _service(_engine(model, params, train), **cfg())

@@ -16,7 +16,14 @@ program; the exchanges stitch and sum in global slot order), and the
 influence at the reference's bars against the JAX package's
 single-process engines (rtol 1e-4 / atol 1e-6 for the flat scores, the
 reference's own two-process bar; ``test_torch_full.py``'s port-against-
-reference rtol 5e-3 / atol 1e-6 for the full CG influence).
+reference rtol 5e-3 / atol 1e-6 for the full CG influence). On the same
+mesh each process runs an ``InfluenceService`` over the same request
+stream: its answers and batch ids are the one-process mesh service's,
+bit for bit. The sharded engine's params are saved by both processes
+(``train/checkpoint_orbax.py``, collective over the group), restored and
+queried again: the same bits. Each worker joins with ``local_device_ids=[0]``; ROADMAP
+C.7's slot layout over given CUDA ordinals is held in one process
+(``TestLocalDeviceIds``).
 ``mp_worker.py``'s ``row_features="on"`` leg is left out: the fused
 row-feature table is not ported (ROADMAP Queue A.6b).
 """
@@ -39,7 +46,14 @@ from fia_tpu_torch.influence.full import FullInfluenceEngine  # noqa: E402
 from fia_tpu_torch.models import MF  # noqa: E402
 from fia_tpu_torch.parallel import distributed as D  # noqa: E402
 from fia_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from fia_tpu_torch.parallel.sharded import whole_params  # noqa: E402
 from fia_tpu_torch.reliability import taxonomy  # noqa: E402
+from fia_tpu_torch.serve import (  # noqa: E402
+    InfluenceService,
+    Request,
+    ServeConfig,
+)
+from fia_tpu_torch.train import checkpoint_orbax as co  # noqa: E402
 from fia_tpu_torch.train.trainer import (  # noqa: E402
     Trainer,
     TrainConfig,
@@ -64,9 +78,11 @@ def _data():
     return RatingDataset(x, y)
 
 
-def _run_all(mesh, params) -> dict:
+def _run_all(mesh, params, ckpt_dir: str) -> dict:
     """Every multi-process path on ``mesh``: host results by name (the
-    same calls, in the same order, on every process)."""
+    same calls, in the same order, on every process); the sharded
+    checkpoint goes to ``ckpt_dir`` (one directory every process
+    shares)."""
     model = MF(USERS, ITEMS, K, 1e-3)
     train = _data()
     out = {}
@@ -88,6 +104,28 @@ def _run_all(mesh, params) -> dict:
                                hvp_batch=100, device="cpu")
     out["full_scores"] = full.get_influence_on_test_loss(train.x[:2],
                                                          train.y[:2])
+    # the service over the mesh: every process serves the same stream
+    svc = InfluenceService(engine=flat, config=ServeConfig(
+        mesh=mesh, max_batch=4, disk_cache=False))
+    answers = svc.run([Request(int(u), int(i)) for u, i in PTS])
+    assert all(r.ok for r in answers)
+    out["serve_scores"] = np.concatenate([r.scores for r in answers])
+    out["serve_ihvp"] = np.stack([r.ihvp for r in answers])
+    out["serve_batches"] = np.asarray([r.batch_id for r in answers])
+    # the sharded engine's params checkpointed by every process (each
+    # its own slots' shards), restored into a template of zeros, and an
+    # engine rebuilt from them: the same influence
+    path = co.save(os.path.join(ckpt_dir, "sharded"), flat.params, step=5)
+    zeros = InfluenceEngine(model, {k: torch.zeros_like(v)
+                                    for k, v in params.items()}, train,
+                            damping=1e-3, mesh=mesh, shard_tables=True,
+                            impl="flat", device="cpu").params
+    got, _, step = co.load(path, zeros)
+    assert step == 5
+    again = InfluenceEngine(model, whole_params(got, model), train,
+                            damping=1e-3, mesh=mesh, shard_tables=True,
+                            impl="flat", device="cpu").query_batch(PTS)
+    out["ckpt_packed"] = again._packed
     tr = Trainer(model, TrainConfig(**FIT), mesh=mesh, device="cpu")
     state = tr.fit(tr.init_state(params), train.x, train.y)
     out.update({f"fit_{k}": v.numpy() for k, v in state.params.items()})
@@ -111,7 +149,7 @@ def worker(argv) -> int:
     args = ap.parse_args(argv)
     pmesh.set_virtual_devices(4)
     D.initialize(coordinator_address=args.coordinator, num_processes=2,
-                 process_id=args.process_id)
+                 process_id=args.process_id, local_device_ids=[0])
     try:
         info = D.runtime_info(device="cpu")
         assert info.process_count == 2 and info.is_multi_host, info
@@ -137,7 +175,7 @@ def worker(argv) -> int:
                    for g, w in zip(got, want))
         with np.load(args.params) as f:
             params = {k: torch.as_tensor(f[k]) for k in f.files}
-        out = _run_all(mesh, params)
+        out = _run_all(mesh, params, os.path.dirname(args.out))
         if args.process_id == 0:
             np.savez(args.out, **out)
         print(f"worker {args.process_id}: ok", flush=True)
@@ -268,6 +306,68 @@ class TestGlobalBatch:
         np.testing.assert_allclose(float(loss), float(ref), rtol=1e-6)
 
 
+class TestLocalDeviceIds:
+    """ROADMAP C.7: ``initialize``'s ``local_device_ids``."""
+
+    def test_signature_is_the_references(self):
+        import inspect
+
+        from fia_tpu.parallel import distributed as ref
+
+        assert inspect.signature(D.initialize) == inspect.signature(
+            ref.initialize)
+
+    def test_slots_lie_over_the_given_ordinals(self, monkeypatch):
+        """A process of a four-card host that joined with ids [2, 0]
+        lays two slots, over cuda:2 then cuda:0, alive while those
+        ordinals are visible; virtual slots lie over the first id; None
+        restores every device."""
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(pmesh, "_VIRTUAL_DEVICES", None)
+        try:
+            pmesh.set_local_device_ids([2, 0])
+            assert pmesh._local_slots("cuda", None) == [
+                pmesh.Slot(0, 0, torch.device("cuda", 2)),
+                pmesh.Slot(1, 0, torch.device("cuda", 0))]
+            with pmesh.virtual_devices(3):
+                assert {s.device for s in pmesh._local_slots("cuda", None)
+                        } == {torch.device("cuda", 2)}
+                assert pmesh.live_device_ids() == frozenset({0, 1, 2})
+            assert pmesh.live_device_ids() == frozenset({0, 1})
+            assert D.runtime_info(device="cuda").local_device_count == 2
+            pmesh.set_local_device_ids([5])  # past the visible count
+            assert pmesh.live_device_ids() == frozenset()
+            pmesh.set_local_device_ids(None)
+            assert [s.device.index for s in pmesh._local_slots("cuda", None)
+                    ] == [0, 1, 2, 3]
+            # the CPU's slots do not depend on CUDA ordinals
+            pmesh.set_local_device_ids([3])
+            assert pmesh._local_slots("cpu", None) == [
+                pmesh.Slot(0, 0, torch.device("cpu"))]
+        finally:
+            pmesh.set_local_device_ids(None)
+
+    @pytest.mark.parametrize("ids", [[], [1, 1], [-1]])
+    def test_bad_ids_raise(self, ids):
+        with pytest.raises(ValueError, match="local_device_ids"):
+            pmesh.set_local_device_ids(ids)
+
+    def test_ids_without_a_group_change_nothing(self, monkeypatch):
+        """With no coordinator ``initialize`` is a no-op, ids and all, as
+        the reference's; a failed join forgets them."""
+        D.initialize(local_device_ids=[3])
+        assert pmesh._LOCAL_DEVICE_IDS is None
+
+        def refuse(*a, **k):
+            raise RuntimeError("connection refused")
+
+        monkeypatch.setattr(torch.distributed, "init_process_group", refuse)
+        with pytest.raises(taxonomy.HostLost):
+            D.initialize("127.0.0.1:1", 2, 1, local_device_ids=[3])
+        assert pmesh._LOCAL_DEVICE_IDS is None
+
+
 class TestFailures:
     def test_failed_join_raises_host_lost(self, monkeypatch):
         """A group that cannot be joined raises, classified host_lost."""
@@ -291,10 +391,11 @@ class TestFailures:
             D.gather_shards({0: 1}, 2)
 
     def test_service_over_processes_raises(self):
-        """Serving over a mesh that spans processes waits for the host
-        roles (ROADMAP Queue A.13b)."""
-        from fia_tpu_torch.serve import InfluenceService, ServeConfig
-
+        """A service over a mesh that spans processes constructs (its
+        two-process run: ``TestTwoProcess``); its engine is ``_multihost``,
+        so it keeps the sequential guarded path and arms nothing ahead of
+        time. In one process, with no peer to run shard 1, a dispatch
+        raises naming the shard, never a silent hole."""
         cpu = torch.device("cpu")
         mesh = pmesh.Mesh(np.array([pmesh.Slot(0, 0, cpu),
                                     pmesh.Slot(1, 1, cpu)], dtype=object),
@@ -304,10 +405,12 @@ class TestFailures:
         eng = InfluenceEngine(model, model.init_params(
             torch.Generator().manual_seed(0)), _data(), mesh=mesh,
             device="cpu")
-        assert eng._shard_devices() == [cpu, None]
-        with pytest.raises(NotImplementedError, match="A.13b"):
-            InfluenceService(engine=eng, config=ServeConfig(
-                mesh=mesh, disk_cache=False))
+        assert eng._shard_devices() == [cpu, None] and eng._multihost
+        svc = InfluenceService(engine=eng, config=ServeConfig(
+            mesh=mesh, disk_cache=False))
+        assert not svc._overlap_eligible(eng)
+        with pytest.raises(ValueError, match=r"shard\(s\) \[1\]"):
+            svc.run([Request(3, 5), Request(0, 1)])
 
     def test_fill_shards_in_one_process(self):
         """Every shard local: the list itself, no exchange; a shard no
@@ -366,11 +469,14 @@ class TestTwoProcess:
         # the one-process mesh of the same 8 slots: bitwise
         model = MF(USERS, ITEMS, K, 1e-3)
         params = params_from_numpy(model, arrays, "cpu")
+        one = tmp_path / "one"
+        one.mkdir()
         want = _run_all(make_2d_mesh(8, model_parallel=2, device="cpu"),
-                        params)
+                        params, str(one))
         assert sorted(got) == sorted(want)
         for k in want:
             assert got[k].tobytes() == want[k].tobytes(), k
+        assert got["ckpt_packed"].tobytes() == got["flat_packed"].tobytes()
 
         # the JAX package's single-process engines: the reference's bars
         train = _data()

@@ -91,6 +91,13 @@ PARALLEL_MODULES = ("fia_tpu_torch.parallel",
                     "fia_tpu_torch.parallel.mesh",
                     "fia_tpu_torch.parallel.sharded",
                     "fia_tpu_torch.parallel.distributed")
+# host roles and sharded checkpoints
+HOST_MODULES = ("fia_tpu_torch.serve.hostshard",
+                "fia_tpu_torch.train.checkpoint_orbax")
+ALONE_MODULES = (NCF_MODULES + PADDED_MODULES + TRAIN_MODULES
+                 + DISPATCH_MODULES + LADDER_MODULES + OBS_MODULES
+                 + SERVE_MODULES + STREAM_MODULES + PARALLEL_MODULES
+                 + HOST_MODULES)
 
 
 def _forbidden(name: str) -> bool:
@@ -134,6 +141,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(SERVE_MODULES) <= set(names)
     assert set(STREAM_MODULES) <= set(names)
     assert set(PARALLEL_MODULES) <= set(names)
+    assert set(HOST_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
@@ -165,28 +173,49 @@ def test_no_import_statement_names_jax_or_fia_tpu(path):
         assert not [m for m in mods if _forbidden(m)], (path, node.lineno)
 
 
-@pytest.mark.parametrize("module", NCF_MODULES + PADDED_MODULES
-                         + TRAIN_MODULES + DISPATCH_MODULES + LADDER_MODULES
-                         + OBS_MODULES + SERVE_MODULES + STREAM_MODULES
-                         + PARALLEL_MODULES)
-def test_ncf_modules_import_alone_without_nvcc(module):
-    """Imported on their own, with no nvcc to be found: no JAX, nothing
-    of fia_tpu, and no kernel library built or loaded."""
+# One interpreter imports every module of ALONE_MODULES in turn, each from
+# a clean slate: every fia_tpu_torch entry is dropped from sys.modules
+# first, so each module's import runs its whole chain again, as it would
+# alone. torch's import is paid once.
+ALONE_CODE = """
+import importlib, json, sys
+out = {}
+for m in sys.argv[1:]:
+    for k in [k for k in sys.modules if k.split(".")[0] == "fia_tpu_torch"]:
+        del sys.modules[k]
+    before = set(sys.modules)
+    importlib.import_module(m)
+    new = sorted(set(sys.modules) - before)
+    common = importlib.import_module("fia_tpu_torch.influence.kernels.common")
+    out[m] = {"new": new, "loaded": sorted(sys.modules),
+              "libs": len(common._LOADED)}
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def imported_alone():
+    """Each module's record: the entries its import added to
+    ``sys.modules``, all of ``sys.modules`` after it, and the kernel
+    libraries a fresh ``common`` holds — with no nvcc to be found."""
     env = {k: v for k, v in os.environ.items() if k != "CUDA_HOME"}
     env["PATH"] = os.path.dirname(sys.executable)
-    code = (
-        "import importlib, json, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "from fia_tpu_torch.influence.kernels import common\n"
-        "print(json.dumps([sorted(sys.modules), len(common._LOADED)]))\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, check=True,
-                         timeout=120)
-    loaded, n_libs = __import__("json").loads(
-        out.stdout.strip().splitlines()[-1])
-    assert module in loaded and n_libs == 0
-    assert [m for m in loaded if _forbidden(m)] == []
+    out = subprocess.run([sys.executable, "-c", ALONE_CODE, *ALONE_MODULES],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         check=True, timeout=300)
+    return __import__("json").loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", ALONE_MODULES)
+def test_ncf_modules_import_alone_without_nvcc(module, imported_alone):
+    """Imported on its own (every fia_tpu_torch module dropped first),
+    with no nvcc to be found: no JAX, nothing of fia_tpu, and no kernel
+    library built or loaded."""
+    rec = imported_alone[module]
+    assert module in rec["new"] and module in rec["loaded"]
+    assert rec["libs"] == 0
+    assert [m for m in rec["new"] if _forbidden(m)] == []
+    assert [m for m in rec["loaded"] if _forbidden(m)] == []
 
 
 @pytest.mark.parametrize("Model", [MF, NCF], ids=["mf", "ncf"])
