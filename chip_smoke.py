@@ -413,14 +413,43 @@ Phases, each of which makes the script exit non-zero when it fails:
      and phase 14 alone. The score and Hessian rows of the ``kernels``
      line gain a ``hostroles`` path (14a's launches in each process,
      14b's and 14c's).
-     The whole script runs phases 12, 13 and 14 that way, each in a
+ 15. the chaos engine and the observability CLI
+     (``fia_tpu_torch.chaos``, ``cli.chaos``, ``cli.obs``) on the
+     reference's toy workloads (MF, U = 30, I = 20, k = 4), under
+     ``chaos`` in the ``perf`` line; each battery runs ``cli.chaos`` in
+     process once a smoke scenario (``--scenario``, ``--backend cuda``),
+     its kernel launches counted alone:
+     a. the smoke battery (``--smoke``: 12 scenarios x 2 benign seeds x
+        3 faults): every report passed; every engine a scenario built
+        resolved the ``cuda`` score stage; no ``mesh_skipped`` event (the
+        mesh scenarios lay virtual slots on the card); in every run that
+        ended, each fired ``device_lost`` took one slot off the mesh
+        (``mesh_after``) and each ``host_lost`` one host of two slots
+        (``hosts_after``); every scenario that queries launched
+        ``mf_scores`` and ``segment_hessian``, and ``serve_brownout``
+        ``segment_certificate`` and ``block_eigmin``;
+     b. one full-domain seed a scenario (``--soak 0:1 --all_kinds``):
+        every oracle holds, every error classified;
+     c. ``serve_stream`` untraced and traced: the outcome bytes equal
+        (the chaos oracle's comparison); the traced run's JSONL through
+        ``cli.obs``: ``report`` exits 0 with every chain complete,
+        ``trace`` and ``prom`` parse;
+     d. the full-domain seed 2 (``--soak 2:3 --all_kinds``), whose kill
+        kinds (OOM, deadline) fire inside the workloads: as b, and a kill
+        kind fired.
+     ``python3 chip_smoke.py --phase 15`` runs phases 1 and 2, then phase
+     15 alone (no ML-1M set-up). The score, Hessian, certificate and
+     λ_min rows of the ``kernels`` line gain a ``chaos`` path (15a's, 15b's
+     and 15d's launches by scenario; ``ncf_scores`` launches none there,
+     every scenario being MF).
+     The whole script runs phases 12, 13, 14 and 15 that way, each in a
      process of its own started once phase 9 is over, beside phases 10
      and 11 in this one, which keeps the script well inside its time
-     limit; so the walls of phases 10 to 14 are taken with the other
+     limit; so the walls of phases 10 to 15 are taken with the other
      processes on the card, and the kernels' times of phases 3 to 8 with
      none. Their output follows phase 11's, each line prefixed ``[12]``,
-     ``[13]`` or ``[14]``; a failure of any fails the script, and their
-     ``perf`` lines go into its own.
+     ``[13]``, ``[14]`` or ``[15]``; a failure of any fails the script,
+     and their ``perf`` lines go into its own.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
@@ -431,7 +460,8 @@ Phases, each of which makes the script exit non-zero when it fails:
      phase 11 outside the faults 11a injects (counted, then emptied),
      phase 12 outside 12b's injected losses, phase 13 outside 13b's and
      phase 14 outside 14c's (no retry, reset or CPU rung there either;
-     counted, then emptied).
+     counted, then emptied). Phase 15 injects faults throughout and holds
+     its runs to the chaos oracles instead.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -460,6 +490,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -486,6 +517,11 @@ from fia_tpu_torch.audit import (apply_plan, build_plan, load_plan, reverse_topk
                                  save_plan, verify_plan)
 from fia_tpu_torch.audit import reverse as audit_reverse
 from fia_tpu_torch.audit import verify as audit_verify
+from fia_tpu_torch.chaos import oracles as chaos_oracles
+from fia_tpu_torch.chaos.scenarios import (HostLossRecoveryScenario,
+                                           ServeStreamScenario)
+from fia_tpu_torch.cli import chaos as chaos_cli
+from fia_tpu_torch.cli import obs as cli_obs
 from fia_tpu_torch.cli.serve import smoke_stream
 from fia_tpu_torch.eval import metrics
 from fia_tpu_torch.eval.rq1 import test_retraining
@@ -507,7 +543,8 @@ from fia_tpu_torch.influence.kernels import mf as kmf
 from fia_tpu_torch.influence.kernels import ncf as kncf
 from fia_tpu_torch.influence.kernels import segment as kseg
 from fia_tpu_torch.models import MF, NCF
-from fia_tpu_torch.obs.export import perfetto, prometheus, span_fields
+from fia_tpu_torch.obs.export import (perfetto, prometheus, read_spans,
+                                      span_fields)
 from fia_tpu_torch.parallel import mesh as pmesh
 from fia_tpu_torch.reliability import inject, sites, taxonomy
 from fia_tpu_torch.reliability.journal import Journal
@@ -6221,6 +6258,254 @@ def hostrole_launches(row: dict, source: str) -> dict:
             "14c": row["14c"]["launches"][source]}
 
 
+# -- phase 15: the chaos engine and the observability CLI ---------------
+# scenarios of the smoke battery that serve queries (every one but the
+# device-free selftest and train_resume, which only trains), and those
+# whose queries take the sampled rung (certificate and λ_min kernels)
+CHAOS_QUERYING = ("query_cache", "serve_stream", "serve_stream_mesh",
+                  "device_loss_recovery", "host_loss_recovery",
+                  "factor_bank", "update_while_serving",
+                  "unlearn_while_serving", "serve_brownout",
+                  "serve_multitenant")
+CHAOS_SAMPLED = ("serve_brownout",)
+CHAOS_SOAK = ("--soak", "0:1", "--all_kinds")
+# seed 0's full-domain draws kill 10 of the 12 scenarios at
+# chaos.scenario before they query; seed 2's fire OOM and deadline kills
+# inside the workloads (train, dispatch, update, apply)
+CHAOS_KILLS = ("--soak", "2:3", "--all_kinds")
+CHAOS_KILL_KINDS = (taxonomy.OOM, taxonomy.HOST_OOM, taxonomy.DEADLINE)
+
+
+def scenario_engines(scen) -> list:
+    """Every ``InfluenceEngine`` a chaos scenario holds (its own, its
+    ``FIAModel``'s, and their delegates), once each."""
+    roots = [v for v in vars(scen).values() if isinstance(v, InfluenceEngine)]
+    fm = getattr(scen, "fm", None)
+    if fm is not None:
+        roots += list(fm._engines.values())
+    out = []
+    for e in roots:
+        for d in (e, *e._delegates_deep()):
+            if all(d is not o for o in out):
+                out.append(d)
+    return out
+
+
+def chaos_cli_run(argv: list, name: str, workdir: str) -> tuple:
+    """``python -m fia_tpu_torch.cli.chaos <argv> --scenario <name>`` in
+    process, on the card: returns (exit code, the printed summary, the
+    reports it ran, its scenario instance, this run's kernel launches)."""
+    made, reports = [], []
+    orig_engine, orig_finish = chaos_cli._engine, chaos_cli._finish
+
+    def engine_(args):
+        made.append(orig_engine(args))
+        return made[-1]
+
+    def finish(reps, eng, label):
+        reports.extend(reps)
+        return orig_finish(reps, eng, label)
+
+    chaos_cli._engine, chaos_cli._finish = engine_, finish
+    buf = io.StringIO()
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = chaos_cli.main([*argv, "--scenario", name, "--quiet",
+                                 "--workdir", workdir, "--backend", CARD])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    finally:
+        chaos_cli._engine, chaos_cli._finish = orig_engine, orig_finish
+    return rc, json.loads(buf.getvalue()), reports, \
+        made[-1]._scenarios.get(name), launches
+
+
+def fired_kinds(report) -> list:
+    return [kind for _, _, kind in report.record.report["fired"]]
+
+
+def chaos_run_checks(name: str, rep, what: str) -> dict:
+    """A report's shrink accounting: each fired ``device_lost`` took one
+    slot off the mesh and each ``host_lost`` one host, in a run that
+    ended; no run degraded to one device."""
+    ev = rep.record.events
+    check(not any(e.get("event") == "mesh_skipped" for e in ev),
+          f"{what}: {name} logged mesh_skipped")
+    kinds = fired_kinds(rep)
+    out = {"fired": rep.record.report["fired"],
+           "error": rep.record.error}
+    if rep.record.error is not None:
+        return out
+    after = {e["event"]: e for e in ev
+             if e.get("event") in ("mesh_after", "hosts_after")}
+    lost = kinds.count(taxonomy.DEVICE_LOST) + kinds.count(taxonomy.HOST_LOST)
+    if lost:
+        host = HostLossRecoveryScenario
+        hosts = host.NHOSTS if name == host.name else 0
+        per = host.NDEV // host.NHOSTS if hosts else 1  # slots a loss drops
+        check("mesh_after" in after, f"{what}: {name}: a loss fired "
+              f"({kinds}) but no mesh_after event")
+        check(after["mesh_after"]["shrunk"] == per * lost,
+              f"{what}: {name}: {lost} loss(es) fired but the mesh shrank "
+              f"by {after['mesh_after']['shrunk']} slots")
+        if hosts:
+            check(after["hosts_after"]["hosts"] == hosts - lost,
+                  f"{what}: {name}: {lost} host loss(es) but "
+                  f"{after['hosts_after']['hosts']} hosts left")
+    out.update({k: {kk: vv for kk, vv in e.items() if kk != "event"}
+                for k, e in after.items()})
+    return out
+
+
+def chaos_battery(argv: list, workdir: str, label: str) -> dict:
+    """Every smoke scenario through ``cli.chaos <argv>`` on the card, one
+    invocation a scenario (its kernel launches counted alone): every
+    report passed, every engine built resolved the ``cuda`` score
+    stage, the shrink accounting, and the launch gates."""
+    out = {}
+    for name in chaos_cli.SMOKE_SCENARIOS:
+        t0 = time.perf_counter()
+        rc, summary, reports, scen, launches = chaos_cli_run(
+            argv, name, os.path.join(workdir, name))
+        secs = time.perf_counter() - t0
+        check(rc == 0 and summary["failed"] == [],
+              f"{label}: {name} failed: "
+              + json.dumps(summary["failed"], default=str)[:4000])
+        check(len(reports) == summary["runs"] and all(
+            r.passed for r in reports), f"{label}: {name}: a report failed")
+        engines = scenario_engines(scen)
+        variants = sorted({e._kernel_variant for e in engines})
+        check(name in ("selftest", "train_resume") or (
+            engines and variants == ["cuda"]),
+            f"{label}: {name}: engines resolved {variants}, not cuda")
+        runs = [chaos_run_checks(name, r, label) for r in reports]
+        if name in CHAOS_QUERYING:
+            for src in (SOURCES["mf"], SEGMENT_SOURCE):
+                check(launches[src] > 0, f"{label}: {name} queried but "
+                      f"launched no {src}")
+        if name in CHAOS_SAMPLED:
+            for src in (CERT_SOURCE, EIGMIN_SOURCE):
+                check(launches[src] > 0, f"{label}: {name} took the "
+                      f"sampled rung but launched no {src}")
+        errors = [r.record.error for r in reports if r.record.error]
+        check(all(e.get("kind") is not None for e in errors),
+              f"{label}: {name}: an unclassified error: {errors}")
+        kills = [k for r in reports for k in fired_kinds(r)
+                 if k in CHAOS_KILL_KINDS]
+        out[name] = {"runs": summary["runs"], "seconds": secs,
+                     "engines": len(engines), "variants": variants,
+                     "launches": launches, "run_checks": runs,
+                     "errors": [e["kind"] for e in errors],
+                     "kill_kinds_fired": kills}
+        log(f"{label} {name}: {summary['runs']} runs passed in {secs:.1f} s; "
+            f"{len(engines)} engines {variants}; launches {launches}; "
+            f"fired {[r['fired'] for r in runs]}"
+            + (f"; classified errors {out[name]['errors']}" if errors
+               else ""))
+    return out
+
+
+def chaos_traced(workdir: str) -> dict:
+    """15c: ``serve_stream`` on the card untraced and traced, the outcome
+    bytes equal (the chaos oracle's own comparison); the traced run's
+    JSONL through ``cli.obs``: ``report`` exits 0 with every chain
+    complete, ``trace`` and ``prom`` parse."""
+    scen = ServeStreamScenario(device=CARD)
+    jsonl = os.path.join(workdir, "serve_stream.jsonl")
+
+    def run(traced: bool, sub: str, path):
+        obs.TRACER.reset()
+        obs.configure(trace=traced)
+        scen.metrics_path = path
+        try:
+            return scen.run(os.path.join(workdir, sub), [])
+        finally:
+            obs.configure(trace=False)
+            obs.TRACER.reset()
+            scen.metrics_path = None
+
+    off = run(False, "off", None)
+    on = run(True, "on", jsonl)
+    diffs = chaos_oracles.compare_outcomes(off, on)
+    check(not diffs, f"15c: tracing changed the outcome bytes: {diffs[:4]}")
+    n_ok = sum(1 for k, v in on.items()
+               if k.endswith(":status") and str(v).startswith("ok/"))
+    audit = cli_obs.audit_chains(read_spans(jsonl))
+    check(audit["incomplete"] == 0 and audit["ok_complete"] == n_ok,
+          f"15c: chains {audit} for {n_ok} ok answers")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_report = cli_obs.main(["report", jsonl])
+    check(rc_report == 0 and "incomplete: 0" in buf.getvalue(),
+          f"15c: cli.obs report exited {rc_report}: {buf.getvalue()[:500]}")
+    trace_path = os.path.join(workdir, "trace.json")
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc_trace = cli_obs.main(["trace", jsonl, "--out", trace_path])
+    with open(trace_path) as f:
+        events_ = json.load(f)["traceEvents"]
+    check(rc_trace == 0 and events_, "15c: cli.obs trace gave no events")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_prom = cli_obs.main(["prom", jsonl])
+    samples = [ln for ln in buf.getvalue().splitlines()
+               if ln and not ln.startswith("#")]
+    check(rc_prom == 0 and samples and all(
+        math.isfinite(float(ln.rsplit(" ", 1)[1])) or "Inf" in ln
+        for ln in samples), "15c: cli.obs prom did not parse")
+    out = {"outcome_entries": len(on), "ok": n_ok, "chains": audit,
+           "trace_events": len(events_), "prom_samples": len(samples)}
+    log(f"15c: serve_stream traced == untraced ({len(on)} entries); "
+        f"chains {audit['ok_complete']} ok + {audit['rejected_complete']} "
+        f"rejected complete; {len(events_)} trace events, {len(samples)} "
+        "prom samples")
+    return out
+
+
+def drive_chaos(workdir: str) -> dict:
+    """Phase 15: 15a the smoke battery, 15b one full-domain seed a
+    scenario, 15c tracing and ``cli.obs``, 15d a full-domain seed whose
+    kill kinds fire inside the workloads."""
+    out = {}
+    for key, argv in (("15a", ["--smoke"]), ("15b", list(CHAOS_SOAK)),
+                      ("15d", list(CHAOS_KILLS))):
+        t0 = time.perf_counter()
+        out[key] = chaos_battery(argv, os.path.join(workdir, key), key)
+        out[key + "_seconds"] = time.perf_counter() - t0
+        log(f"{key}: {out[key + '_seconds']:.1f} s")
+    kills = [k for row in out["15d"].values() for k in row["kill_kinds_fired"]]
+    check(kills, "15d: no kill kind fired inside a workload")
+    t0 = time.perf_counter()
+    out["15c"] = chaos_traced(os.path.join(workdir, "15c"))
+    out["15c_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def chaos_only(card: str, kind: str, t_main: float) -> int:
+    """``--phase 15``: after the build, phase 15 alone (it needs no
+    ML-1M set-up), its results on the ``perf`` line."""
+    with tempfile.TemporaryDirectory() as workdir:
+        t15 = time.perf_counter()
+        perf = {"card": card, "chaos": drive_chaos(workdir)}
+    perf["phase15_seconds"] = time.perf_counter() - t15
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"phase 15: {perf['phase15_seconds']:.1f} s; chip_smoke --phase 15 "
+        f"total: {perf['total_seconds']:.1f} s")
+    log("perf " + json.dumps(perf, sort_keys=True, default=str))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def chaos_launches(chaos: dict, source: str) -> dict:
+    """A kernel's launches in phase 15, by battery and scenario."""
+    return {key: {name: row["launches"][source]
+                  for name, row in chaos[key].items()}
+            for key in ("15a", "15b", "15d")}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -6250,6 +6535,9 @@ def main() -> int:
             log(f"  ptxas: {fn}: {r.get('registers')} registers, spill "
                 f"stores {r.get('spill_stores')} B, loads "
                 f"{r.get('spill_loads')} B")
+
+    if sys.argv[1:] == ["--phase", "15"]:
+        return chaos_only(card, kind, t_main)
 
     # -- main paths' set-up (ML-1M shape, seeded weights) ---------------
     t0 = time.perf_counter()
@@ -6473,7 +6761,7 @@ def main() -> int:
     perf["phase9_seconds"] = time.perf_counter() - t9
     log(f"phase 9: {perf['phase9_seconds']:.1f} s")
 
-    # -- phases 12-14 in processes of their own, beside 10 and 11 ------
+    # -- phases 12-15 in processes of their own, beside 10 and 11 ------
     t_apart = time.perf_counter()
     apart_dir = tempfile.TemporaryDirectory()
     apart = {n: start_apart(n, apart_dir.name) for n in APART_PHASES}
@@ -6486,9 +6774,9 @@ def main() -> int:
         for h in apart.values():
             stop_apart(h)
     apart_dir.cleanup()
-    perf["phases_10_14_seconds"] = time.perf_counter() - t_apart
-    log(f"phases 10-14: {perf['phases_10_14_seconds']:.1f} s (12, 13 and "
-        "14 in processes of their own beside 10 and 11)")
+    perf["phases_10_15_seconds"] = time.perf_counter() - t_apart
+    log(f"phases 10-15: {perf['phases_10_15_seconds']:.1f} s (12, 13, 14 "
+        "and 15 in processes of their own beside 10 and 11)")
     by_name = {row["name"]: row for row in rows}
 
     # -- phase 12: the data-axis device mesh ----------------------------
@@ -6517,6 +6805,17 @@ def main() -> int:
             hostrole_launches(hostroles[family], SOURCES[family])
         seg_by_path[family]["hostroles"] = hostrole_launches(
             hostroles[family], SEGMENT_SOURCE)
+
+    # -- phase 15: the chaos engine and the observability CLI ----------
+    chaos = perf["chaos"] = got[15]["chaos"]
+    perf["phase15_seconds"] = got[15]["phase15_seconds"]
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["chaos"] = \
+            chaos_launches(chaos, SOURCES[family])
+    seg_by_path["mf"]["chaos"] = chaos_launches(chaos, SEGMENT_SOURCE)
+    for name in (CERT_SOURCE, EIGMIN_SOURCE):
+        by_name[name]["launches_by_path"]["chaos"] = {
+            "mf": chaos_launches(chaos, name)}
     ladder_dir.cleanup()
     envelope_dir.cleanup()
     perf["total_seconds"] = time.perf_counter() - t_main
@@ -6575,7 +6874,7 @@ def phases_10_11(engines, train, pts, envelope_dir, ladder_dir,
 
 # phases run in processes of their own (``--phase N``) beside phases 10
 # and 11, each given APART_S seconds
-APART_PHASES, APART_S = (12, 13, 14), 300
+APART_PHASES, APART_S = (12, 13, 14, 15), 300
 
 
 def start_apart(n: int, workdir: str) -> tuple:

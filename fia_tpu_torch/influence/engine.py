@@ -906,6 +906,12 @@ class InfluenceEngine:
         sharing this engine's device params and train tensors, index and
         postings; its programs, bank and counters are its own."""
         sib = copy.copy(self)
+        # a method a caller set on this instance (patched, or restored by
+        # assignment) is bound to this engine: the sibling answers with
+        # its own class's methods, as the reference's fresh engine does
+        for name, value in list(vars(sib).items()):
+            if getattr(value, "__self__", None) is self:
+                del vars(sib)[name]
         sib.solver = solver
         sib.cache_dir = None
         sib.params = dict(self.params)

@@ -350,3 +350,23 @@ def test_train_or_load_signature_is_the_references():
     assert list(port) == list(ref)
     for name, p in ref.items():
         assert port[name].default == p.default, name
+
+
+def test_chaos_parser_is_the_references_plus_backend():
+    """``cli.chaos``'s flags are the reference's, flag for flag, with
+    the same defaults and choices, plus ``--backend`` and nothing else."""
+    from fia_tpu.cli import chaos as ref_chaos
+    from fia_tpu_torch.cli import chaos as port_chaos
+
+    def flags(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.choices)
+                for a in parser._actions if a.dest != "help"}
+
+    got, want = (flags(port_chaos.build_parser()),
+                 flags(ref_chaos.build_parser()))
+    backend = got.pop("backend")
+    assert got == want
+    assert backend == (("--backend",), None, [None, "cuda", "cpu"])
+    assert port_chaos.SMOKE_SCENARIOS == ref_chaos.SMOKE_SCENARIOS
+    assert (port_chaos.SMOKE_SEEDS_PER_SCENARIO, port_chaos.SMOKE_FAULTS) \
+        == (ref_chaos.SMOKE_SEEDS_PER_SCENARIO, ref_chaos.SMOKE_FAULTS)

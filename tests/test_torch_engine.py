@@ -271,3 +271,28 @@ def test_bad_options_raise(kw, family):
     params = model.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError):
         InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)
+
+
+def test_sibling_drops_methods_bound_to_the_parent():
+    """A method set on an engine instance (patched, or restored by
+    assignment as ``serve_multitenant``'s scripted fault does) is bound
+    to that engine: its ``sampled`` sibling still answers on its own
+    rung, stamped approximate, as the reference's fresh sibling does
+    (ROADMAP C.8)."""
+    rng = np.random.default_rng(7)
+    x = np.stack([rng.integers(0, 30, 400), rng.integers(0, 20, 400)],
+                 axis=1).astype(np.int32)
+    y = rng.integers(1, 6, 400).astype(np.float32)
+    model = MF(30, 20, 4, 1e-2)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    pts = np.asarray([[1, 2], [3, 4]], np.int64)
+    eng = InfluenceEngine(model, params, RatingDataset(x, y), damping=1e-3,
+                          device="cpu")
+    want = InfluenceEngine(model, params, RatingDataset(x, y), damping=1e-3,
+                           solver="sampled", device="cpu").query_batch(pts)
+    eng.query_batch = eng.query_batch  # an instance attribute, bound
+    got = eng.approx_sibling().query_batch(pts)
+    assert got.approx and want.approx
+    np.testing.assert_array_equal(got.scores, want.scores)
+    np.testing.assert_array_equal(got.err_bound, want.err_bound)
+    assert "query_batch" not in vars(eng.approx_sibling())

@@ -94,10 +94,19 @@ PARALLEL_MODULES = ("fia_tpu_torch.parallel",
 # host roles and sharded checkpoints
 HOST_MODULES = ("fia_tpu_torch.serve.hostshard",
                 "fia_tpu_torch.train.checkpoint_orbax")
+# the chaos engine and the observability CLI
+CHAOS_MODULES = ("fia_tpu_torch.chaos",
+                 "fia_tpu_torch.chaos.schedule",
+                 "fia_tpu_torch.chaos.shrink",
+                 "fia_tpu_torch.chaos.oracles",
+                 "fia_tpu_torch.chaos.scenarios",
+                 "fia_tpu_torch.chaos.runner",
+                 "fia_tpu_torch.cli.chaos",
+                 "fia_tpu_torch.cli.obs")
 ALONE_MODULES = (NCF_MODULES + PADDED_MODULES + TRAIN_MODULES
                  + DISPATCH_MODULES + LADDER_MODULES + OBS_MODULES
                  + SERVE_MODULES + STREAM_MODULES + PARALLEL_MODULES
-                 + HOST_MODULES)
+                 + HOST_MODULES + CHAOS_MODULES)
 
 
 def _forbidden(name: str) -> bool:
@@ -142,6 +151,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(STREAM_MODULES) <= set(names)
     assert set(PARALLEL_MODULES) <= set(names)
     assert set(HOST_MODULES) <= set(names)
+    assert set(CHAOS_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"

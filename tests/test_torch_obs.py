@@ -9,12 +9,13 @@ flat-program capture the engine records goes to
 
 ``TestServeChains`` is restated over a traced stream of the port's
 service (``fia_tpu_torch.serve``), its JSONL audited and rendered by the
-reference's own ``fia_tpu.cli.obs`` (``audit_chains``, ``report``,
-``trace``; the port's ``cli/obs.py`` is ROADMAP Queue A.14): the port
-writes the reference's span and metrics schema. ``TestChaosOracle`` waits
-for the chaos scenarios (A.14). Added here: a traced ``query_many``
-returns the untraced run's scores as equal arrays, and emits the engine's
-spans.
+port's ``fia_tpu_torch.cli.obs`` (``audit_chains``, ``last_snapshot``,
+``report``, ``trace``); fed the same file, the reference's
+``fia_tpu.cli.obs`` prints the same ``report``, ``trace`` and ``prom``
+bytes with the same exit codes (the port writes the reference's span and
+metrics schema). ``TestChaosOracle`` is restated on the port's
+``serve_stream`` scenario. Added here: a traced ``query_many`` returns
+the untraced run's scores as equal arrays, and emits the engine's spans.
 """
 
 import hashlib
@@ -435,10 +436,10 @@ class TestServeChains:
         assert n_ok == traced_stream["n_ok"]
 
     def test_chains_complete_from_file_alone(self, traced_stream):
-        from fia_tpu.cli import obs as ref_cli_obs
+        from fia_tpu_torch.cli import obs as cli_obs
 
         spans = read_spans(traced_stream["path"])
-        audit = ref_cli_obs.audit_chains(spans)
+        audit = cli_obs.audit_chains(spans)
         assert audit["incomplete"] == 0
         assert audit["ok_complete"] == traced_stream["n_ok"]
         assert audit["rejected_complete"] == 1
@@ -477,9 +478,9 @@ class TestServeChains:
         assert len([s for s in spans if s["trace"] == bad_tid]) == 3
 
     def test_metrics_snapshot_on_close(self, traced_stream):
-        from fia_tpu.cli import obs as ref_cli_obs
+        from fia_tpu_torch.cli import obs as cli_obs
 
-        snap = ref_cli_obs.last_snapshot(traced_stream["path"])
+        snap = cli_obs.last_snapshot(traced_stream["path"])
         assert snap is not None
         key = "serve.requests_total{mode=full,status=ok}"
         assert snap["counters"][key] == traced_stream["n_ok"]
@@ -489,9 +490,9 @@ class TestServeChains:
         assert hist == ["serve.solve_by_solver_us{solver=direct}"]
 
     def test_cli_report_exit_codes(self, traced_stream, tmp_path, capsys):
-        from fia_tpu.cli import obs as ref_cli_obs
+        from fia_tpu_torch.cli import obs as cli_obs
 
-        assert ref_cli_obs.main(["report", traced_stream["path"]]) == 0
+        assert cli_obs.main(["report", traced_stream["path"]]) == 0
         out = capsys.readouterr().out
         assert "incomplete: 0" in out
         assert "solver=direct" in out
@@ -500,15 +501,103 @@ class TestServeChains:
             for line in src:
                 if '"name": "serve.solver"' not in line:
                     dst.write(line)
-        assert ref_cli_obs.main(["report", str(broken)]) == 1
+        assert cli_obs.main(["report", str(broken)]) == 1
 
     def test_cli_trace_export(self, traced_stream, tmp_path):
-        from fia_tpu.cli import obs as ref_cli_obs
+        from fia_tpu_torch.cli import obs as cli_obs
 
         out = tmp_path / "t.json"
-        assert ref_cli_obs.main(["trace", traced_stream["path"],
+        assert cli_obs.main(["trace", traced_stream["path"],
                                  "--last", "2", "--out", str(out)]) == 0
         doc = json.load(open(out))
         dur = [e for e in doc["traceEvents"] if e["ph"] == "X"]
         assert dur
         assert len({e["tid"] for e in dur}) == 2
+
+    @pytest.mark.parametrize("argv", [
+        ["report"], ["trace"], ["trace", "--last", "2"], ["prom"],
+        ["report", "<broken>"], ["prom", "<empty>"], ["trace", "<empty>"],
+    ], ids=["report", "trace", "trace-last", "prom", "report-broken",
+            "prom-empty", "trace-empty"])
+    def test_cli_output_is_the_references(self, traced_stream, tmp_path,
+                                          capsys, argv):
+        """Fed the same JSONL, the port's and the reference's
+        ``cli.obs`` print the same bytes (stdout and stderr) and exit
+        with the same code."""
+        from fia_tpu.cli import obs as ref_cli_obs
+        from fia_tpu_torch.cli import obs as cli_obs
+
+        path = traced_stream["path"]
+        if "<broken>" in argv:
+            path = str(tmp_path / "broken.jsonl")
+            with open(traced_stream["path"]) as src, open(path, "w") as dst:
+                for line in src:
+                    if '"name": "serve.solver"' not in line:
+                        dst.write(line)
+        elif "<empty>" in argv:
+            path = str(tmp_path / "empty.jsonl")
+            open(path, "w").close()
+        args = [argv[0], path] + [a for a in argv[1:] if "<" not in a]
+        outs = []
+        for cli in (cli_obs, ref_cli_obs):
+            capsys.readouterr()
+            rc = cli.main(list(args))
+            outs.append((rc, *capsys.readouterr()))
+        assert outs[0] == outs[1]
+        if argv[0] == "trace" and outs[0][0] == 0:
+            assert json.loads(outs[0][1])["traceEvents"]
+
+
+class TestChaosOracle:
+    def test_tracing_preserves_chaos_outcome_bytes(self, tmp_path):
+        """The chaos golden-run byte contract survives tracing: the
+        serve_stream scenario (overload + cache tiers + micro-batched
+        dispatch) produces an identical outcome payload — statuses,
+        reasons, score arrays — with the tracer on."""
+        from fia_tpu_torch.chaos.scenarios import ServeStreamScenario
+
+        def run(traced, sub):
+            obs.TRACER.reset()
+            obs.configure(trace=traced)
+            try:
+                return ServeStreamScenario(device="cpu").run(
+                    str(tmp_path / sub), [])
+            finally:
+                obs.configure(trace=False)
+                obs.TRACER.reset()
+
+        off, on = run(False, "off"), run(True, "on")
+        assert set(off) == set(on)
+        for k in off:
+            if isinstance(off[k], np.ndarray):
+                assert np.array_equal(off[k], on[k]), k
+            else:
+                assert off[k] == on[k], k
+
+    def test_chaos_stream_jsonl_through_cli_obs(self, tmp_path, capsys):
+        """A traced ``serve_stream`` run writes its JSONL
+        (``metrics_path``): every request chain complete, and both
+        packages' ``cli.obs`` render it to the same bytes."""
+        from fia_tpu.cli import obs as ref_cli_obs
+        from fia_tpu_torch.chaos.scenarios import ServeStreamScenario
+        from fia_tpu_torch.cli import obs as cli_obs
+
+        scen = ServeStreamScenario(device="cpu")
+        scen.metrics_path = str(tmp_path / "stream.jsonl")
+        obs.configure(trace=True)
+        try:
+            out = scen.run(str(tmp_path / "run"), [])
+        finally:
+            obs.configure(trace=False)
+            obs.TRACER.reset()
+        n_ok = sum(str(v).startswith("ok/") for k, v in out.items()
+                   if k.endswith(":status"))
+        audit = cli_obs.audit_chains(read_spans(scen.metrics_path))
+        assert audit["incomplete"] == 0 and audit["ok_complete"] == n_ok
+        for argv in (["report"], ["trace"], ["prom"]):
+            got = []
+            for cli in (cli_obs, ref_cli_obs):
+                capsys.readouterr()
+                got.append((cli.main([argv[0], scen.metrics_path]),
+                            *capsys.readouterr()))
+            assert got[0] == got[1] and got[0][0] == 0, argv
