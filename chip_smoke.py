@@ -442,14 +442,50 @@ Phases, each of which makes the script exit non-zero when it fails:
      λ_min rows of the ``kernels`` line gain a ``chaos`` path (15a's, 15b's
      and 15d's launches by scenario; ``ncf_scores`` launches none there,
      every scenario being MF).
-     The whole script runs phases 12, 13, 14 and 15 that way, each in a
-     process of its own started once phase 9 is over, beside phases 10
+ 16. the port's last modules, under ``parity``, ``lint`` and ``native``
+     in the ``perf`` line, on an ML-1M set-up of its own:
+     a. the lint on the card's host: ``python -m
+        fia_tpu_torch.analysis.lint --self-check`` exits 0 with no
+        finding (its files, justified suppressions and seconds printed);
+        after b, every kernel module whose launches were recorded into a
+        CUDA graph during b (``kernels.captured_counts()``) has its launch
+        wrapper (the function that counts the launch) registered as a
+        capture scope in the lint's config
+        (``REGISTERED_CAPTURE_ENTRY_POINTS``);
+     b. the independent oracle: MF and NCF trained on the card at ML-1M
+        shape with ``bench.py``'s settings (k = 16, wd 1e-3, batch 3,020,
+        lr 1e-3; ``PARITY_STEPS`` minibatch steps, a budget of about 30 s
+        a model at phase 7b's rates), then ``query_batch`` (kernel
+        ``cuda``, damping 1e-6) on ``PARITY_Q`` held-out pairs against
+        ``backends.torch_ref``'s engine on the CPU (``REF_THREADS``
+        threads) at its defaults and at ``bench.py``'s converged settings
+        (``REF_TIGHT``): identical related sets, and Spearman and Pearson
+        >= ``PARITY_MIN`` (``tests/test_parity.py``'s bar) for every
+        query against both — save a query where the defaults' solve is
+        the side that is off, which ``fmin_ncg``'s early stop is
+        (reference behaviour): there the card must be within the bar of a
+        float64 solve and the defaults outside it, both printed. The
+        reference's seconds a query at its defaults (the CPU baseline,
+        beside the host CPU's model) and the card's for the same queries
+        are printed; the score kernel and ``segment_hessian`` must have
+        launched (``launches_by_path["parity"]``);
+     c. the native data path: ``data.native.available()`` (a fallback
+        fails the phase); the set-up's ratings written as a TSV, parsed
+        natively equal to ``np.loadtxt``'s arrays, ``build_csr`` over
+        users and items equal to the stable argsort; an MF engine built
+        on the native index gives the numpy index's bits on one
+        ``query_batch``; both paths' seconds printed.
+     ``python3 chip_smoke.py --phase 16`` runs phases 1 and 2, then phase
+     16 alone.
+     The whole script runs phases 12, 13, 14, 15 and 16 that way, each in
+     a process of its own started once phase 9 is over, beside phases 10
      and 11 in this one, which keeps the script well inside its time
-     limit; so the walls of phases 10 to 15 are taken with the other
-     processes on the card, and the kernels' times of phases 3 to 8 with
-     none. Their output follows phase 11's, each line prefixed ``[12]``,
-     ``[13]``, ``[14]`` or ``[15]``; a failure of any fails the script,
-     and their ``perf`` lines go into its own.
+     limit; so the walls of phases 10 to 16 are taken with the other
+     processes on the card (and 16b's CPU baseline with theirs on the
+     host), and the kernels' times of phases 3 to 8 with none. Their
+     output follows phase 11's, each line prefixed ``[12]`` … ``[16]``; a
+     failure of any fails the script, and their ``perf`` lines go into
+     its own.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
@@ -494,6 +530,7 @@ import io
 import json
 import math
 import os
+import platform
 import re
 import shutil
 import subprocess
@@ -506,7 +543,11 @@ import numpy as np
 import torch
 
 from fia_tpu_torch import obs
+from fia_tpu_torch.analysis import config as lint_config
+from fia_tpu_torch.backends.torch_ref import TorchRefMFEngine, TorchRefNCFEngine
+from fia_tpu_torch.data import native
 from fia_tpu_torch.data.dataset import RatingDataset
+from fia_tpu_torch.data.loaders import save_tsv
 from fia_tpu_torch.data.synthetic import (
     sample_heldout_pairs,
     synthesize_ratings,
@@ -535,6 +576,7 @@ from fia_tpu_torch.influence.engine import (STAGES, InfluenceEngine,
                                            _FlatGraph,
                                            _bank_solve, _in_pieces,
                                            capturing)
+from fia_tpu_torch.influence import kernels as K
 from fia_tpu_torch.influence.full import FullInfluenceEngine
 from fia_tpu_torch.influence.kernels import certificate as kcert
 from fia_tpu_torch.influence.kernels import common
@@ -6506,6 +6548,333 @@ def chaos_launches(chaos: dict, source: str) -> dict:
             for key in ("15a", "15b", "15d")}
 
 
+# -- phase 16: the lint, the CPU reference engines, the native data path --
+PARITY_Q = 8  # held-out queries a model
+# minibatch steps a model at bench.py's settings: a budget of about 30 s
+# of training each on an H100 alone (MF 397, NCF 187 steps/s there)
+PARITY_STEPS = {"mf": 12_000, "ncf": 6_000}
+PARITY_MIN = 0.99  # tests/test_parity.py's bar, Spearman and Pearson
+REF_THREADS = 2
+# bench.py's converged reference solve (its parity protocol)
+REF_TIGHT = {"avextol": 1e-8, "maxiter": 2000}
+REF_ENGINES = {"mf": TorchRefMFEngine, "ncf": TorchRefNCFEngine}
+NATIVE_T = 256
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+
+
+def cpu_model() -> str:
+    """The host CPU's model name and its count of logical CPUs, from
+    ``/proc/cpuinfo``: where the model name reads "unknown" (a
+    virtualised host can say so), its vendor, family, model and stepping
+    identify the part."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if not key and info:
+                    break  # the first processor's block is enough
+                info.setdefault(key, value.strip())
+    except OSError:
+        pass
+    name = info.get("model name", "")
+    if not name or name.lower() == "unknown":
+        ident = " ".join(f"{k} {info[k]}" for k in ("cpu family", "model",
+                                                    "stepping") if k in info)
+        name = " ".join(x for x in (info.get("vendor_id"), ident) if x) or (
+            platform.processor() or platform.machine())
+    return f"{name}, {os.cpu_count()} logical CPUs"
+
+
+def drive_lint() -> dict:
+    """16a, first half: the port's lint over its own tree, in a process of
+    its own as a user runs it."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fia_tpu_torch.analysis.lint", "--self-check",
+         "--json"], cwd=REPO_DIR, capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"16a: fialint --self-check exited "
+          f"{proc.returncode}: {proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    check(doc["ok"] and not doc["findings"],
+          f"16a: fialint findings: {doc['findings']}")
+    out = {"seconds": secs, "files_checked": doc["files_checked"],
+           "suppressed": sum(doc["suppressed_counts"].values()),
+           "suppressed_counts": doc["suppressed_counts"]}
+    log(f"16a: fialint --self-check exit 0 in {secs:.2f} s: "
+        f"{out['files_checked']} files, 0 findings, {out['suppressed']} "
+        f"findings under justified suppressions {out['suppressed_counts']}")
+    return out
+
+
+def launch_wrappers(path: str) -> set[str]:
+    """Names of the functions of a kernel module that count its kernel's
+    launches (``common.count_launch``)."""
+    import ast
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {fn.name for fn in ast.walk(tree)
+            if isinstance(fn, ast.FunctionDef) and any(
+                isinstance(c, ast.Call)
+                and getattr(c.func, "attr", None) == "count_launch"
+                for c in ast.walk(fn))}
+
+
+def capture_binding(captured) -> dict:
+    """16a, second half: every kernel module whose launches 16b recorded
+    into a CUDA graph has its launch wrapper registered as a capture scope
+    of the lint's config."""
+    registered = {(e[0], e[1])
+                  for e in lint_config.REGISTERED_CAPTURE_ENTRY_POINTS}
+    out = {}
+    for mod, n in zip(K.KERNEL_MODULES, captured):
+        if n == 0:
+            continue
+        rel = os.path.relpath(mod.__file__, REPO_DIR).replace(os.sep, "/")
+        wrappers = sorted(launch_wrappers(mod.__file__))
+        check(bool(wrappers), f"16a: {rel} counts no launch")
+        for name in wrappers:
+            check((rel, name) in registered, f"16a: {rel}:{name} launched "
+                  "into a captured graph but is no capture scope of "
+                  "analysis/config.py")
+        out[rel] = {"captured": n, "wrappers": wrappers}
+    check(bool(out), "16a: 16b recorded no kernel launch into a graph")
+    log(f"16a: captured kernel modules bound to the lint's capture scopes: "
+        f"{out}")
+    return out
+
+
+def float64_scores(ref64, u: int, i: int) -> np.ndarray:
+    """A query's scores from an exact float64 solve: the reference
+    engine's block Hessian column by column (its HVP on each unit
+    vector), ``np.linalg.solve``, then its per-row gradients."""
+    rows = ref64.related(u, i)
+    v = ref64.test_vector(u, i)
+    H = np.stack([ref64._hvp(u, i, rows, e) for e in np.eye(v.shape[0])],
+                 axis=1)
+    ihvp = np.linalg.solve(H, v)
+    return np.array([ihvp @ ref64._row_grad(u, i, int(r)) for r in rows]
+                    ) / len(rows)
+
+
+def parity_family(family: str, cls, train, pts) -> tuple[dict, tuple]:
+    """16b for one model: train, query on the card, hold against the
+    reference engine on the CPU. Returns the report and the kernel
+    launches captured into graphs meanwhile."""
+    dev = torch.device(CARD)
+    x = torch.as_tensor(train.x).to(dev)
+    y = torch.as_tensor(train.y).to(dev)
+    model = cls(USERS, ITEMS, K_EMB, WD)
+    params = model.init_params(torch.Generator().manual_seed(0), device=dev)
+    steps = PARITY_STEPS[family]
+    tr = Trainer(model, TrainConfig(FULL_BATCH, steps, TRAIN_LR, seed=0),
+                 device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = tr.fit(tr.init_state(params), x, y)
+    torch.cuda.synchronize()
+    rep = {"steps": steps, "train_seconds": time.perf_counter() - t0,
+           "loss_full": full_loss(model, state.params, x, y)}
+    check(math.isfinite(rep["loss_full"]), f"16b {family}: non-finite loss")
+    eng = engine(model, state.params, train, damping=DAMPING,
+                 solver="direct")
+    check(eng.active_kernel_variant() == "cuda",
+          f"16b {family}: the engine did not pick cuda")
+    q = pts[:PARITY_Q]
+    before, cap0 = launch_counts(), K.captured_counts()
+    res = eng.query_batch(q)
+    torch.cuda.synchronize()
+    after, cap1 = launch_counts(), K.captured_counts()
+    rep["launches"] = {k: after[k] - before[k] for k in after}
+    captured = tuple(b - a for a, b in zip(cap0, cap1))
+    for name in (SOURCES[family], SEGMENT_SOURCE):
+        check(rep["launches"][name] > 0, f"16b {family}: {name} was not "
+              f"launched ({rep['launches']})")
+    rep["card_ms_batch"] = wall_ms(lambda: eng.query_batch(q))
+    rep["card_ms_one"] = wall_ms(lambda: eng.query_batch(q[:1]))
+
+    host = {k: v.detach().cpu().numpy() for k, v in state.params.items()}
+    ref_cls = REF_ENGINES[family]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(REF_THREADS)
+    try:
+        ref = ref_cls(host, train.x, train.y, weight_decay=WD,
+                      damping=DAMPING)
+        tight = ref_cls(host, train.x, train.y, weight_decay=WD,
+                        damping=DAMPING, **REF_TIGHT)
+        ref64 = ref_cls(host, train.x, train.y, weight_decay=WD,
+                        damping=DAMPING, dtype=torch.float64)
+        rows = []
+        for t, (u, i) in enumerate(q):
+            u, i = int(u), int(i)
+            t0 = time.perf_counter()
+            ref_scores, ref_rows = ref.query(u, i)
+            ref_s = time.perf_counter() - t0
+            check(np.array_equal(res.related_of(t), ref_rows),
+                  f"16b {family}: query {t} ({u}, {i}): related sets differ")
+            got = res.scores_of(t).astype(np.float64)
+            tight_scores = tight.query(u, i)[0]
+            row = {"u": u, "i": i, "rows": int(len(ref_rows)),
+                   "ref_seconds": ref_s,
+                   "rho": spearman(got, ref_scores),
+                   "r": metrics.pearson(got, ref_scores),
+                   "rho_tight": spearman(got, tight_scores),
+                   "r_tight": metrics.pearson(got, tight_scores)}
+            if min(row["rho"], row["r"]) < PARITY_MIN:
+                # which side is off: both against an exact float64 solve
+                exact = float64_scores(ref64, u, i)
+                row["float64"] = {
+                    "rho_card": spearman(got, exact),
+                    "r_card": metrics.pearson(got, exact),
+                    "rho_ref": spearman(ref_scores, exact),
+                    "r_ref": metrics.pearson(ref_scores, exact)}
+                f64 = row["float64"]
+                check(min(f64["rho_card"], f64["r_card"]) >= PARITY_MIN
+                      and min(f64["rho_ref"], f64["r_ref"]) < PARITY_MIN,
+                      f"16b {family}: query {t} misses the bar against the "
+                      f"reference's defaults and the card is the side off: "
+                      f"{row}")
+                row["reference_behaviour"] = "fmin_ncg early stop"
+            check(min(row["rho_tight"], row["r_tight"]) >= PARITY_MIN,
+                  f"16b {family}: query {t} misses the bar against the "
+                  f"converged reference: {row}")
+            rows.append(row)
+            log(f"16b {family} query {t} ({u}, {i}), {row['rows']} rows: "
+                f"rho {row['rho']:.6f} r {row['r']:.6f} (converged "
+                f"{row['rho_tight']:.6f} / {row['r_tight']:.6f}); the "
+                f"reference {ref_s:.3f} s" + (
+                    f"; float64: card {row['float64']}"
+                    if "float64" in row else ""))
+    finally:
+        torch.set_num_threads(threads)
+    rep["queries"] = rows
+    rep["ref_seconds_per_query"] = float(np.mean([r["ref_seconds"]
+                                                  for r in rows]))
+    rep["card_ms_per_query"] = rep["card_ms_batch"] / PARITY_Q
+    rep["min_rho"] = min(r["rho"] for r in rows)
+    rep["min_r"] = min(r["r"] for r in rows)
+    log(f"16b {family}: {steps} steps in {rep['train_seconds']:.1f} s (full "
+        f"loss {rep['loss_full']:.4f}); {PARITY_Q} queries at rho >= "
+        f"{rep['min_rho']:.6f}, r >= {rep['min_r']:.6f} against the "
+        f"reference; CPU baseline {rep['ref_seconds_per_query']:.3f} s a "
+        f"query ({REF_THREADS} threads, {cpu_model()}); the card "
+        f"{rep['card_ms_per_query']:.3f} ms a query in the batch of "
+        f"{PARITY_Q} ({rep['card_ms_batch']:.3f} ms), "
+        f"{rep['card_ms_one']:.3f} ms one alone; launches {rep['launches']}")
+    return rep, captured
+
+
+def drive_native(train, pts) -> dict:
+    """16c: the native parse and CSR against numpy's, and an engine on
+    the native index against one on the numpy index, bit for bit."""
+    check(native.available(), "16c: the native library did not build or "
+          "load (the numpy fallback is a failure here)")
+    out = {"library": os.path.basename(native.library_path())}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ml-1m.train.rating")
+        save_tsv(train, path)
+        t0 = time.perf_counter()
+        got = native.parse_tsv(path)
+        out["parse_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = native.parse_tsv_numpy(path)
+        out["parse_numpy_s"] = time.perf_counter() - t0
+    for name, a, b in zip(("users", "items", "ratings"), got, want):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"16c: native parse differs from np.loadtxt in {name}")
+    check(np.array_equal(got[0], train.x[:, 0])
+          and np.array_equal(got[1], train.x[:, 1])
+          and np.array_equal(got[2], train.y),
+          "16c: the parsed ratings are not the set-up's")
+    for name, ids, n in (("users", train.x[:, 0], USERS),
+                         ("items", train.x[:, 1], ITEMS)):
+        t0 = time.perf_counter()
+        csr = native.build_csr(ids, n)
+        out[f"csr_{name}_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = native.build_csr_numpy(ids, n)
+        out[f"csr_{name}_numpy_s"] = time.perf_counter() - t0
+        check(all(a.dtype == b.dtype and np.array_equal(a, b)
+                  for a, b in zip(csr, ref)),
+              f"16c: native CSR over {name} differs from the stable argsort")
+    model = MF(USERS, ITEMS, K_EMB, WD)
+    params = model.init_params(torch.Generator().manual_seed(0), device=CARD)
+    eng_native = engine(model, params, train, damping=DAMPING)
+    old = os.environ.get("FIA_NATIVE")
+    os.environ["FIA_NATIVE"] = "0"
+    try:
+        check(not native.available(), "16c: FIA_NATIVE=0 kept the library")
+        eng_numpy = engine(model, params, train, damping=DAMPING)
+    finally:
+        if old is None:
+            del os.environ["FIA_NATIVE"]
+        else:
+            os.environ["FIA_NATIVE"] = old
+    check(all(np.array_equal(a, b) for a, b in zip(
+        eng_native.index.postings(), eng_numpy.index.postings())),
+        "16c: the native index's postings differ from numpy's")
+    q = pts[:NATIVE_T]
+    a, b = eng_native.query_batch(q), eng_numpy.query_batch(q)
+    same = np.array_equal(a.ihvp, b.ihvp) and all(
+        np.array_equal(a.scores_of(t).view(np.uint32),
+                       b.scores_of(t).view(np.uint32))
+        for t in range(len(q)))
+    check(same, "16c: the native index's query_batch differs from the "
+          "numpy index's")
+    out["query_batch_bitwise"] = len(q)
+    log(f"16c: native {out['library']}: parse {out['parse_native_s']:.3f} s "
+        f"against np.loadtxt {out['parse_numpy_s']:.3f} s; CSR users "
+        f"{out['csr_users_native_s']:.4f} / {out['csr_users_numpy_s']:.4f} "
+        f"s, items {out['csr_items_native_s']:.4f} / "
+        f"{out['csr_items_numpy_s']:.4f} s (native / numpy), all equal; "
+        f"query_batch({len(q)}) bitwise on either index")
+    return out
+
+
+def drive_phase16() -> dict:
+    """Phase 16 on an ML-1M set-up of its own: 16a's lint, 16b, 16a's
+    binding of the captured kernels, 16c."""
+    out = {"lint": drive_lint()}
+    t0 = time.perf_counter()
+    train = synthesize_ratings(USERS, ITEMS, ROWS, seed=0)
+    pts = sample_heldout_pairs(train.x, USERS, ITEMS, max(BATCHES), seed=17)
+    out["setup_seconds"] = time.perf_counter() - t0
+    parity, captured = {"cpu": cpu_model(), "threads": REF_THREADS}, None
+    for family, cls in (("mf", MF), ("ncf", NCF)):
+        t0 = time.perf_counter()
+        parity[family], cap = parity_family(family, cls, train, pts)
+        parity[family]["seconds"] = time.perf_counter() - t0
+        captured = cap if captured is None else tuple(
+            a + b for a, b in zip(captured, cap))
+    out["parity"] = parity
+    out["lint"]["capture_binding"] = capture_binding(captured)
+    t0 = time.perf_counter()
+    out["native"] = drive_native(train, pts)
+    out["native"]["seconds"] = time.perf_counter() - t0
+    no_recovery("16")
+    return out
+
+
+def phase16_only(card: str, kind: str, t_main: float) -> int:
+    """``--phase 16``: after the build, phase 16 alone, its results on the
+    ``perf`` line."""
+    t16 = time.perf_counter()
+    perf = {"card": card, **drive_phase16()}
+    perf["phase16_seconds"] = time.perf_counter() - t16
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"phase 16: {perf['phase16_seconds']:.1f} s; chip_smoke --phase 16 "
+        f"total: {perf['total_seconds']:.1f} s")
+    log("perf " + json.dumps(perf, sort_keys=True, default=str))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -6538,6 +6907,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--phase", "15"]:
         return chaos_only(card, kind, t_main)
+    if sys.argv[1:] == ["--phase", "16"]:
+        return phase16_only(card, kind, t_main)
 
     # -- main paths' set-up (ML-1M shape, seeded weights) ---------------
     t0 = time.perf_counter()
@@ -6761,7 +7132,7 @@ def main() -> int:
     perf["phase9_seconds"] = time.perf_counter() - t9
     log(f"phase 9: {perf['phase9_seconds']:.1f} s")
 
-    # -- phases 12-15 in processes of their own, beside 10 and 11 ------
+    # -- phases 12-16 in processes of their own, beside 10 and 11 ------
     t_apart = time.perf_counter()
     apart_dir = tempfile.TemporaryDirectory()
     apart = {n: start_apart(n, apart_dir.name) for n in APART_PHASES}
@@ -6774,9 +7145,9 @@ def main() -> int:
         for h in apart.values():
             stop_apart(h)
     apart_dir.cleanup()
-    perf["phases_10_15_seconds"] = time.perf_counter() - t_apart
-    log(f"phases 10-15: {perf['phases_10_15_seconds']:.1f} s (12, 13, 14 "
-        "and 15 in processes of their own beside 10 and 11)")
+    perf["phases_10_16_seconds"] = time.perf_counter() - t_apart
+    log(f"phases 10-16: {perf['phases_10_16_seconds']:.1f} s (12, 13, 14, "
+        "15 and 16 in processes of their own beside 10 and 11)")
     by_name = {row["name"]: row for row in rows}
 
     # -- phase 12: the data-axis device mesh ----------------------------
@@ -6816,6 +7187,15 @@ def main() -> int:
     for name in (CERT_SOURCE, EIGMIN_SOURCE):
         by_name[name]["launches_by_path"]["chaos"] = {
             "mf": chaos_launches(chaos, name)}
+
+    # -- phase 16: the lint, the CPU reference engines, native data ----
+    for key in ("lint", "parity", "native", "phase16_seconds"):
+        perf[key] = got[16][key]
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["parity"] = \
+            perf["parity"][family]["launches"][SOURCES[family]]
+        seg_by_path[family]["parity"] = perf["parity"][family]["launches"][
+            SEGMENT_SOURCE]
     ladder_dir.cleanup()
     envelope_dir.cleanup()
     perf["total_seconds"] = time.perf_counter() - t_main
@@ -6874,7 +7254,7 @@ def phases_10_11(engines, train, pts, envelope_dir, ladder_dir,
 
 # phases run in processes of their own (``--phase N``) beside phases 10
 # and 11, each given APART_S seconds
-APART_PHASES, APART_S = (12, 13, 14, 15), 300
+APART_PHASES, APART_S = (12, 13, 14, 15, 16), 300
 
 
 def start_apart(n: int, workdir: str) -> tuple:

@@ -312,6 +312,7 @@ class FIAModel:
         g = torch.func.grad(lambda q: m.loss(q, trx, tryy))(p)
         gnorm = float(torch.linalg.norm(
             torch.cat([g[k].reshape(-1) for k in sorted(g)])))
+        # fialint: disable=FIA402 -- reference-format stdout report
         print(f"Train loss (w reg) on all data: {loss_w}\n"
               f"Train loss (w/o reg) on all data: {loss_wo}\n"
               f"Test loss (w/o reg) on all data: {test_loss}\n"

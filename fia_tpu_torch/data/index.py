@@ -1,6 +1,8 @@
-"""CSR-style inverted index over (user, item) interactions (numpy copy
-of ``fia_tpu/data/index.py`` with the stable-argsort CSR builder of
-``fia_tpu/data/native.py``; no native library).
+"""CSR-style inverted index over (user, item) interactions (port of
+``fia_tpu/data/index.py``). The CSR arrays come from the native
+counting-sort CSR code (:mod:`fia_tpu_torch.data.native`) where its
+library is available, and from a stable argsort otherwise: the same
+arrays either way.
 
 The FIA related set of a test pair (u*, i*) — every training row whose
 user is u* or whose item is i* — is two CSR row lookups. The postings
@@ -16,15 +18,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-
-def _csr_from_ids(ids: np.ndarray, num_groups: int):
-    """Group row positions by id: (indptr, indices), stable order."""
-    ids = np.ascontiguousarray(ids, np.int32)
-    order = np.argsort(ids, kind="stable").astype(np.int64)
-    counts = np.bincount(ids, minlength=num_groups)
-    indptr = np.zeros(num_groups + 1, np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    return indptr, order
+from fia_tpu_torch.data.native import build_csr
 
 
 def bucketed_pad(max_count: int, bucket: int, pad_to: int | None = None) -> int:
@@ -52,8 +46,8 @@ class InteractionIndex:
         x = np.asarray(x)
         self.num_users = int(num_users if num_users is not None else x[:, 0].max() + 1)
         self.num_items = int(num_items if num_items is not None else x[:, 1].max() + 1)
-        self._u_indptr, self._u_rows = _csr_from_ids(x[:, 0], self.num_users)
-        self._i_indptr, self._i_rows = _csr_from_ids(x[:, 1], self.num_items)
+        self._u_indptr, self._u_rows = build_csr(x[:, 0], self.num_users)
+        self._i_indptr, self._i_rows = build_csr(x[:, 1], self.num_items)
         # related() memo (bounded LRU; the entries are write-protected,
         # since several callers hold them) and the single-query
         # related_padded memo, keyed by pair + resolved pad

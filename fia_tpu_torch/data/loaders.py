@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from fia_tpu_torch.data.dataset import RatingDataset
+from fia_tpu_torch.data.native import parse_tsv
 from fia_tpu_torch.data.synthetic import synthesize_calibrated, synthesize_ratings
 from fia_tpu_torch.utils import io
 
@@ -33,20 +34,6 @@ _SPECS = {
         num_users=25_677, num_items=25_815,
     ),
 }
-
-
-def parse_tsv(path: str, max_rows: int | None = None):
-    """(users, items, ratings) arrays from a ratings TSV file: the
-    reference's numpy parser (``fia_tpu/data/native.py:65-75``, the path
-    it takes without its optional C++ library, which returns the same
-    arrays)."""
-    raw = np.loadtxt(path, dtype=np.float64)
-    if raw.ndim == 1:
-        raw = raw.reshape(1, -1)
-    if max_rows is not None:
-        raw = raw[:max_rows]
-    return (raw[:, 0].astype(np.int32), raw[:, 1].astype(np.int32),
-            raw[:, 2].astype(np.float32))
 
 
 def _read_tsv(path: str, n_rows: int | None) -> RatingDataset:

@@ -24,6 +24,8 @@ import time
 
 import torch
 
+from fia_tpu_torch.utils import io
+
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -158,8 +160,7 @@ def build(names) -> dict[str, float]:
     for name, (proc, tmp, so) in procs.items():
         log, _ = proc.communicate()
         secs[name] = time.perf_counter() - t0
-        with open(so + ".log", "w") as f:
-            f.write(log)
+        io.save_text_atomic(so + ".log", log)
         if proc.returncode != 0:
             failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
             continue

@@ -176,6 +176,7 @@ class Injector:
         f.fired = True
         self.log.append((site, idx, f.kind))
         if f.kind == taxonomy.HOST_OOM:
+            # fialint: disable=FIA302 -- injected host-OOM must carry the raw MemoryError signature so the taxonomy classifies it like a real one
             raise MemoryError(f.message or "injected host allocation failure")
         if f.kind == taxonomy.DEADLINE:
             raise taxonomy.DeadlineExpired(
@@ -184,6 +185,7 @@ class Injector:
         msg = f.message or MESSAGES.get(f.kind)
         if msg is None:
             raise ValueError(f"no synthetic signature for kind {f.kind!r}")
+        # fialint: disable=FIA302 -- injected device faults replay raw production RuntimeError signatures verbatim; wrapping them would defeat the classifier under test
         raise RuntimeError(msg)
 
     def corrupt(self, site: str, array):
@@ -225,7 +227,9 @@ class Injector:
             with open(manifest_path) as fh:
                 m = json.load(fh)
             m["checksum"] = "sha256:" + "0" * 64
+            # fialint: disable=FIA101 -- deliberate corruption: the fault injector must bypass the atomic-write layer to plant a stale manifest
             with open(manifest_path, "w") as fh:
+                # fialint: disable=FIA101 -- part of the same deliberate corruption write
                 json.dump(m, fh, sort_keys=True)
 
     def unfired(self) -> list[Fault]:
@@ -295,6 +299,7 @@ def active(*faults: Fault, strict: bool = False, validate: bool = False):
     """
     global _active
     if _active is not None:
+        # fialint: disable=FIA302 -- nesting misuse is a harness bug, not a classifiable fault; tests pin the RuntimeError type
         raise RuntimeError("a fault-injection plan is already armed")
     inj = Injector(faults, validate=validate)
     _active = inj

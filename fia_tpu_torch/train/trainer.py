@@ -384,6 +384,7 @@ class Trainer:
             if checkpointer is not None:
                 checkpointer.maybe(params, opt, state.step + done)
             if cfg.log_every and ((epoch_i + 1) % max(1, cfg.log_every // nb) == 0):
+                # fialint: disable=FIA402 -- interactive step-progress stdout
                 print(f"step {state.step + done}: "
                       f"loss = {float(seg[-1]):.6f}")
             if self.event_log is not None:

@@ -3,8 +3,8 @@
 Every name a reference package ``__init__`` exports imports from its port
 twin (the re-exports are lazy: importing a package loads no more than
 before), save the Pallas-only ``supports_pallas`` and
-``_PALLAS_FAMILIES`` and the packages with no twin yet (ROADMAP A.14b:
-``analysis``; A.15: ``backends``). The full-parameter gradient
+``_PALLAS_FAMILIES``; every reference package has its twin (``NOT_YET``
+is empty). The full-parameter gradient
 helpers of ``influence/grads.py`` and the models' ``adversarial_loss``
 hook are held to the reference's on the same params (MF and NCF).
 """
@@ -29,8 +29,8 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PALLAS_ONLY = {"supports_pallas", "_PALLAS_FAMILIES"}
-# reference packages whose port is a later Queue A item
-NOT_YET = {"fia_tpu.analysis": "A.14b", "fia_tpu.backends": "A.15"}
+# reference packages whose port is a later Queue A item (none is left)
+NOT_YET: dict[str, str] = {}
 
 
 def _exports(path: str) -> list[str]:
@@ -71,7 +71,8 @@ def test_every_reference_package_is_covered():
     assert {"fia_tpu", "fia_tpu.data", "fia_tpu.influence", "fia_tpu.models",
             "fia_tpu.train", "fia_tpu.eval", "fia_tpu.parallel",
             "fia_tpu.reliability", "fia_tpu.utils",
-            "fia_tpu.influence.kernels", "fia_tpu.chaos"} <= pkgs
+            "fia_tpu.influence.kernels", "fia_tpu.chaos",
+            "fia_tpu.analysis", "fia_tpu.backends"} <= pkgs
     # the packages left out are exactly those no port module exists for
     for pkg in NOT_YET:
         twin = "fia_tpu_torch" + pkg[len("fia_tpu"):]

@@ -103,10 +103,28 @@ CHAOS_MODULES = ("fia_tpu_torch.chaos",
                  "fia_tpu_torch.chaos.runner",
                  "fia_tpu_torch.cli.chaos",
                  "fia_tpu_torch.cli.obs")
+# the native data path, the CPU reference engines and the lint engine
+LAST_MODULES = ("fia_tpu_torch.data.native",
+                "fia_tpu_torch.backends",
+                "fia_tpu_torch.backends.torch_ref",
+                "fia_tpu_torch.analysis",
+                "fia_tpu_torch.analysis.core",
+                "fia_tpu_torch.analysis.visitor",
+                "fia_tpu_torch.analysis.reporters",
+                "fia_tpu_torch.analysis.config",
+                "fia_tpu_torch.analysis.callgraph",
+                "fia_tpu_torch.analysis.dataflow",
+                "fia_tpu_torch.analysis.rules_io",
+                "fia_tpu_torch.analysis.rules_trace",
+                "fia_tpu_torch.analysis.rules_sites",
+                "fia_tpu_torch.analysis.rules_schema",
+                "fia_tpu_torch.analysis.rules_obs",
+                "fia_tpu_torch.analysis.rules_determinism",
+                "fia_tpu_torch.analysis.lint")
 ALONE_MODULES = (NCF_MODULES + PADDED_MODULES + TRAIN_MODULES
                  + DISPATCH_MODULES + LADDER_MODULES + OBS_MODULES
                  + SERVE_MODULES + STREAM_MODULES + PARALLEL_MODULES
-                 + HOST_MODULES + CHAOS_MODULES)
+                 + HOST_MODULES + CHAOS_MODULES + LAST_MODULES)
 
 
 def _forbidden(name: str) -> bool:
@@ -152,6 +170,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(PARALLEL_MODULES) <= set(names)
     assert set(HOST_MODULES) <= set(names)
     assert set(CHAOS_MODULES) <= set(names)
+    assert set(LAST_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"
