@@ -477,15 +477,53 @@ Phases, each of which makes the script exit non-zero when it fails:
         ``query_batch``; both paths' seconds printed.
      ``python3 chip_smoke.py --phase 16`` runs phases 1 and 2, then phase
      16 alone.
-     The whole script runs phases 12, 13, 14, 15 and 16 that way, each in
-     a process of its own started once phase 9 is over, beside phases 10
-     and 11 in this one, which keeps the script well inside its time
-     limit; so the walls of phases 10 to 16 are taken with the other
-     processes on the card (and 16b's CPU baseline with theirs on the
-     host), and the kernels' times of phases 3 to 8 with none. Their
-     output follows phase 11's, each line prefixed ``[12]`` … ``[16]``; a
-     failure of any fails the script, and their ``perf`` lines go into
-     its own.
+ 17. the ML-20M stress driver (``cli.stress``) and the fused row-feature
+     table (``row_features="on"``), under ``stress`` in the ``perf``
+     line, on one ML-20M split (``cli.stress.synthesize``: 138,493 users,
+     26,744 items, 20,000,263 rows, seed 0, Zipf), its native CSR and
+     ``epoch_permutation`` timed on the host first (the CSR equal to
+     numpy's):
+     a. ``cli.stress``'s ``run`` for MF at the driver's defaults (k = 16,
+        2,000 steps at batch 8,192, 256 queries) with ``--full_space``
+        (``hvp_batch`` 2^20, CG maxiter 10), launches counted from 0,
+        its JSON line printed: ``mf_scores`` and ``segment_hessian``
+        launched, the full-space scores finite, the flat path never
+        seeding the padded memory envelope; then on the path's own
+        operands of the first 64 queries ``mf_scores`` against its plain
+        version (phase 3's bar) and ``segment_hessian`` bit for bit its
+        pieced plain form (and float64's bar); both kernels, their plain
+        versions and bounds timed at all 256 queries; 8 queries against
+        the port on the CPU with the same params (identical related
+        sets, scores at RTOL / ATOL);
+        ``query_many(batch_queries=64)`` bitwise ``query_batch``; stage
+        ms, the busy share and ``max_memory_allocated`` printed;
+     b. the same with NCF (``ncf_scores``), without the full-space probe;
+     c. MF with ``--model_parallel 2`` on two virtual slots over the
+        card, 17a's params: each slot holds half of each table, the
+        answers bitwise the replicated engine's; and ``row_features="on"``
+        on the ML-20M set resolves off by the 2 GiB gate;
+     d. at ML-1M shape (phase 4's data, seeded weights), MF and NCF:
+        ``row_features="on"`` resolves on, and direct at T = 256 and
+        1024, the sampled rung at cap 64 and a bank of 64 hot pairs
+        (hits and misses) are bitwise the ``"off"`` engine's; a warm
+        ``on`` engine captures nothing. The launches are counted from 0
+        around each ``on`` run alone (no ``off`` run or bank build
+        counts) and kept by mode: the score kernel and
+        ``segment_hessian`` must have launched in each, the certificate
+        and λ_min kernels in the sampled one.
+     ``python3 chip_smoke.py --phase 17`` runs phases 1 and 2, then phase
+     17 alone. The score and Hessian rows of the ``kernels`` line gain a
+     ``stress`` path (17a–17c's launches, and 17d's by family and mode),
+     the certificate and λ_min rows a ``rowfeat`` path (17d's by family
+     and mode).
+     The whole script runs phases 12, 13, 14, 15, 16 and 17 that way, each
+     in a process of its own started once phase 9 is over, beside phases
+     10 and 11 in this one, which keeps the script inside its time limit;
+     so the walls of phases 10 to 17 are taken with the other processes
+     on the card (and 16b's CPU baseline with theirs on the host), and
+     the kernels' times of phases 3 to 8 with none. Their output follows
+     phase 11's, each line prefixed ``[12]`` … ``[17]``; a failure of any
+     fails the script, and their ``perf`` lines go into its own.
      Every engine outside phase 9 is built with ``cpu_fallback=False``
      (the port's default, passed explicitly), and after each earlier
      phase the obs registry must show no retry
@@ -496,8 +534,8 @@ Phases, each of which makes the script exit non-zero when it fails:
      phase 11 outside the faults 11a injects (counted, then emptied),
      phase 12 outside 12b's injected losses, phase 13 outside 13b's and
      phase 14 outside 14c's (no retry, reset or CPU rung there either;
-     counted, then emptied). Phase 15 injects faults throughout and holds
-     its runs to the chaos oracles instead.
+     counted, then emptied), and phases 16 and 17. Phase 15 injects faults
+     throughout and holds its runs to the chaos oracles instead.
 
 NCF's kernel and plain version sum each relu pre-activation in another
 order, so a pre-activation within rounding of 0 can take the other side
@@ -563,6 +601,7 @@ from fia_tpu_torch.chaos.scenarios import (HostLossRecoveryScenario,
                                            ServeStreamScenario)
 from fia_tpu_torch.cli import chaos as chaos_cli
 from fia_tpu_torch.cli import obs as cli_obs
+from fia_tpu_torch.cli import stress as stress_cli
 from fia_tpu_torch.cli.serve import smoke_stream
 from fia_tpu_torch.eval import metrics
 from fia_tpu_torch.eval.rq1 import test_retraining
@@ -595,7 +634,7 @@ from fia_tpu_torch.serve import (HealthConfig, InfluenceService, Request,
 from fia_tpu_torch.stream import compute_footprint
 from fia_tpu_torch.train import checkpoint
 from fia_tpu_torch.train.trainer import (Trainer, TrainConfig, TrainState,
-                                         loo_retrain_many)
+                                         epoch_permutation, loo_retrain_many)
 from fia_tpu_torch.utils import compilemon, memlimits
 from fia_tpu_torch.utils.timing import fenced_time
 
@@ -3697,10 +3736,10 @@ def capture_oom(family: str, off, eng, q) -> dict:
     def greedy(s_pad, stage="scores", mode="direct", **kw):
         fn = inner(s_pad, stage, mode, **kw)
 
-        def run(*args):
+        def run(*args, **kw):
             if torch.cuda.is_current_stream_capturing():
                 torch.empty(total, dtype=torch.uint8, device=CARD)
-            return fn(*args)
+            return fn(*args, **kw)
 
         return run
 
@@ -6875,6 +6914,393 @@ def phase16_only(card: str, kind: str, t_main: float) -> int:
     return 0
 
 
+# -- phase 17: the ML-20M stress driver and the fused row-feature table --
+# 17a-17c: cli.stress at ML-20M scale (stress_cli.ML20M, the Zipf stream,
+# seed 0) with the driver's defaults: k = 16, 2,000 steps at batch 8,192,
+# 256 queries; MF with the full-space probe (hvp_batch 2^20, CG maxiter
+# 10), NCF without. The kernels held on the path's own operands for the
+# first STRESS_HOLD_Q queries and timed at all of them; STRESS_CPU_Q
+# queries against the port on the CPU; query_many in STRESS_MANY_BATCH
+STRESS_ARGV = ("--train_steps", "2000", "--batch_size", "8192",
+               "--num_queries", "256", "--embed_size", str(K_EMB))
+STRESS_FULL = ("--full_space", "--hvp_batch", str(1 << 20),
+               "--cg_maxiter", "10")
+STRESS_HOLD_Q, STRESS_CPU_Q, STRESS_MANY_BATCH = 64, 8, 64
+# 17d: the row-feature table at ML-1M shape, direct at BATCHES, the
+# sampled rung at SAMPLED_CAP, and a bank of ROWFEAT_BANK hot pairs
+ROWFEAT_BANK = 64
+
+
+def stress_args(*extra):
+    """``cli.stress``'s arguments at phase 17's settings, plus ``extra``."""
+    return stress_cli.parser().parse_args([*STRESS_ARGV, *extra])
+
+
+def hold_same_sets(res, ref, what: str, excuse=None) -> dict:
+    """Two solves of the same queries (the card, the CPU): identical
+    related sets; scores at RTOL / ATOL; per-query Spearman at RHO_MIN
+    or only float32 ties apart (:func:`compare_results`)."""
+    out = compare_results(res, ref, what, RTOL, ATOL, RHO_MIN, excuse)
+    for t in range(len(res.counts)):
+        check(np.array_equal(res.related_of(t), ref.related_of(t)),
+              f"{what}: query {t}: related sets differ")
+    return out
+
+
+def stress_hold(family: str, run, train) -> dict:
+    """17a / 17b on one driver run: its kernels against their plain
+    versions on the path's own operands (the first STRESS_HOLD_Q
+    queries) and timed at all of them beside their bounds; STRESS_CPU_Q
+    queries against the port on the CPU; ``query_many`` bitwise
+    ``query_batch``; stage ms and the busy share."""
+    eng, pts = run.engine, run.points
+    mod = KERNEL_MODULES[family]
+    name = SOURCES[family]
+    out = {}
+    ops = operands(eng, pts, STRESS_HOLD_Q)
+    tables64 = to64(ops[6:]) if family == "ncf" else None
+    got = launch_twice(mod, kernel_args(ops))
+    want = mod.fused_scores_reference(*kernel_args(ops))
+    err, excused = hold(got, want, ops[4], f"17 {name} on the stress path",
+                        ops[2], tables64)
+    seg_ops = segment_operands(eng, pts, STRESS_HOLD_Q)
+    seg = segment_hold(segment_launch_twice(seg_ops), seg_ops,
+                       f"17 {SEGMENT_SOURCE} on the stress path")
+    out["hold"] = {"queries": STRESS_HOLD_Q, "S": int(ops[2].shape[0]),
+                   "max_abs_err": err, "boundary_rows": excused,
+                   SEGMENT_SOURCE: seg}
+    log(f"17 {family}: {name} vs plain on the stress path's operands "
+        f"({STRESS_HOLD_Q} queries, S={ops[2].shape[0]}): max abs err "
+        f"{err:.3e}, relu-boundary rows {excused}; {SEGMENT_SOURCE} bit for "
+        f"bit the pieced plain form, vs float64 {seg}")
+    del ops, seg_ops, got, want
+    # times on the ML-20M geometry, all the driver's queries
+    T = len(pts)
+    ops = operands(eng, pts, T)
+    args = kernel_args(ops)
+    b_ms, b_by = BOUNDS[family](ops)
+    seg_ops = segment_operands(eng, pts, T)
+    sb_ms, sb_by = segment_bound_ms(seg_ops)
+    out["kernels"] = {
+        name: {"ms": graph_ms(lambda: mod.fused_scores(*args), iters=50),
+               "plain_ms": graph_ms(lambda: mod.fused_scores_reference(*args),
+                                    iters=10),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "shape": {"S": int(ops[2].shape[0]), "T": T, "k": K_EMB}},
+        SEGMENT_SOURCE: {
+            "ms": graph_ms(lambda: kseg.segment_sums(*seg_ops, 0), iters=20),
+            "plain_ms": graph_ms(lambda: segment_plain(seg_ops), iters=2),
+            "bound_ms": sb_ms, "bound_by": sb_by,
+            "shape": {"S": int(seg_ops[0].shape[0]), "T": T,
+                      "d": int(seg_ops[0].shape[1])},
+            **segment_geometry(seg_ops)},
+    }
+    log(f"17 {family} kernels at T={T}: {json.dumps(out['kernels'])}")
+    del ops, args, seg_ops
+    # the port on the CPU, the same params and queries
+    q = pts[:STRESS_CPU_Q]
+    t0 = time.perf_counter()
+    cpu = stress_cli.stress_engine(run.args, run.model, run.params, train,
+                                   None, "cpu")
+    cpu_res = cpu.query_batch(q)
+    cpu_s = time.perf_counter() - t0
+    card_res = eng.query_batch(q)
+    ops_q = operands(eng, q, len(q))
+    out["cpu"] = hold_same_sets(card_res, cpu_res, f"17 {family} card vs CPU",
+                                relu_excuse(family, ops_q))
+    out["cpu"]["cpu_seconds"] = cpu_s
+    del cpu, ops_q
+    log(f"17 {family}: {STRESS_CPU_Q} queries card vs CPU {out['cpu']}")
+    # query_many bitwise one query_batch
+    whole = eng.query_batch(pts)
+    same_bytes_stitched(eng.query_many(pts, batch_queries=STRESS_MANY_BATCH),
+                        whole, f"17 {family} query_many({STRESS_MANY_BATCH})")
+    wall = wall_ms(lambda: eng.query_batch(pts))
+    out["query_batch_ms"] = wall
+    out["stage_ms_cumulative"] = stage_times(eng, pts)
+    out["device"] = device_breakdown(lambda: eng.query_batch(pts), wall)
+    out["scores"] = int(whole.counts.sum())
+    log(f"17 {family}: query_many({STRESS_MANY_BATCH}) bitwise "
+        f"query_batch({T}); wall {wall:.3f} ms, stages "
+        f"{out['stage_ms_cumulative']}, busy "
+        f"{out['device']['busy_share']:.3f}")
+    return out
+
+
+def stress_family(family: str, train, extra=()) -> tuple[dict, object]:
+    """One driver run (``cli.stress``'s ``run``) on the shared ML-20M
+    split with its kernel launches counted from 0, its JSON line
+    printed, then :func:`stress_hold`. Returns its report and run."""
+    args = stress_args("--model", FAMILY_NAMES[family], *extra)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    run = stress_cli.run(args, train)
+    torch.cuda.synchronize()
+    rep = {"line": run.out, "seconds": time.perf_counter() - t0,
+           "launches": launch_counts(),
+           "max_memory_allocated_mb": torch.cuda.max_memory_allocated()
+           / 2 ** 20}
+    log("17 stress " + json.dumps(run.out))
+    for name in (SOURCES[family], SEGMENT_SOURCE):
+        check(rep["launches"][name] > 0, f"17 {family}: the stress path "
+              f"never launched {name} ({rep['launches']})")
+    check(run.engine.active_kernel_variant() == "cuda",
+          f"17 {family}: the stress engine did not pick cuda")
+    check(run.out["details"]["num_queries"] == len(run.points)
+          and run.out["value"] > 0, f"17 {family}: {run.out}")
+    # the flat path never reads the padded path's learned envelope: no
+    # ceiling learned on ML-1M's geometries can cap or split its batches
+    check(run.engine._memkey is None, f"17 {family}: the flat stress path "
+          "consulted the padded memory envelope")
+    rep.update(stress_hold(family, run, train))
+    log(f"17 {family}: {rep['seconds']:.1f} s, launches {rep['launches']}, "
+        f"max_memory_allocated {rep['max_memory_allocated_mb']:.1f} MiB")
+    return rep, run
+
+
+def drive_stress(train) -> dict:
+    """17a-17c on one ML-20M split."""
+    out = {}
+    gate = memlimits.key("cuda:" + torch.cuda.get_device_name(0), 1, "model",
+                         2 * K_EMB + 2)
+    out["memlimits"] = {"key": gate, "entry": list(memlimits.load(gate))}
+    out["mf"], mf = stress_family("mf", train, STRESS_FULL)
+    fs = mf.out["details"]["full_space"]
+    check(fs["finite"] and fs["num_params"] == mf.full.num_params,
+          f"17a: the full-space probe {fs}")
+    check(mf.full.num_train == len(train.x), "17a: the full engine dropped "
+          "rows")
+    del mf.full
+    # 17c: the tables row-sharded over two virtual 'model' slots, 17a's
+    # params (no second training): bitwise the replicated engine
+    with pmesh.virtual_devices(2):
+        reset_counts()
+        args = stress_args("--model_parallel", "2")
+        sh = stress_cli.stress_engine(args, mf.model, mf.params, train,
+                                      stress_cli.stress_mesh(2, None), None)
+        check(sh._sharded_now(), "17c: the tables are not sharded")
+        got = sh.query_batch(mf.points)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        same_bytes(got, mf.engine.query_batch(mf.points),
+                   "17c: model_parallel 2 against the replicated engine")
+        wall = wall_ms(lambda: sh.query_batch(mf.points))
+    slots = table_slot_bytes(sh, mf.model)
+    check(all(slots["got"][k] == [slots["want"][k]] for k in slots["want"]),
+          f"17c: a slot's table bytes are not padded_rows(n, 2) / 2 rows: "
+          f"{slots}")
+    out["mf_model_parallel"] = {"launches": launches, "query_batch_ms": wall,
+                                "table_slot_bytes": slots}
+    for name in (SOURCES["mf"], SEGMENT_SOURCE):
+        check(launches[name] > 0, f"17c: {name} was not launched")
+    log(f"17c: MF over (1, 2) virtual slots bitwise the replicated engine, "
+        f"query_batch({len(mf.points)}) {wall:.3f} ms, launches {launches}")
+    # 'on' at ML-20M resolves off by the 2 GiB gate
+    big = engine(mf.model, mf.params, train, damping=1e-6, pad_bucket=512,
+                 row_features="on")
+    n, f = len(train.x), mf.model.row_feature_dim
+    out["rowfeat_ml20m"] = {"rows": n, "F": f, "resolved_on":
+                            big._rowfeat is not None,
+                            "padded_gb": n * (-(-f // 128) * 128) * 4 / 1e9}
+    check(big._rowfeat is None, "17: row_features='on' at ML-20M built the "
+          "table past the 2 GiB gate")
+    log(f"17: row_features='on' at ML-20M resolves off "
+        f"{out['rowfeat_ml20m']}")
+    del big, sh, mf
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ncf"], _ = stress_family("ncf", train)
+    return out
+
+
+def rowfeat_pair(model, params, train, **kw) -> tuple:
+    """The ``on`` and ``off`` engines of one configuration."""
+    on = engine(model, params, train, damping=DAMPING, row_features="on",
+                **kw)
+    off = engine(model, params, train, damping=DAMPING, row_features="off",
+                 **kw)
+    check(on._rowfeat is not None and off._rowfeat is None,
+          f"17d: the table resolved {on._rowfeat is not None} / "
+          f"{off._rowfeat is not None} for on / off ({kw})")
+    return on, off
+
+
+def counted_on(fn, into: dict):
+    """Run one ``on`` query with the launch counts from 0; add the
+    counts it read right after into ``into``; return its result."""
+    reset_counts()
+    res = fn()
+    torch.cuda.synchronize()
+    for k, n in launch_counts().items():
+        into[k] = into.get(k, 0) + n
+    return res
+
+
+# 17d's modes and the kernels each must launch on its own 'on' run; the
+# bank run answers its hits and its misses (held-out pairs, through the
+# miss delegate, the next rung down) in one call
+ROWFEAT_GATES = {
+    "direct": lambda fam: (SOURCES[fam], SEGMENT_SOURCE),
+    "sampled": lambda fam: (SOURCES[fam], SEGMENT_SOURCE, CERT_SOURCE,
+                            EIGMIN_SOURCE),
+    "bank": lambda fam: (SOURCES[fam], SEGMENT_SOURCE),
+}
+
+
+def rowfeat_family(family: str, cls, train, pts, workdir: str) -> dict:
+    """17d for one model at ML-1M shape: direct at BATCHES, the sampled
+    rung at SAMPLED_CAP and a bank hit, ``on`` bitwise ``off``; no
+    capture once warm. Launches are counted from 0 around each ``on``
+    run alone and kept by mode; no ``off`` run or bank build counts."""
+    model = cls(USERS, ITEMS, K_EMB, WD)
+    params = model.init_params(torch.Generator().manual_seed(0), device=CARD)
+    launches = {mode: {} for mode in ROWFEAT_GATES}
+    on, off = rowfeat_pair(model, params, train)
+    n, f = len(train.x), model.row_feature_dim
+    out = {"F": f, "table_mb": on._rowfeat.numel() * 4 / 2 ** 20,
+           "padded_gb": n * (-(-f // 128) * 128) * 4 / 1e9}
+    for T in BATCHES:
+        got = counted_on(lambda T=T: on.query_batch(pts[:T]),
+                         launches["direct"])
+        same_bytes(got, off.query_batch(pts[:T]),
+                   f"17d {family} direct T={T}: on against off")
+    builds = compilemon.count()
+    for T in BATCHES:
+        on.query_batch(pts[:T])
+    out["captures_when_warm"] = compilemon.count() - builds
+    check(out["captures_when_warm"] == 0, f"17d {family}: a warm 'on' "
+          f"engine captured {out['captures_when_warm']} programs")
+    out["direct_ms"] = {str(T): wall_ms(lambda T=T: on.query_batch(pts[:T]))
+                        for T in BATCHES}
+    out["direct_off_ms"] = {
+        str(T): wall_ms(lambda T=T: off.query_batch(pts[:T]))
+        for T in BATCHES}
+    s_on, s_off = rowfeat_pair(model, params, train, solver="sampled",
+                               sampled_cap=SAMPLED_CAP)
+    a = counted_on(lambda: s_on.query_batch(pts[:BATCHES[0]]),
+                   launches["sampled"])
+    b = s_off.query_batch(pts[:BATCHES[0]])
+    same_bytes(a, b, f"17d {family} sampled: on against off")
+    check(a.err_bound.tobytes() == b.err_bound.tobytes(),
+          f"17d {family} sampled: the bounds differ")
+    check(s_on.sampled_stats()["queries"] == BATCHES[0],
+          f"17d {family}: the sampled rung answered "
+          f"{s_on.sampled_stats()}")
+    del s_on, s_off
+    name = f"rowfeat-{family}"
+    builder = engine(model, params, train, damping=DAMPING, cache_dir=workdir,
+                     model_name=name)
+    bank = fbank.build_bank(builder, fbank.select_hot_pairs(
+        builder.index, ROWFEAT_BANK), batch_queries=ROWFEAT_BANK)
+    fbank.publish_bank(bank, builder.factor_bank_path(), fbank.bank_fingerprint(
+        name, model.block_size, DAMPING, *builder._train_host))
+    del builder
+    q = np.concatenate([np.asarray(bank.pairs, np.int64),
+                        pts[:ROWFEAT_BANK]])
+    got = {}
+    for rf in ("on", "off"):
+        pre = engine(model, params, train, damping=DAMPING,
+                     solver="precomputed", cache_dir=workdir,
+                     model_name=name, row_features=rf)
+        check(pre.ensure_factor_bank() == len(bank),
+              f"17d {family}: the bank did not load")
+        got[rf] = (counted_on(lambda: pre.query_batch(q), launches["bank"])
+                   if rf == "on" else pre.query_batch(q))
+        stats = pre.bank_stats()
+        check(stats["hits"] >= ROWFEAT_BANK and stats["misses"] > 0,
+              f"17d {family}: {stats}")
+        del pre
+    same_bytes(got["on"], got["off"], f"17d {family} bank: on against off")
+    out["launches"] = launches
+    for mode, gate in ROWFEAT_GATES.items():
+        for k in gate(family):
+            check(launches[mode].get(k, 0) > 0, f"17d {family}: the 'on' "
+                  f"{mode} run did not launch {k} ({launches[mode]})")
+    log(f"17d {family}: the table on ({out['table_mb']:.1f} MiB; "
+        f"{out['padded_gb']:.2f} GB at the reference's padded width); "
+        f"direct at {BATCHES}, sampled at cap {SAMPLED_CAP} and "
+        f"{ROWFEAT_BANK} bank hits bitwise 'off'; no capture when warm; "
+        f"direct ms on {out['direct_ms']} / off {out['direct_off_ms']}; "
+        f"'on' launches by mode {launches}")
+    del on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_phase17() -> dict:
+    """Phase 17: 17a-17c on one ML-20M split, 17d on an ML-1M set-up of
+    its own."""
+    out = {}
+    t0 = time.perf_counter()
+    users, items, rows = stress_cli.ML20M
+    train = stress_cli.synthesize(stress_args(), users, items, rows)
+    out["synthesis_s"] = time.perf_counter() - t0
+    perm = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        epoch_permutation(0, 0, rows)
+        perm.append(time.perf_counter() - t0)
+    csr = {}
+    for which, ids, n in (("users", train.x[:, 0], users),
+                          ("items", train.x[:, 1], items)):
+        t0 = time.perf_counter()
+        a = native.build_csr(ids, n)
+        csr[f"{which}_native_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = native.build_csr_numpy(ids, n)
+        csr[f"{which}_numpy_s"] = time.perf_counter() - t0
+        check(native.available() and all(np.array_equal(x, y)
+                                         for x, y in zip(a, b)),
+              f"17: the native CSR over {which} at ML-20M differs from "
+              "numpy's (or did not build)")
+    out["host"] = {"epoch_permutation_s": perm, "csr": csr}
+    log(f"17: ML-20M synthesised in {out['synthesis_s']:.1f} s; host "
+        f"{out['host']}")
+    out.update(drive_stress(train))
+    del train
+    gc.collect()
+    t0 = time.perf_counter()
+    train = synthesize_ratings(USERS, ITEMS, ROWS, seed=0)
+    pts = sample_heldout_pairs(train.x, USERS, ITEMS, max(BATCHES), seed=17)
+    with tempfile.TemporaryDirectory() as workdir:
+        out["rowfeat"] = {f: rowfeat_family(f, cls, train, pts, workdir)
+                          for f, cls in (("mf", MF), ("ncf", NCF))}
+    out["rowfeat"]["seconds"] = time.perf_counter() - t0
+    no_recovery("17")
+    return out
+
+
+def phase17_only(card: str, kind: str, t_main: float) -> int:
+    """``--phase 17``: after the build, phase 17 alone, its results on the
+    ``perf`` line."""
+    t17 = time.perf_counter()
+    perf = {"card": card, "stress": drive_phase17()}
+    perf["phase17_seconds"] = time.perf_counter() - t17
+    perf["total_seconds"] = time.perf_counter() - t_main
+    log(f"phase 17: {perf['phase17_seconds']:.1f} s; chip_smoke --phase 17 "
+        f"total: {perf['total_seconds']:.1f} s")
+    log("perf " + json.dumps(perf, sort_keys=True, default=str))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+def stress_launches(stress: dict, source: str) -> dict:
+    """A kernel's launches in phase 17, by part."""
+    out = {}
+    for key, part in (("17a", "mf"), ("17b", "ncf")):
+        out[key] = stress[part]["launches"][source]
+    out["17c"] = stress["mf_model_parallel"]["launches"][source]
+    out["17d"] = {f: {mode: n.get(source, 0) for mode, n in
+                      stress["rowfeat"][f]["launches"].items()}
+                  for f in ("mf", "ncf")}
+    return out
+
+
 def main() -> int:
     t_main = time.perf_counter()
     # -- phase 1: the card ---------------------------------------------
@@ -6909,6 +7335,8 @@ def main() -> int:
         return chaos_only(card, kind, t_main)
     if sys.argv[1:] == ["--phase", "16"]:
         return phase16_only(card, kind, t_main)
+    if sys.argv[1:] == ["--phase", "17"]:
+        return phase17_only(card, kind, t_main)
 
     # -- main paths' set-up (ML-1M shape, seeded weights) ---------------
     t0 = time.perf_counter()
@@ -7145,9 +7573,9 @@ def main() -> int:
         for h in apart.values():
             stop_apart(h)
     apart_dir.cleanup()
-    perf["phases_10_16_seconds"] = time.perf_counter() - t_apart
-    log(f"phases 10-16: {perf['phases_10_16_seconds']:.1f} s (12, 13, 14, "
-        "15 and 16 in processes of their own beside 10 and 11)")
+    perf["phases_10_17_seconds"] = time.perf_counter() - t_apart
+    log(f"phases 10-17: {perf['phases_10_17_seconds']:.1f} s (12, 13, 14, "
+        "15, 16 and 17 in processes of their own beside 10 and 11)")
     by_name = {row["name"]: row for row in rows}
 
     # -- phase 12: the data-axis device mesh ----------------------------
@@ -7196,6 +7624,19 @@ def main() -> int:
             perf["parity"][family]["launches"][SOURCES[family]]
         seg_by_path[family]["parity"] = perf["parity"][family]["launches"][
             SEGMENT_SOURCE]
+
+    # -- phase 17: the ML-20M stress driver, the row-feature table ------
+    stress = perf["stress"] = got[17]["stress"]
+    perf["phase17_seconds"] = got[17]["phase17_seconds"]
+    for family in engines:
+        by_name[SOURCES[family]]["launches_by_path"]["stress"] = \
+            stress_launches(stress, SOURCES[family])
+        seg_by_path[family]["stress"] = stress_launches(stress,
+                                                        SEGMENT_SOURCE)
+    for name in (CERT_SOURCE, EIGMIN_SOURCE):
+        by_name[name]["launches_by_path"]["rowfeat"] = {
+            f: {mode: n.get(name, 0) for mode, n in
+                stress["rowfeat"][f]["launches"].items()} for f in engines}
     ladder_dir.cleanup()
     envelope_dir.cleanup()
     perf["total_seconds"] = time.perf_counter() - t_main
@@ -7254,7 +7695,7 @@ def phases_10_11(engines, train, pts, envelope_dir, ladder_dir,
 
 # phases run in processes of their own (``--phase N``) beside phases 10
 # and 11, each given APART_S seconds
-APART_PHASES, APART_S = (12, 13, 14, 15, 16), 300
+APART_PHASES, APART_S = (12, 13, 14, 15, 16, 17), 300
 
 
 def start_apart(n: int, workdir: str) -> tuple:

@@ -89,8 +89,10 @@ all-gathered and stitched in global shard order
 (:mod:`fia_tpu_torch.parallel.distributed`).
 :meth:`InfluenceEngine.rebuild_mesh` re-homes the engine on a shrunk mesh
 after device loss (``engine.mesh_rebuilds``, the ``mesh.rebuild`` site and
-event). Options of the reference that the port does not run yet raise
-``NotImplementedError`` naming their ROADMAP item.
+event). With ``row_features="on"`` the flat program reads each row's
+gradient parts, residual and ids from one fused (N, F) table built from
+the params (one replica a physical device), bitwise the program without
+it.
 """
 
 from __future__ import annotations
@@ -308,8 +310,8 @@ def _to_host(outs) -> list[np.ndarray]:
 
 
 def _home_state(j: int, doc: str) -> property:
-    """Entry ``j`` of ``(params, train_x, train_y, postings)`` on the
-    engine's own device, read from its ``_replicas``. A write replaces
+    """Entry ``j`` of ``(params, train_x, train_y, postings, rowfeat)``
+    on the engine's own device, read from its ``_replicas``. A write replaces
     the engine's own entry in a dict of its own, so the delegates that
     shared the old one keep it."""
 
@@ -508,6 +510,18 @@ class InfluenceEngine:
         chunk, the reference's ``body_onehot``). Only ``auto`` on the
         card is the same bits under any batch split; on the CPU
         ``auto`` and ``scan`` are.
+      row_features: the flat path's fused row-feature table, ``on``,
+        ``off`` or ``auto`` (off, as in the reference, where it measured
+        neutral on its chip). ``on`` builds one (N, F) table from the
+        params (the model's ``build_row_features``: each row's own
+        gradient parts, residual and float-packed ids; one replica a
+        physical device, rebuilt with the rest of the device state), and
+        the flat program reads g, e and the match masks from it
+        (``grads_from_row_features``), bitwise the program without it;
+        the score kernels still read the raw rows. The reference's gate
+        holds unchanged (:meth:`_want_row_features`): no table for a model
+        without the hooks, with ``shard_tables``, for ids >= 2^24, or
+        past 2 GiB at its padded width N · ceil(F/128)·128 · 4 B.
       mesh: a :class:`fia_tpu_torch.parallel.mesh.Mesh` with a ``data``
         axis, or ``None``. Query batches are split into contiguous query
         shards, each run by the single-device program on its slot's
@@ -591,14 +605,12 @@ class InfluenceEngine:
             raise ValueError(
                 f"{type(model).__name__} defines no closed-form block_hessian"
             )
-        if row_features == "on":
-            raise NotImplementedError(
-                "not ported yet — row_features='on': ROADMAP Queue A.6b")
         if mesh is not None and "data" not in mesh.axis_names:
             raise ValueError("a mesh needs a 'data' axis")
         if shard_tables and (mesh is None or "model" not in mesh.axis_names):
             raise ValueError("shard_tables requires a mesh with a 'model' axis")
         self._shard_tables = bool(shard_tables)
+        self.row_features = row_features
         self.mesh = mesh
         self.device = pmesh.mesh_device(mesh, device)
         self.model = model
@@ -675,15 +687,55 @@ class InfluenceEngine:
             # never reach them), every other param one copy a device
             placed = SH.shard_model_params(self.mesh, self._params_host,
                                            self.model, pad_rows=True)
-        self._adopt_state({
-            dev: ({k: torch.as_tensor(v).to(dev)
-                   for k, v in self._params_host.items()} if placed is None
-                  else {k: p if p.axis is not None else p.on(dev)
-                        for k, p in placed.items()},
-                  torch.as_tensor(self._train_host[0]).to(dev),
-                  torch.as_tensor(self._train_host[1]).to(dev),
-                  tuple(torch.as_tensor(a).to(dev) for a in postings))
-            for dev in self._devices()})
+        feat = self._want_row_features()
+        replicas = {}
+        for dev in self._devices():
+            params = ({k: torch.as_tensor(v).to(dev)
+                       for k, v in self._params_host.items()}
+                      if placed is None
+                      else {k: p if p.axis is not None else p.on(dev)
+                            for k, p in placed.items()})
+            x = torch.as_tensor(self._train_host[0]).to(dev)
+            y = torch.as_tensor(self._train_host[1]).to(dev)
+            replicas[dev] = (
+                params, x, y,
+                tuple(torch.as_tensor(a).to(dev) for a in postings),
+                self._build_row_features(params, x, y) if feat else None)
+        self._adopt_state(replicas)
+
+    def _want_row_features(self) -> bool:
+        """The reference's gate, unchanged, so that the same arguments
+        decide the same way in both packages: the table is built only
+        for ``row_features="on"``, a model with the hooks, replicated
+        tables, ids below 2^24 (float-packed ids compare exactly) and a
+        table within 2 GiB at the reference's padded width
+        N · ceil(F/128)·128 · 4 B (the port stores (N, F) unpadded)."""
+        if (self.model.build_row_features is None
+                or self.row_features == "off"
+                # row-sharded tables: the fused table would replicate
+                # what sharding split
+                or self._shard_tables):
+            return False
+        if max(self.model.num_users, self.model.num_items) >= (1 << 24):
+            return False
+        if self.row_features != "on":
+            return False  # 'auto' = off: measured neutral in the reference
+        n = len(self._train_host[0])
+        padded = -(-int(self.model.row_feature_dim) // 128) * 128
+        return n * padded * 4 <= (2 << 30)
+
+    def _build_row_features(self, params, x, y) -> torch.Tensor:
+        """The (N, F) row-feature table from ``params`` over the train
+        rows ``(x, y)`` on their device, in steps of 2^21 rows (the
+        build's peak memory). Every entry is a per-row function whose
+        bits do not depend on the row count (``row_predict``, NCF's
+        pieced products), so the table holds the bits the flat program
+        computes for each row without it."""
+        step = 1 << 21
+        parts = [self.model.build_row_features(params, x[s: s + step],
+                                               y[s: s + step])
+                 for s in range(0, max(len(x), 1), step)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def _sharded_now(self) -> bool:
         """The tables are row-sharded on the CURRENT mesh. A
@@ -708,13 +760,16 @@ class InfluenceEngine:
 
     def _adopt_state(self, replicas: dict) -> None:
         """Point the engine at ``replicas``, the device state
-        ``(params, train_x, train_y, postings)`` by physical device."""
+        ``(params, train_x, train_y, postings, rowfeat)`` by physical
+        device (``rowfeat`` None without the row-feature table)."""
         self._replicas = replicas
 
     params = _home_state(0, "The params on the engine's own device.")
     train_x = _home_state(1, "The train pairs on the engine's own device.")
     train_y = _home_state(2, "The train ratings on the engine's own device.")
     _postings = _home_state(3, "The CSR postings on the engine's own device.")
+    _rowfeat = _home_state(4, "The row-feature table on the engine's own "
+                              "device, or None.")
 
     def _devices(self) -> list:
         """The physical devices the engine's state lives on, its own
@@ -742,8 +797,8 @@ class InfluenceEngine:
         return pdist.spans_processes(self.mesh)
 
     def _state_on(self, dev=None) -> tuple:
-        """``(params, train_x, train_y, postings)`` on ``dev`` (None: the
-        engine's own device)."""
+        """``(params, train_x, train_y, postings, rowfeat)`` on ``dev``
+        (None: the engine's own device)."""
         return self._replicas[self.device if dev is None else dev]
 
     def _bank_on(self, dev=None) -> tuple:
@@ -966,7 +1021,10 @@ class InfluenceEngine:
         """All queries' related rows on one flat (S,) axis; per-query
         Hessians accumulated by segment reduction.
 
-        Returns ``fn(params, train_x, train_y, postings, tx, *extra)``.
+        Returns ``fn(params, train_x, train_y, postings, tx, *extra,
+        rowfeat=None)``; given the row-feature table ``rowfeat``, the
+        rows' g, e and match masks come from it
+        (``grads_from_row_features``), the same bits.
         ``stage`` truncates the program to a cumulative prefix: "grads"
         returns ``(g, e)``, "hessian" the damped ``H`` (T, d, d), "solve"
         ``(ihvp, v)``, "scores" (the default, the full program)
@@ -1010,12 +1068,13 @@ class InfluenceEngine:
         chunk = math.gcd(s_pad, self.flat_chunk)
         accum = self.flat_accum
 
-        def fn(params, train_x, train_y, postings, tx, *extra):
+        def fn(params, train_x, train_y, postings, tx, *extra,
+               rowfeat=None):
             T = tx.shape[0]
             u, i, counts, t, row, wv, ut, it = prelude(tx, postings)
             qx = tx if tx.shape[1] == 2 else tx[:, :2].contiguous()
+            # the score kernels read the raw rows with or without the table
             rel_x = train_x[row]
-            rel_y = train_y[row]
             if sharded:
                 su, si, *extra = extra
                 u, ut = SH.remap(su, u), SH.remap(su, ut)
@@ -1023,7 +1082,14 @@ class InfluenceEngine:
                 qx = torch.stack([u, i], dim=1)
                 rel_x = torch.stack([SH.remap(su, rel_x[:, 0]),
                                      SH.remap(si, rel_x[:, 1])], dim=1)
-            e = model.row_predict(params, rel_x) - rel_y
+            if rowfeat is not None:
+                # one wide gather: the rows' gradient parts, residuals and
+                # ids (the table is never built with sharded tables)
+                g, e, ma, mb = model.grads_from_row_features(rowfeat[row],
+                                                             ut, it)
+                ab = wv * ma * mb
+            else:
+                e = model.row_predict(params, rel_x) - train_y[row]
             n_t = torch.clamp(counts.to(torch.float32), min=1.0)
             rdiag = model.block_reg_diag(params)
 
@@ -1040,8 +1106,9 @@ class InfluenceEngine:
                 v = test_vector()
                 ihvp = _in_pieces(_bank_solve, bfac[brow], bknd[brow], v)
             else:
-                g = K.row_grads(model, params, ut, it, rel_x)
-                ab = wv * (rel_x[:, 0] == ut) * (rel_x[:, 1] == it)
+                if rowfeat is None:
+                    g = K.row_grads(model, params, ut, it, rel_x)
+                    ab = wv * (rel_x[:, 0] == ut) * (rel_x[:, 1] == it)
                 if stage == "grads":
                     return g, e
 
@@ -1238,7 +1305,7 @@ class InfluenceEngine:
             if dev is None:
                 yield None
                 continue
-            params, *state = self._state_on(dev)
+            params, *state, _ = self._state_on(dev)
             yield (dev, tx, _with_tables(params, names, loc[2:]), state,
                    tuple(loc[:2]))
 
@@ -1249,7 +1316,7 @@ class InfluenceEngine:
         prelude = self._flat_prelude(s_pad)
 
         def related(dev, tx):
-            _, train_x, _, postings = self._state_on(dev)
+            _, train_x, _, postings, _ = self._state_on(dev)
             return train_x[prelude(tx, postings)[4]]
 
         return related
@@ -1328,29 +1395,32 @@ class InfluenceEngine:
 
     def _aot_key(self, t_pad: int, s_pad: int):
         """The identity of an armed geometry: the geometry, the
-        score-kernel variant, the Hessian form, the table placement
-        (``rebuild_mesh`` can flip a ``shard_tables`` engine between
-        sharded and replicated programs), and the mesh fingerprint LAST
-        (``compiled_geometries`` reads the geometry as ``(k[1],
-        k[2])``)."""
+        score-kernel variant, the Hessian form, the row-feature table's
+        use, the table placement (``rebuild_mesh`` can flip a
+        ``shard_tables`` engine between sharded and replicated programs),
+        and the mesh fingerprint LAST (``compiled_geometries`` reads the
+        geometry as ``(k[1], k[2])``)."""
         return ("flat", t_pad, s_pad, self._kernel_variant, self.flat_accum,
-                self._sharded_now(), self._mesh_fp())
+                self._rowfeat is not None, self._sharded_now(),
+                self._mesh_fp())
 
     def _flat_key(self, t_pad: int, s_pad: int, mode: str = "direct",
                   dev=None):
         """A flat program's cache key: its mode and geometry, the
-        score-kernel variant, the Hessian form, the addresses of the
-        tensors it reads on ``dev`` (a captured graph reads them by
-        address; a bank program its factors too), and the mesh
-        fingerprint. Slots that share a device share its programs. A
-        sharded program takes its tables as inputs: the row shards are
-        not among the tensors it reads."""
-        params, train_x, train_y, postings = self._state_on(dev)
-        tensors = (*params.values(), train_x, train_y, *postings)
+        score-kernel variant, the Hessian form, the row-feature table's
+        use, the addresses of the tensors it reads on ``dev`` (a captured
+        graph reads them by address; a bank program its factors too, and
+        a program with the table the table), and the mesh fingerprint.
+        Slots that share a device share its programs. A sharded program
+        takes its tables as inputs: the row shards are not among the
+        tensors it reads."""
+        params, train_x, train_y, postings, rowfeat = self._state_on(dev)
+        tensors = (*params.values(), train_x, train_y, *postings, rowfeat)
         if mode == "bank":
             tensors += self._bank_on(dev)
         return ("flat" if mode == "direct" else mode, t_pad, s_pad,
-                self._kernel_variant, self.flat_accum, self._sharded_now(),
+                self._kernel_variant, self.flat_accum, rowfeat is not None,
+                self._sharded_now(),
                 tuple(x.data_ptr() for x in tensors
                       if isinstance(x, torch.Tensor)), self._mesh_fp())
 
@@ -1411,7 +1481,7 @@ class InfluenceEngine:
         dev = self.device if dev is None else dev
         sharded = self._sharded_now()
         fn = self._flat_fn(s_pad, mode=mode, sharded=sharded)
-        params, *state = self._state_on(dev)
+        params, *state, rowfeat = self._state_on(dev)
         bank = self._bank_on(dev) if mode == "bank" else ()
         inputs = [((t_pad, 3 if mode == "bank" else 2), torch.int32)]
         names = SH.table_names(self.model) if sharded else ()
@@ -1426,7 +1496,7 @@ class InfluenceEngine:
         # graphs go with it, not at the next collection
         def run(tx, *xs):
             if not sharded:
-                return fn(params, *state, tx, *bank, *xs)
+                return fn(params, *state, tx, *bank, *xs, rowfeat=rowfeat)
             return fn(_with_tables(params, names, xs[2:]), *state, tx,
                       *xs[:2], *bank)
 
@@ -1624,7 +1694,7 @@ class InfluenceEngine:
                 lissa_scale=self.lissa_scale, lissa_depth=self.lissa_depth,
                 model_name=self.model_name + "-cpufb",
                 pad_bucket=self.pad_bucket, hessian_mode="auto",
-                impl="auto",
+                impl="auto", row_features=self.row_features,
                 kernel="auto" if self.kernel == "cuda" else self.kernel,
                 lissa_tune=self.lissa_tune, sampled_cap=self.sampled_cap,
                 sampled_tol=self.sampled_tol, device="cpu",
@@ -1688,7 +1758,8 @@ class InfluenceEngine:
                 continue
             dev, tx, params, state, keys = sh
             with _on(dev):
-                hs.append((fn(params, *state, tx, *keys),))
+                hs.append((fn(params, *state, tx, *keys,
+                              rowfeat=self._state_on(dev)[4]),))
         return self._stitch(self._collect(hs), counts, q, 0)[0]
 
     def _block_hessians_padded(self, chunk: np.ndarray) -> np.ndarray:
@@ -1704,7 +1775,7 @@ class InfluenceEngine:
         devs = self._shard_devices()
         k = next(k for k, dv in enumerate(devs) if dv is not None)
         dev = devs[k]
-        params, train_x, train_y, _ = self._state_on(dev)
+        params, train_x, train_y, _, _ = self._state_on(dev)
         with _on(dev):
             u = torch.as_tensor(chunk[:, 0]).to(dev)
             i = torch.as_tensor(chunk[:, 1]).to(dev)
@@ -2223,7 +2294,7 @@ class InfluenceEngine:
         related = self._padded_related(pad)
 
         def rel_ids(dev, tx):
-            _, train_x, _, postings = self._state_on(dev)
+            _, train_x, _, postings, _ = self._state_on(dev)
             return train_x[related(train_x, postings, tx)[2]].reshape(-1, 2)
 
         outs, its = [], []

@@ -74,6 +74,28 @@ class LatentFactorModel:
     block_cross_const = None
     block_reg_diag = None
 
+    #: fused row-feature hooks of the flat path (``InfluenceEngine(
+    #: row_features="on")``; the reference's contracts):
+    #: ``build_row_features(params, x, y) -> (N, F)`` packs every
+    #: per-train-row quantity the flat program reads (the query-independent
+    #: own-gradient parts, the residual e_j from ``row_predict`` and the
+    #: row's ids as float32) into one table of ``row_feature_dim`` columns;
+    #: ``grads_from_row_features(feat, u, i) -> (g (B, d), e (B,), a (B,),
+    #: b (B,))`` recovers the block gradients, residuals and user/item
+    #: match masks of rows ``feat`` against query ids ``u``/``i`` (scalar
+    #: or per row) with masks only, the same bits as ``block_row_grads``
+    #: and ``row_predict``.
+    build_row_features = None
+    grads_from_row_features = None
+
+    #: ``grads_from_rows(params, rows, x, y, u, i) -> (g (B, d), e (B,))``:
+    #: the block gradients and residuals from pre-gathered table rows
+    #: (``rows`` maps each of the model's table params,
+    #: ``parallel.sharded.TABLE_PARAMS``, to its rows at the B rows' own
+    #: ids), op for op ``block_row_grads`` + ``row_predict`` with every
+    #: table index replaced by its gathered row: the same bits.
+    grads_from_rows = None
+
     #: optional closed-form block Hessian
     #: ``block_hessian(params, u, i, x, y, w) -> (d, d)`` (undamped); the
     #: padded engine uses it in place of ``block_size`` autodiff HVPs.

@@ -162,6 +162,46 @@ class MF(LatentFactorModel):
             dim=1,
         )
 
+    def grads_from_rows(self, params, rows, x, y, u, i):
+        """(g, e) from pre-gathered table rows (see the base hook):
+        ``block_row_grads`` and ``row_predict`` with each table index
+        replaced by its gathered row."""
+        xu, xi = x[:, 0], x[:, 1]
+        a = (xu == u).to(torch.float32)
+        b = (xi == i).to(torch.float32)
+        g = torch.cat([a[:, None] * rows["Q"], b[:, None] * rows["P"],
+                       a[:, None], b[:, None]], dim=1)
+        own = torch.arange(x.shape[0], device=x.device)
+        e = self.row_predict({**params, **rows},
+                             torch.stack([own, own], dim=1)) - y
+        return g, e
+
+    # -- fused row-feature hooks (see the base hooks). Layout:
+    # [Q[i_j] (k) | P[u_j] (k) | e_j | u_j | i_j], F = 2k + 3, the ids
+    # packed as float32: exact below 2^24, which the engine gates on
+    @property
+    def row_feature_dim(self) -> int:
+        return 2 * self.embedding_size + 3
+
+    def build_row_features(self, params, x, y):
+        xu, xi = x[:, 0], x[:, 1]
+        e = self.row_predict(params, x) - y
+        return torch.cat([params["Q"][xi], params["P"][xu], e[:, None],
+                          xu.to(torch.float32)[:, None],
+                          xi.to(torch.float32)[:, None]], dim=1)
+
+    def grads_from_row_features(self, feat, u, i):
+        """(g, e, a, b) of rows ``feat`` against query ids ``u``/``i``:
+        the arithmetic of ``block_row_grads`` on the stored rows."""
+        k = self.embedding_size
+        a = (feat[:, 2 * k + 1] == u).to(torch.float32)
+        b = (feat[:, 2 * k + 2] == i).to(torch.float32)
+        g = torch.cat([a[:, None] * feat[:, :k],
+                       b[:, None] * feat[:, k: 2 * k],
+                       a[:, None], b[:, None]], dim=1)
+        # e contiguous: the score kernels take it as a flat (B,) array
+        return g, feat[:, 2 * k].contiguous(), a, b
+
     def kernel_operands(self, params):
         """The score kernel's table operands, in its order."""
         return params["P"], params["Q"]

@@ -183,6 +183,48 @@ class NCF(LatentFactorModel):
         b = (xi == i).to(torch.float32)[:, None]
         return torch.cat([a * dpm, b * dqm, a * dpg, b * dqg], dim=1)
 
+    def grads_from_rows(self, params, rows, x, y, u, i):
+        """(g, e) from pre-gathered table rows (see the base hook):
+        ``own_grads`` and ``row_predict`` over the rows as tables indexed
+        by their own positions, masked by the real ids."""
+        xu, xi = x[:, 0], x[:, 1]
+        local = {**params, **rows}
+        own = torch.arange(x.shape[0], device=x.device)
+        dpm, dqm, dpg, dqg = self.own_grads(local, own, own)
+        a = (xu == u).to(torch.float32)[:, None]
+        b = (xi == i).to(torch.float32)[:, None]
+        g = torch.cat([a * dpm, b * dqm, a * dpg, b * dqg], dim=1)
+        return g, self.row_predict(local, torch.stack([own, own], dim=1)) - y
+
+    # -- fused row-feature hooks (see the base hooks). Layout:
+    # [g_pm (k) | g_qm (k) | g_pg (k) | g_qg (k) | e | u | i], F = 4k + 3,
+    # the g_* each row's prediction gradient w.r.t. its OWN embedding rows
+    # (``own_grads``: products in fixed pieces of rows, so a table built
+    # in any steps holds the flat path's bits)
+    @property
+    def row_feature_dim(self) -> int:
+        return 4 * self.embedding_size + 3
+
+    def build_row_features(self, params, x, y):
+        xu, xi = x[:, 0], x[:, 1]
+        e = self.row_predict(params, x) - y
+        return torch.cat([*self.own_grads(params, xu, xi), e[:, None],
+                          xu.to(torch.float32)[:, None],
+                          xi.to(torch.float32)[:, None]], dim=1)
+
+    def grads_from_row_features(self, feat, u, i):
+        """(g, e, a, b) of rows ``feat`` against query ids ``u``/``i``:
+        the masking of ``block_row_grads`` on the stored parts."""
+        k = self.embedding_size
+        a = (feat[:, 4 * k + 1] == u).to(torch.float32)
+        b = (feat[:, 4 * k + 2] == i).to(torch.float32)
+        am, bm = a[:, None], b[:, None]
+        g = torch.cat([am * feat[:, :k], bm * feat[:, k: 2 * k],
+                       am * feat[:, 2 * k: 3 * k],
+                       bm * feat[:, 3 * k: 4 * k]], dim=1)
+        # e contiguous: the score kernels take it as a flat (B,) array
+        return g, feat[:, 4 * k].contiguous(), a, b
+
     def kernel_operands(self, params):
         """The score kernel's table and weight operands, in its order."""
         return tuple(params[n] for n in ("P_mlp", "Q_mlp", "P_gmf", "Q_gmf",

@@ -24,8 +24,9 @@ bit for bit. The sharded engine's params are saved by both processes
 queried again: the same bits. Each worker joins with ``local_device_ids=[0]``; ROADMAP
 C.7's slot layout over given CUDA ordinals is held in one process
 (``TestLocalDeviceIds``).
-``mp_worker.py``'s ``row_features="on"`` leg is left out: the fused
-row-feature table is not ported (ROADMAP Queue A.6b).
+``mp_worker.py``'s ``row_features="on"`` leg: an engine with replicated
+tables and the fused row-feature table (one replica a process) on the
+same mesh gives the sharded flat run's bits.
 """
 
 import os
@@ -92,6 +93,12 @@ def _run_all(mesh, params, ckpt_dir: str) -> dict:
     res = flat.query_batch(PTS)
     out.update(flat_packed=res._packed, flat_ihvp=res.ihvp,
                flat_v=res.test_grad, counts=res.counts)
+    # replicated tables with the fused row-feature table on the same
+    # mesh: a table replica in each process, the sharded run's bits
+    feat = InfluenceEngine(model, params, train, damping=1e-3, mesh=mesh,
+                           impl="flat", row_features="on", device="cpu")
+    assert feat._rowfeat is not None and not feat._sharded_now()
+    out["feat_packed"] = feat.query_batch(PTS)._packed
     many = flat.query_many(PTS, batch_queries=4)
     out["many_packed"] = np.concatenate([r._packed for r in many])
     out["hessians"] = flat.block_hessians(PTS)
@@ -477,6 +484,7 @@ class TestTwoProcess:
         for k in want:
             assert got[k].tobytes() == want[k].tobytes(), k
         assert got["ckpt_packed"].tobytes() == got["flat_packed"].tobytes()
+        assert got["feat_packed"].tobytes() == got["flat_packed"].tobytes()
 
         # the JAX package's single-process engines: the reference's bars
         train = _data()

@@ -190,9 +190,11 @@ def test_stage_prefixes_match_reference(case, stage):
         np.testing.assert_allclose(a, b, rtol=rt, atol=ATOL)
 
 
-# the precomputed and sampled rungs, cache_dir, a mesh and row-sharded
-# tables are ported: their cases now pair them with an option that is
-# not (row_features='on', ROADMAP Queue A.6b), which still raises
+# These options once raised NotImplementedError (row_features='on' was
+# ROADMAP Queue A.6b); the name stays. Each engine now constructs and
+# resolves the fused row-feature table exactly as the reference's does
+# with the same arguments: on, save with row-sharded tables ("shard_tables"
+# stands for a (1, 2) ('data', 'model') mesh of each package).
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 @pytest.mark.parametrize("kw", [
     {"solver": "precomputed", "row_features": "on"},
@@ -203,11 +205,31 @@ def test_stage_prefixes_match_reference(case, stage):
     {"cache_dir": "unused", "row_features": "on"},
 ])
 def test_unported_options_raise(kw, family):
+    from fia_tpu.parallel import sharded as ref_sharded
+    from fia_tpu_torch.parallel import mesh as pmesh
+    from fia_tpu_torch.parallel.sharded import make_2d_mesh
+
     shape, x, y, _ = _kernels_setup()
-    model = FAMILIES[family][0](*shape, 1e-3)
-    params = model.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        InfluenceEngine(model, params, RatingDataset(x, y), device="cpu", **kw)
+    cls, ref_cls = FAMILIES[family]
+    ref_model = ref_cls(*shape, 1e-3)
+    arrays = jax.tree_util.tree_map(
+        np.asarray, ref_model.init_params(jax.random.PRNGKey(0)))
+    model = cls(*shape, 1e-3)
+    params = params_from_numpy(model, arrays, "cpu")
+    with pmesh.virtual_devices(2):
+        port_kw, ref_kw = dict(kw), dict(kw)
+        if kw.get("shard_tables"):
+            port_kw["mesh"] = make_2d_mesh(2, model_parallel=2, device="cpu")
+            ref_kw["mesh"] = ref_sharded.make_2d_mesh(2, model_parallel=2)
+        eng = InfluenceEngine(model, params, RatingDataset(x, y),
+                              device="cpu", **port_kw)
+    ref = RefEngine(ref_model, arrays, RefDataset(x, y), **ref_kw)
+    assert (eng._rowfeat is not None) == (ref._rowfeat is not None)
+    assert (eng._rowfeat is None) == bool(kw.get("shard_tables"))
+    if eng._rowfeat is not None:
+        assert tuple(eng._rowfeat.shape) == tuple(ref._rowfeat.shape)
+        np.testing.assert_array_equal(eng._rowfeat[:, -2:].numpy(),
+                                      np.asarray(ref._rowfeat)[:, -2:])
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

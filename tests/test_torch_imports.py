@@ -121,10 +121,13 @@ LAST_MODULES = ("fia_tpu_torch.data.native",
                 "fia_tpu_torch.analysis.rules_obs",
                 "fia_tpu_torch.analysis.rules_determinism",
                 "fia_tpu_torch.analysis.lint")
+# the ML-20M stress driver
+STRESS_MODULES = ("fia_tpu_torch.cli.stress",)
 ALONE_MODULES = (NCF_MODULES + PADDED_MODULES + TRAIN_MODULES
                  + DISPATCH_MODULES + LADDER_MODULES + OBS_MODULES
                  + SERVE_MODULES + STREAM_MODULES + PARALLEL_MODULES
-                 + HOST_MODULES + CHAOS_MODULES + LAST_MODULES)
+                 + HOST_MODULES + CHAOS_MODULES + LAST_MODULES
+                 + STRESS_MODULES)
 
 
 def _forbidden(name: str) -> bool:
@@ -171,6 +174,7 @@ def test_importing_the_port_loads_no_jax_and_no_fia_tpu():
     assert set(HOST_MODULES) <= set(names)
     assert set(CHAOS_MODULES) <= set(names)
     assert set(LAST_MODULES) <= set(names)
+    assert set(STRESS_MODULES) <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for m in {names!r}:\n"

@@ -298,18 +298,17 @@ class _NoHessianMF(MF):
     ({"hessian_mode": "bogus"}, ValueError),
     ({"pad_policy": "bogus"}, ValueError),
     ({"solver": "bogus"}, ValueError),
-    # the two rungs are ported (test_torch_engine.py::
-    # test_ported_rungs_construct); paired with an unported option they
-    # still raise (a mesh and row-sharded tables are ported too)
-    ({"solver": "precomputed", "row_features": "on"}, NotImplementedError),
-    ({"solver": "sampled", "row_features": "on"}, NotImplementedError),
+    # the two rungs construct (test_torch_engine.py::
+    # test_ported_rungs_construct), with row_features='on' too since
+    # ROADMAP Queue A.6b; an unknown row_features value still raises
+    ({"solver": "precomputed", "row_features": "bogus"}, ValueError),
+    ({"solver": "sampled", "row_features": "bogus"}, ValueError),
 ])
 def test_constructor_errors(kw, err):
     _, x, y, _ = _kernels_setup()
     model = MF(24, 18, 4, 1e-3)
     params = model.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
-                       else "unknown"):
+    with pytest.raises(err, match="unknown"):
         InfluenceEngine(model, params, RatingDataset(x, y), device="cpu",
                         **kw)
 
