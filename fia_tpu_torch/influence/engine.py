@@ -69,9 +69,16 @@ the reference's names: spans ``engine.query``, ``engine.dispatch_flat``,
 ``engine.dispatch_sampled``, ``engine.precompile``, ``engine.bank_load``;
 counters ``engine.aot_hits``/``aot_misses``, ``engine.bank_hits``/
 ``bank_misses``, ``engine.sampled_queries``,
-``engine.sampled_escalations{reason}``, ``engine.queries_total{solver}``,
+``engine.sampled_escalations{reason}``,
 ``engine.solver_escalations{from,to}``, and the port's
-``engine.device_resets`` and ``engine.cpu_fallback_batches``.
+``engine.device_resets`` and ``engine.cpu_fallback_batches``. The port
+adds a span at each step of the flat pipeline: ``engine.query_many``
+(the root of one call), under each ``engine.dispatch_flat`` the
+``engine.plan``, ``engine.upload`` and one ``engine.replay`` a card,
+under each ``engine.finalize_flat`` the ``engine.fetch`` and
+``engine.stitch``, and ``engine.capture`` around each program's build.
+While a torch profiler records, each span is also a profiler range of
+its name (:mod:`fia_tpu_torch.obs.trace`).
 
 Over a device mesh (``mesh=``, :mod:`fia_tpu_torch.parallel.mesh`) the
 query axis is sharded along ``data`` as in the reference (docs/design.md
@@ -417,9 +424,12 @@ class _FlatGraph:
     all on the current stream, so the host never waits and a later
     replay cannot overwrite outputs still in flight. Each replay adds
     the kernel launches the graph holds to the kernel modules' counts
-    (the wrappers count nothing while capturing)."""
+    (the wrappers count nothing while capturing). ``warmup_s`` and
+    ``capture_s`` are the host seconds of the eager warm-up (to the
+    device's drain) and of the record."""
 
     def __init__(self, fn, args, inputs, device):
+        t0 = time.perf_counter()
         self.inputs = tuple(torch.zeros(shape, dtype=dtype, device=device)
                             for shape, dtype in inputs)
         side = _warmup_stream(device)
@@ -431,6 +441,7 @@ class _FlatGraph:
             raise RuntimeError(f"warm-up: {e}") from e
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
+        self.warmup_s = time.perf_counter() - t0
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         captured = K.captured_counts()
@@ -1250,12 +1261,13 @@ class InfluenceEngine:
         """Each shard's query block on its device (``None`` for a shard
         another process runs)."""
         out = []
-        for dev, block in zip(self._shard_devices(), blocks):
-            if dev is None:
-                out.append(None)
-                continue
-            with _on(dev):
-                out.append(self._upload(block, dev))
+        with obs.span("engine.upload", ndev=len(blocks)):
+            for dev, block in zip(self._shard_devices(), blocks):
+                if dev is None:
+                    out.append(None)
+                    continue
+                with _on(dev):
+                    out.append(self._upload(block, dev))
         return out
 
     def _local_tables(self, txs: list, related) -> list:
@@ -1342,21 +1354,25 @@ class InfluenceEngine:
                 continue
             dev, tx, params, _, keys = sh
             with _on(dev):
-                outs.append(self._flat_exec(t_loc, s_loc, mode, dev)(
-                    tx, *keys, *(params[n] for n in names)))
+                prog = self._flat_exec(t_loc, s_loc, mode, dev)
+                with obs.span("engine.replay", device=str(dev)):
+                    outs.append(prog(tx, *keys, *(params[n] for n in names)))
         return outs
 
     def _collect(self, outs) -> list[list[np.ndarray]]:
         """Each shard's outputs as host arrays in shard order: this
         process's fetched in one transfer a device
         (:func:`_fetch_shards`), and, over a mesh spanning processes, the
-        others' all-gathered in global shard order."""
+        others' all-gathered in global shard order: the host's wait
+        for a dispatch (the ``engine.fetch`` span)."""
         mine = [k for k, o in enumerate(outs) if o is not None]
         parts = [None] * len(outs)
-        if mine:
-            for k, h in zip(mine, _fetch_shards([outs[k] for k in mine])):
-                parts[k] = h
-        return pdist.fill_shards(parts)
+        with obs.span("engine.fetch"):
+            if mine:
+                for k, h in zip(mine,
+                                _fetch_shards([outs[k] for k in mine])):
+                    parts[k] = h
+            return pdist.fill_shards(parts)
 
     @staticmethod
     def _stitch(shards: list, counts, q: int, flat: int) -> list:
@@ -1431,14 +1447,19 @@ class InfluenceEngine:
         builds on the hot path. Geometries come from
         :meth:`flat_geometry` over the planned batches or an explicit
         list. No-op when the flat path is ineligible. Returns
-        ``{"compiled": [[t, s], ...], "cached": [...], "seconds": float}``.
+        ``{"compiled": [[t, s], ...], "cached": [...], "seconds": float,
+        "warmup_s": float, "record_s": float}``: the whole call's host
+        seconds, and the sums over its CUDA graphs of the eager warm-ups
+        and of the records (0 on the CPU, which captures nothing).
         """
         if not (self.impl in ("auto", "flat") and self._flat_eligible()):
-            return {"compiled": [], "cached": [], "seconds": 0.0}
+            return {"compiled": [], "cached": [], "seconds": 0.0,
+                    "warmup_s": 0.0, "record_s": 0.0}
         t0 = time.perf_counter()
         compiled, cached = [], []
-        # each capture's compile.backend event (compilemon) attaches to
-        # this span: the geometry's attribution
+        warmup_s = record_s = 0.0
+        # each build is an engine.capture span under this one, which
+        # carries its compile.backend event (compilemon) and geometry
         with obs.span("engine.precompile") as sp:
             for t_pad, s_pad in geometries:
                 t_pad, s_pad = int(t_pad), int(s_pad)
@@ -1447,14 +1468,18 @@ class InfluenceEngine:
                     key = self._flat_key(t_pad, s_pad, dev=dev)
                     if key not in self._programs:
                         with _on(dev):
-                            self._programs[key] = self._build_flat(
+                            prog = self._programs[key] = self._build_flat(
                                 t_pad, s_pad, dev=dev)
+                        if isinstance(prog, _FlatGraph):
+                            warmup_s += prog.warmup_s
+                            record_s += prog.capture_s
                         built = True
                 (compiled if built else cached).append([t_pad, s_pad])
                 self._aot.add(self._aot_key(t_pad, s_pad))
             sp.set(compiled=len(compiled), cached=len(cached))
         return {"compiled": compiled, "cached": cached,
-                "seconds": time.perf_counter() - t0}
+                "seconds": time.perf_counter() - t0,
+                "warmup_s": warmup_s, "record_s": record_s}
 
     def compiled_geometries(self) -> dict:
         """The built flat programs: ``"aot"``, the ``[t_pad, s_pad]``
@@ -1477,7 +1502,8 @@ class InfluenceEngine:
         rows each). On the card a captured CUDA graph (raising with the
         cause if the program cannot be captured), on the CPU the program
         closure. Each build is counted by
-        :mod:`fia_tpu_torch.utils.compilemon`, with its capture time."""
+        :mod:`fia_tpu_torch.utils.compilemon`, with its capture time, and
+        is an ``engine.capture`` span."""
         dev = self.device if dev is None else dev
         sharded = self._sharded_now()
         fn = self._flat_fn(s_pad, mode=mode, sharded=sharded)
@@ -1500,16 +1526,19 @@ class InfluenceEngine:
             return fn(_with_tables(params, names, xs[2:]), *state, tx,
                       *xs[:2], *bank)
 
-        if dev.type != "cuda":
-            compilemon.record()
-            return run
-        try:
-            prog = _FlatGraph(run, (), inputs, dev)
-        except Exception as e:
-            raise RuntimeError(
-                f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
-                f"{s_pad}) could not be captured as a CUDA graph: {e}") from e
-        compilemon.record(prog.capture_s)
+        with obs.span("engine.capture", t_pad=t_pad, s_pad=s_pad, mode=mode,
+                      device=str(dev)):
+            if dev.type != "cuda":
+                compilemon.record()
+                return run
+            try:
+                prog = _FlatGraph(run, (), inputs, dev)
+            except Exception as e:
+                raise RuntimeError(
+                    f"the {mode} flat program at (t_pad, s_pad) = ({t_pad}, "
+                    f"{s_pad}) could not be captured as a CUDA graph: {e}"
+                ) from e
+            compilemon.record(prog.capture_s)
         return prog
 
     def _flat_exec(self, t_pad: int, s_pad: int, mode: str = "direct",
@@ -1578,8 +1607,10 @@ class InfluenceEngine:
         shards (:meth:`_mesh_blocks`; one without a mesh), each run by the
         single-device program on its slot's device; ``outputs`` holds
         each shard's, ``plan`` is :meth:`_mesh_plan`'s."""
-        counts, tx_np = self._query_block(test_points, bank_rows)
-        plan, blocks = self._mesh_blocks(tx_np, counts)
+        with obs.span("engine.plan") as sp:
+            counts, tx_np = self._query_block(test_points, bank_rows)
+            plan, blocks = self._mesh_blocks(tx_np, counts)
+            sp.set(t_loc=plan[2], s_loc=plan[3])
         return counts, self._run_shards(blocks, *plan[2:], mode), plan
 
     def _dispatch_flat(self, test_points: np.ndarray, pad_to: int | None):
@@ -1598,8 +1629,11 @@ class InfluenceEngine:
             return (test_points, counts, out, pad, plan[1])
 
     def _finalize_flat(self, handle) -> InfluenceResult:
+        """Fetch and assemble one :meth:`_dispatch_flat`'s results (the
+        ``engine.finalize_flat`` span)."""
         test_points, counts, out, pad, q = handle
-        return self._assemble_packed(test_points, counts, out, pad, q=q)
+        with obs.span("engine.finalize_flat"):
+            return self._assemble_packed(test_points, counts, out, pad, q=q)
 
     def _assemble_packed(self, test_points, counts, outs, pad: int,
                          iterations: int | None = None,
@@ -1611,25 +1645,29 @@ class InfluenceEngine:
         (:meth:`_stitch`, ``q`` real queries a shard; None: one shard),
         and wrap them as a packed result. Query-axis pad rows slice away
         here; their flat rows already sit past each shard's real total in
-        its packed scores."""
+        its packed scores (the fetch is the ``engine.fetch`` span, the
+        rest ``engine.stitch``)."""
         T = int(np.asarray(counts).shape[0])
         total = int(counts.sum())
-        packed, ihvp, v, *err = self._stitch(
-            self._collect(outs), counts, max(T, 1) if q is None else q, 1)
-        # the payload seam every rung shares (the fetched iHVP host buffer)
-        ihvp = inject.corrupt(sites.ENGINE_SOLVE, ihvp)
-        return InfluenceResult(
-            counts=counts,
-            ihvp=ihvp,
-            test_grad=v,
-            packed=packed[:total],
-            test_points=np.asarray(test_points),
-            index=self.index,
-            pad=pad,
-            iterations=iterations,
-            err_bound=err[0] if err else None,
-            approx=bool(err),
-        )
+        shards = self._collect(outs)
+        with obs.span("engine.stitch"):
+            packed, ihvp, v, *err = self._stitch(
+                shards, counts, max(T, 1) if q is None else q, 1)
+            # the payload seam every rung shares (the fetched iHVP host
+            # buffer)
+            ihvp = inject.corrupt(sites.ENGINE_SOLVE, ihvp)
+            return InfluenceResult(
+                counts=counts,
+                ihvp=ihvp,
+                test_grad=v,
+                packed=packed[:total],
+                test_points=np.asarray(test_points),
+                index=self.index,
+                pad=pad,
+                iterations=iterations,
+                err_bound=err[0] if err else None,
+                approx=bool(err),
+            )
 
     def _query_flat(self, test_points: np.ndarray,
                     pad_to: int | None = None,
@@ -2569,11 +2607,8 @@ class InfluenceEngine:
         A non-finite payload (a diverged LiSSA or Schulz solve returns a
         "successful" NaN buffer) escalates the solver down the ladder
         (``lissa → cg → direct``, ``schulz → direct``) and recomputes.
-        Each call is an ``engine.query`` span, counted by solver in
-        ``engine.queries_total`` and timed (host wall, µs) in
-        ``engine.query_us``.
+        Each call is an ``engine.query`` span.
         """
-        t0 = time.perf_counter()
         with obs.span("engine.query", solver_requested=self.solver) as sp:
             res = self._query_batch_impl(test_points, pad_to)
             res = self._nan_ladder(
@@ -2581,9 +2616,6 @@ class InfluenceEngine:
             # the ladder may have escalated self.solver
             sp.set(solver=self.solver, kernel=self._kernel_variant,
                    n=int(np.asarray(test_points).reshape(-1, 2).shape[0]))
-        obs.REGISTRY.counter("engine.queries_total", solver=self.solver).inc()
-        obs.REGISTRY.histogram("engine.query_us", solver=self.solver).observe(
-            (time.perf_counter() - t0) * 1e6)
         return res
 
     def query_many(
@@ -2656,28 +2688,31 @@ class InfluenceEngine:
                 bank(k, self.query_batch(batches[k], pad_to=pad_to))
             return results
         done = 0  # finalize order == dispatch order == batch order
-        try:
-            inflight: list = []
-            for k in todo:
-                if deadline is not None:
-                    deadline.check("query_many (dispatch)")
-                inflight.append((k, self._dispatch_flat(batches[k], pad_to)))
-                if len(inflight) >= max(1, window):
+        with obs.span("engine.query_many", n=int(len(test_points)),
+                      batches=len(todo), window=window):
+            try:
+                inflight: list = []
+                for k in todo:
+                    if deadline is not None:
+                        deadline.check("query_many (dispatch)")
+                    inflight.append((k, self._dispatch_flat(batches[k],
+                                                            pad_to)))
+                    if len(inflight) >= max(1, window):
+                        j, h = inflight.pop(0)
+                        bank(j, self._finalize_flat(h))
+                        done += 1
+                while inflight:
                     j, h = inflight.pop(0)
                     bank(j, self._finalize_flat(h))
                     done += 1
-            while inflight:
-                j, h = inflight.pop(0)
-                bank(j, self._finalize_flat(h))
-                done += 1
-        except Exception as e:
-            if taxonomy.classify(e) not in (taxonomy.WORKER,
-                                            taxonomy.PREEMPTION):
-                raise
-            inflight = []  # the dead dispatches' outputs
-            self._reset_device_state()
-            for k in todo[done:]:
-                bank(k, self._query_flat(batches[k], pad_to))
+            except Exception as e:
+                if taxonomy.classify(e) not in (taxonomy.WORKER,
+                                                taxonomy.PREEMPTION):
+                    raise
+                inflight = []  # the dead dispatches' outputs
+                self._reset_device_state()
+                for k in todo[done:]:
+                    bank(k, self._query_flat(batches[k], pad_to))
         return results
 
     # -- resumable-execution plumbing --------------------------------------

@@ -10,6 +10,11 @@
   ``trace_event`` JSON, Prometheus text exposition.
 - :mod:`fia_tpu_torch.obs.diag` — the replacement for bare ``print``
   diagnostics: stderr + counter + span event in one call.
+
+While a torch profiler records, every span is also a profiler range of
+its name, on the clock of the device's kernels and copies. The spans and
+counts the benchmark reads, each beside the per-layer metric it feeds,
+are listed in ``PERF.md`` §3 ("What reads each span and count").
 """
 
 from fia_tpu_torch.obs.diag import diag

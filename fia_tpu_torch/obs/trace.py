@@ -11,16 +11,23 @@ traffic produce identical ids whether or not tracing was on.
 Propagation is a contextvar (`_CUR`), so nested ``with span(...)``
 blocks parent correctly through the engine→dispatch→solver call stack
 without any plumbing through signatures. When tracing is disabled
-(the default for raw library use) every entry point degrades to a
-shared no-op span — zero allocations on the hot path beyond one
-contextvar read. Spans time the host: a span around an enqueue on the
-card ends when the work is queued, not when it has run.
+(the default for raw library use) ``span`` and ``trace`` return one
+shared no-op context manager that yields the shared no-op span: no
+allocation, no clock read. Spans time the host: a span around an
+enqueue on the card ends when the work is queued, not when it has run.
+
+While tracing is on and a ``torch.profiler`` is recording, each span
+also enters ``torch.profiler.record_function(<span name>)`` for its
+duration, so it appears in the profiler's trace as a
+``user_annotation`` on the clock of the device's kernels and copies.
+With no profiler recording, no range is entered.
 """
 
 from __future__ import annotations
 
 import contextvars
 import hashlib
+import sys
 import time
 from collections import deque
 from contextlib import contextmanager
@@ -89,6 +96,34 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+class _NoopContext:
+    """``with`` of a disabled span or trace: yields ``NOOP_SPAN``.
+    Shared singleton."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return NOOP_SPAN
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NOOP_CONTEXT = _NoopContext()
+
+
+def _profiler_range(name: str):
+    """An entered ``torch.profiler.record_function(name)`` while a torch
+    profiler records, else ``None``. A process that never imported torch
+    runs no profiler, so this imports nothing."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 class _Ctx:
     """Per-trace mutable state carried by the contextvar."""
 
@@ -120,25 +155,29 @@ class Tracer:
 
     # -- trace / span entry points -----------------------------------
 
-    @contextmanager
     def trace(self, seed: str):
         """Open a fresh trace context derived from ``seed``."""
         if not self.enabled:
-            yield NOOP_SPAN
-            return
+            return NOOP_CONTEXT
+        return self._trace(seed)
+
+    @contextmanager
+    def _trace(self, seed: str):
         tok = _CUR.set(_Ctx(trace_id_for(seed)))
         try:
             yield NOOP_SPAN
         finally:
             _CUR.reset(tok)
 
-    @contextmanager
     def span(self, name: str, trace_seed: str | None = None, **attrs):
         """Timed stage under the current trace (opens an anonymous
         deterministic trace when none is active)."""
         if not self.enabled:
-            yield NOOP_SPAN
-            return
+            return NOOP_CONTEXT
+        return self._span(name, trace_seed, attrs)
+
+    @contextmanager
+    def _span(self, name: str, trace_seed: str | None, attrs: dict):
         ctx = _CUR.get()
         tok = None
         if ctx is None:
@@ -155,9 +194,12 @@ class Tracer:
         if attrs:
             sp.attrs.update(attrs)
         ctx.current = sp
+        rf = _profiler_range(name)
         try:
             yield sp
         finally:
+            if rf is not None:
+                rf.__exit__(None, None, None)
             sp.t1 = time.time()
             ctx.current = parent
             self._finish(sp)
@@ -221,12 +263,10 @@ def tracing_enabled() -> bool:
     return TRACER.enabled
 
 
-def span(name: str, trace_seed: str | None = None, **attrs):
-    return TRACER.span(name, trace_seed=trace_seed, **attrs)
-
-
-def trace(seed: str):
-    return TRACER.trace(seed)
+# the process-wide tracer's entry points, bound: a disabled span costs one
+# call and one attribute read
+span = TRACER.span
+trace = TRACER.trace
 
 
 def current_span():

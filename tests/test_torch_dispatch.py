@@ -184,7 +184,8 @@ def test_precompile_is_a_noop_when_the_flat_path_is_ineligible():
     eng = _engine(model, params, train, solver="cg")
     before = compilemon.count()
     assert eng.precompile_flat([eng.flat_geometry(pts)]) == {
-        "compiled": [], "cached": [], "seconds": 0.0}
+        "compiled": [], "cached": [], "seconds": 0.0, "warmup_s": 0.0,
+        "record_s": 0.0}
     assert compilemon.count() == before
 
 

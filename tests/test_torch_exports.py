@@ -3,8 +3,8 @@
 Every name a reference package ``__init__`` exports imports from its port
 twin (the re-exports are lazy: importing a package loads no more than
 before), save the Pallas-only ``supports_pallas`` and
-``_PALLAS_FAMILIES``; every reference package has its twin (``NOT_YET``
-is empty). The full-parameter gradient
+``_PALLAS_FAMILIES`` and the names the port dropped (``DROPPED``);
+every reference package has its twin (``NOT_YET`` is empty). The full-parameter gradient
 helpers of ``influence/grads.py`` and the models' ``adversarial_loss``
 hook are held to the reference's on the same params (MF and NCF).
 """
@@ -29,6 +29,11 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PALLAS_ONLY = {"supports_pallas", "_PALLAS_FAMILIES"}
+# reference exports the port removed, each with why nothing needs it
+DROPPED = {
+    ("fia_tpu.utils", "Timer"): "no port module called it; the engine's "
+    "obs spans time its steps and mirror into a torch profiler's trace",
+}
 # reference packages whose port is a later Queue A item (none is left)
 NOT_YET: dict[str, str] = {}
 
@@ -59,7 +64,7 @@ def _reference_exports() -> list[tuple[str, str]]:
         if pkg in NOT_YET:
             continue
         out += [(pkg, n) for n in _exports(os.path.join(root, "__init__.py"))
-                if n not in PALLAS_ONLY]
+                if n not in PALLAS_ONLY and (pkg, n) not in DROPPED]
     return out
 
 
@@ -91,6 +96,17 @@ def test_reference_export_imports_from_the_port(pkg, name):
         assert isinstance(got, type(os))
         assert got.__name__.rsplit(".", 1)[-1] == ref.__name__.rsplit(
             ".", 1)[-1]
+
+
+@pytest.mark.parametrize("pkg,name", sorted(DROPPED),
+                         ids=[f"{p}:{n}" for p, n in sorted(DROPPED)])
+def test_dropped_export_is_gone_from_the_port(pkg, name):
+    """A name the port dropped is exported by the reference and by no
+    port package."""
+    assert name in _exports(os.path.join(REPO, *pkg.split("."),
+                                         "__init__.py"))
+    twin = importlib.import_module("fia_tpu_torch" + pkg[len("fia_tpu"):])
+    assert not hasattr(twin, name)
 
 
 def test_models_registry():

@@ -15,10 +15,13 @@ port's ``fia_tpu_torch.cli.obs`` (``audit_chains``, ``last_snapshot``,
 bytes with the same exit codes (the port writes the reference's span and
 metrics schema). ``TestChaosOracle`` is restated on the port's
 ``serve_stream`` scenario. Added here: a traced ``query_many`` returns
-the untraced run's scores as equal arrays, and emits the engine's spans.
+the untraced run's scores as equal arrays, and emits the engine's spans:
+one at each step of the flat pipeline, mirrored as profiler ranges while
+a torch profiler records, and none at all with tracing off.
 """
 
 import hashlib
+import importlib
 import json
 import os
 
@@ -286,7 +289,7 @@ class TestCompilemonMirror:
 U, I, K = 30, 20, 4
 
 
-def _engine():
+def _engine(**kw):
     rng = np.random.default_rng(0)
     x = np.stack([rng.integers(0, U, 400), rng.integers(0, I, 400)],
                  axis=1).astype(np.int32)
@@ -294,7 +297,7 @@ def _engine():
     model = MF(U, I, K, 1e-2)
     params = model.init_params(torch.Generator().manual_seed(0))
     return InfluenceEngine(model, params, RatingDataset(x, y),
-                           damping=1e-3, device="cpu"), x
+                           damping=1e-3, device="cpu", **kw), x
 
 
 def test_traced_query_many_equals_untraced_and_emits_engine_spans():
@@ -340,9 +343,212 @@ def test_traced_query_many_equals_untraced_and_emits_engine_spans():
     hits, misses = (snap.get(f"engine.aot_{k}", 0) for k in ("hits",
                                                              "misses"))
     assert hits + misses == 4 and hits >= 1
-    assert snap["engine.queries_total{solver=direct}"] == 1
+    assert snap["compile.backend_total"] == len(traced_eng._programs)
     assert json.loads(json.dumps(perfetto(spans)))["traceEvents"]
-    assert "engine_queries_total" in prometheus(obs.REGISTRY.snapshot())
+    assert "compile_backend_total" in prometheus(obs.REGISTRY.snapshot())
+
+
+# ------------------------------------------ the flat pipeline's spans
+
+#: each step's span and the span it sits under in one ``query_many``
+PIPELINE = {
+    "engine.query_many": None,
+    "engine.dispatch_flat": "engine.query_many",
+    "engine.plan": "engine.dispatch_flat",
+    "engine.upload": "engine.dispatch_flat",
+    "engine.replay": "engine.dispatch_flat",
+    "engine.finalize_flat": "engine.query_many",
+    "engine.fetch": "engine.finalize_flat",
+    "engine.stitch": "engine.finalize_flat",
+}
+
+
+def _armed(slots: int):
+    """An engine over ``slots`` query shards (a virtual mesh past one)
+    with every geometry of ``_points()`` in batches of 4 captured."""
+    from fia_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(slots, device="cpu") if slots > 1 else None
+    eng, x = _engine(mesh=mesh)
+    pts = _points(x)
+    eng.precompile_flat(sorted({eng.flat_geometry(pts[i:i + 4])
+                                for i in range(0, len(pts), 4)}))
+    return eng, pts
+
+
+def _points(x):
+    return np.unique(x, axis=0)[:12].astype(np.int64)
+
+
+@pytest.fixture
+def two_slots():
+    from fia_tpu_torch.parallel import mesh as pmesh
+
+    with pmesh.virtual_devices(2):
+        yield
+
+
+def test_query_many_spans_each_step_of_the_flat_pipeline(two_slots):
+    """Two traced calls over 3 batches on a 2-slot mesh: each call is
+    one trace under its ``engine.query_many`` root; each batch one
+    dispatch (plan, upload, one replay a card) and one finalize (fetch,
+    stitch), each span parented as ``PIPELINE`` says."""
+    eng, pts = _armed(2)
+    obs.configure(trace=True)
+    for _ in range(2):
+        eng.query_many(pts, batch_queries=4, window=2)
+    spans = [span_fields(s) for s in obs.TRACER.flush()]
+    assert {s["name"] for s in spans} == set(PIPELINE)
+    by_id = {s["span"]: s for s in spans}
+    for s in spans:
+        parent = by_id.get(s["parent"])
+        assert (parent and parent["name"]) == PIPELINE[s["name"]], s
+        if parent is not None:
+            assert parent["trace"] == s["trace"]
+            assert parent["t0"] <= s["t0"]
+    roots = [s for s in spans if s["name"] == "engine.query_many"]
+    assert len(roots) == 2 and roots[0]["trace"] != roots[1]["trace"]
+    for root in roots:
+        assert root["attrs"] == {"n": 12, "batches": 3, "window": 2}
+        mine = [s for s in spans if s["trace"] == root["trace"]]
+        names = [s["name"] for s in mine]
+        assert len(mine) == 1 + 3 * 8
+        assert names.count("engine.replay") == 6
+        for d in (s for s in mine if s["name"] == "engine.dispatch_flat"):
+            kids = [s for s in mine if s["parent"] == d["span"]]
+            assert [k["name"] for k in kids].count("engine.replay") == 2
+    attrs = {s["name"]: s["attrs"] for s in spans}
+    assert attrs["engine.upload"] == {"ndev": 2}
+    assert attrs["engine.replay"] == {"device": "cpu"}
+    assert set(attrs["engine.plan"]) == {"t_loc", "s_loc"}
+    assert attrs["engine.fetch"] == attrs["engine.stitch"] == {}
+
+
+def test_spans_are_profiler_ranges_while_a_profiler_records(tmp_path):
+    """Under ``torch.profiler`` each span is also a ``user_annotation``
+    of its name, nested as the spans are, and as long to 0.5 ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, pts = _armed(1)
+    obs.configure(trace=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.query_many(pts, batch_queries=4, window=2)
+    spans = sorted(obs.TRACER.flush(), key=lambda s: s.t0)
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        ranges = sorted((e for e in json.load(fh)["traceEvents"]
+                         if e.get("cat") == "user_annotation"
+                         and e["name"] in PIPELINE),
+                        key=lambda e: float(e["ts"]))
+    assert [r["name"] for r in ranges] == [s.name for s in spans]
+    assert len(spans) == 1 + 3 * 7
+    of = {s.span_id: r for s, r in zip(spans, ranges)}
+    for s, r in zip(spans, ranges):
+        assert abs(float(r["dur"]) - (s.t1 - s.t0) * 1e6) <= 500.0
+        if s.parent_id is not None:
+            p = of[s.parent_id]
+            assert float(p["ts"]) <= float(r["ts"])
+            assert (float(r["ts"]) + float(r["dur"])
+                    <= float(p["ts"]) + float(p["dur"]))
+
+
+def test_disabled_tracing_builds_no_span_and_enters_no_range(monkeypatch):
+    """With tracing off a profiled ``query_many`` builds no ``Span`` and
+    enters no ``record_function``: every span is the shared no-op."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # the module (the package's ``trace`` is the function)
+    obs_trace = importlib.import_module("fia_tpu_torch.obs.trace")
+    eng, pts = _armed(1)
+
+    def entered(*a, **k):
+        raise AssertionError("built or entered with tracing off")
+
+    monkeypatch.setattr(obs_trace, "Span", entered)
+    monkeypatch.setattr(torch.profiler, "record_function", entered)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", entered)
+    assert obs.span("engine.plan") is obs.span("engine.fetch", n=1)
+    assert obs.trace("a") is obs.span("b")
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = eng.query_many(pts, batch_queries=4, window=2)
+    res += eng.query_many(pts, batch_queries=4, window=2)
+    assert len(res) == 6
+    assert obs.TRACER.flush() == []
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+def test_traced_results_are_the_untraced_bits(two_slots, slots):
+    """Tracing on, under a profiler too, changes no result bit, on one
+    slot and on a 2-slot mesh."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, pts = _armed(slots)
+    off = eng.query_many(pts, batch_queries=4, window=2)
+    obs.configure(trace=True)
+    on = eng.query_many(pts, batch_queries=4, window=2)
+    with profile(activities=[ProfilerActivity.CPU]):
+        prof = eng.query_many(pts, batch_queries=4, window=2)
+    assert obs.TRACER.flush()
+    for got in (on, prof):
+        for g, b in zip(got, off, strict=True):
+            assert g.counts.tobytes() == b.counts.tobytes()
+            assert g.ihvp.tobytes() == b.ihvp.tobytes()
+            assert g.test_grad.tobytes() == b.test_grad.tobytes()
+            assert g._packed.tobytes() == b._packed.tobytes()
+
+
+def test_precompile_times_warmup_and_record_apart():
+    """``precompile_flat`` returns the sums of its builds' warm-ups and
+    records (0 on the CPU, which captures nothing), within its own
+    seconds; each build is one ``engine.capture`` span under the
+    precompile, and a build on the hot path one under its dispatch,
+    before the replay and not under it."""
+    eng, x = _engine()
+    pts = _points(x)
+    obs.configure(trace=True)
+    pre = eng.precompile_flat([eng.flat_geometry(pts[:4])])
+    assert pre["warmup_s"] == 0.0 and pre["record_s"] == 0.0
+    assert pre["warmup_s"] + pre["record_s"] <= pre["seconds"]
+    cold, _ = _engine()
+    cold.query_many(pts, batch_queries=4, window=2)
+    spans = [span_fields(s) for s in obs.TRACER.flush()]
+    by_id = {s["span"]: s for s in spans}
+    caps = [s for s in spans if s["name"] == "engine.capture"]
+    assert len(caps) == len(eng._programs) + len(cold._programs) == 2
+    assert by_id[caps[0]["parent"]]["name"] == "engine.precompile"
+    (t_pad, s_pad), = pre["compiled"]
+    assert caps[0]["attrs"] == {"t_pad": t_pad, "s_pad": s_pad,
+                                "mode": "direct", "device": "cpu"}
+    disp = by_id[caps[1]["parent"]]
+    assert disp["name"] == "engine.dispatch_flat"
+    (replay,) = [s for s in spans if s["name"] == "engine.replay"
+                 and s["parent"] == disp["span"]]
+    assert caps[1]["t0"] + caps[1]["dur_us"] / 1e6 <= replay["t0"] + 2e-6
+
+
+@pytest.mark.cuda
+def test_precompile_times_warmup_and_record_apart_on_the_card():
+    """On the card each build is a captured graph: its warm-up and its
+    record both take time, and their sums sit within the call's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: only there is a program captured "
+                    "as a CUDA graph")
+    rng = np.random.default_rng(0)
+    x = np.stack([rng.integers(0, U, 400), rng.integers(0, I, 400)],
+                 axis=1).astype(np.int32)
+    y = rng.integers(1, 6, 400).astype(np.float32)
+    model = MF(U, I, K, 1e-2)
+    eng = InfluenceEngine(model, model.init_params(
+        torch.Generator().manual_seed(0)), RatingDataset(x, y), damping=1e-3)
+    pts = _points(x)
+    obs.configure(trace=True)
+    pre = eng.precompile_flat([eng.flat_geometry(pts[:4]),
+                               eng.flat_geometry(pts[4:])])
+    assert pre["warmup_s"] > 0 and pre["record_s"] > 0
+    assert pre["warmup_s"] + pre["record_s"] <= pre["seconds"]
+    caps = [s for s in obs.TRACER.flush() if s.name == "engine.capture"]
+    assert len(caps) == len(pre["compiled"])
 
 
 # ------------------------------------------------------------- timing
@@ -352,34 +558,11 @@ class TestTiming:
     """``utils/timing.py`` on the CPU (no fence needed there; on the
     card it synchronises the outputs' devices)."""
 
-    def test_timer_sections_are_spans(self):
-        from fia_tpu_torch.utils.timing import Timer
-
-        obs.configure(trace=True)
-        t = Timer(span_prefix="bench")
-        with t("solve", fence=True) as sec:
-            out = sec.fence(torch.ones(3) * 2)
-        with t("solve"):
-            pass
-        assert torch.equal(out, torch.full((3,), 2.0))
-        assert set(t.report()) == {"solve"} and t.report()["solve"] >= 0
-        assert [s.name for s in obs.TRACER.flush()] == ["bench.solve"] * 2
-
     def test_fenced_time_returns_the_result(self):
         from fia_tpu_torch.utils.timing import fenced_time
 
         out, secs = fenced_time(lambda a: {"x": (a + 1,)}, torch.zeros(2))
         assert torch.equal(out["x"][0], torch.ones(2)) and secs >= 0
-
-    def test_profile_trace_writes_a_chrome_trace(self, tmp_path):
-        from fia_tpu_torch.utils.timing import profile_trace
-
-        with profile_trace(str(tmp_path / "prof")):
-            torch.ones(64) @ torch.ones(64)
-        with open(tmp_path / "prof" / "trace.json") as fh:
-            assert json.load(fh)["traceEvents"]
-        with profile_trace(None):  # off: a no-op
-            pass
 
 
 # ------------------------------------------------------------- serving
